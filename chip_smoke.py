@@ -4,21 +4,41 @@
     python3 chip_smoke.py
 
 Phases, each of which fails the run:
-  build    every CUDA source under hosnerf_tpu_torch/csrc, one nvcc each,
-           all started together;
-  kernels  each hand-written kernel against its plain PyTorch version on
-           the card at the render path's shapes (1,048,576 samples per
-           8192-ray chunk), both precisions, outputs NaN-poisoned first;
-  render   3 frames of 128 x 128 rays through the port's render entry point
-           (`eval/renderers.py`: render_human_image + make_render_fn) with
-           the full-width stage-2 model (random weights from seed 0, bf16
-           trunks), both kernels' launch counts read around that run, the
-           image checked, and one chunk held against the dense plain path;
-  profile  one more frame under torch.profiler: device and host time by
-           operator, and the device's idle share.
+  build     every CUDA source under hosnerf_tpu_torch/csrc, one nvcc each,
+            all started together;
+  kernels   each hand-written kernel against its plain PyTorch version on
+            the card, both precisions, outputs NaN-poisoned first: the
+            render kernels (inverse LBS B1, embed+trunk B2) at the render
+            path's shapes (1,048,576 samples per 8192-ray chunk), the
+            training kernels (trunk backward B3, inverse-LBS backward B4,
+            forward LBS B5 forward and backward) at the training step's
+            (262,144 samples: 2 patches of 32 x 32 rays, 128 samples each),
+            the block-skipping kernels at k0 = 0, at the batch's own live
+            k0 and at the all-dead clamp;
+  render    3 frames of 128 x 128 rays through the port's render entry point
+            (`eval/renderers.py`: render_human_image + make_render_fn) with
+            the full-width stage-2 model (random weights from seed 0, bf16
+            trunks), the render kernels' launch counts read around that run,
+            the image checked, and one chunk held against the dense plain
+            path;
+  profile   one more frame under torch.profiler: device and host time by
+            operator, and the device's idle share;
+  train     the stage-2 training step (`train/stage2.py`: init_state +
+            make_train_step, LPIPS on the patches with the random backbone)
+            at full width on one fixed synthetic batch at iter 60,000: one
+            warm-up step, then TRAIN_STEPS timed steps with all six kernels'
+            launch counts read around them; the loss finite at every step
+            and lower afterwards than at the first step;
+  profile   one more training step under torch.profiler;
+  gradcheck one step's gradients on the training batch, the kernel path
+            on the card against the same path through the kernels' plain
+            versions on the CPU (f32 trunks, same weights), parameter by
+            parameter (`train/gradcheck.py`).
 
 Stdout ends with the card's name and power limit, one JSON line of kernel
-results and one JSON status line. Without a CUDA device, or outside a
+results and one JSON status line. The render kernels' entries report the
+render path (their launches there, their times at its shapes), the training
+kernels' entries the training step. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
 
@@ -34,6 +54,14 @@ RAYS = 128 * 128           # one frame
 CHUNK = 8192               # rays per chunk (renderers.render_human_image)
 FRAMES = 3
 ITER = 10 ** 7             # the render path's iter_val
+TRAIN_ITER = 60_000        # non-rigid condition and full hann band on
+TRAIN_STEPS = 10
+# kernel launches per training step: the sorted path runs the inverse LBS
+# once, the trunks four times (non-rigid, canonical, and the forward
+# non-rigid MLP on both deform streams) and the forward LBS once
+PER_STEP = {"inverse_core_pg_s": 1, "fused_embed_trunk": 4,
+            "shared_blend_fwd": 1, "inverse_core_bwd": 1,
+            "fused_embed_trunk_bwd": 4, "shared_blend_bwd": 1}
 
 # Tolerances, kernel vs its plain version on the same inputs:
 # inverse LBS does the same arithmetic in the same order with
@@ -44,6 +72,27 @@ TOL_LBS = 1e-6
 # ulp of the activations -> 1e-2 of the scale, and at most 5% of the
 # entries beyond 1e-3 of it.
 TOL_MLP = {"highest": 1e-5, "bf16": 1e-2}
+# Backward kernels, (relative L2, max error over the output's scale). The
+# sums over samples (dvol, drg, drmat, dW, broadcast daux) come in atomic
+# order: 1e-4 for the LBS backwards (B4, B5) and the forward LBS (1e-5).
+# In bf16 the LBS backwards round a gradient factor (gw hz in B4, gw =
+# bf16(dw) in B5) that kernel and plain version sum in another f32 order;
+# where it lands on a rounding boundary the two round apart by one bf16
+# ulp (2^-7 relative) of that term -> max 1e-2 of the scale (H100, B5 at
+# the training shapes: 3.7e-4), L2 unchanged.
+# Trunk backward (B3), (relative L2, threshold over the scale, share of
+# entries allowed beyond it): highest sums in another f32 order, and among
+# the ~2e8-5e8 pre-activations of a call some sit within f32 noise of 0
+# and flip their ReLU mask, which moves that row's gradients by up to
+# their own size (H100, non-rigid daux: one entry at 2.3% of the scale,
+# L2 2.2e-4), so no max bound holds; bf16 adds flipped bf16 roundings of
+# activations and of gc (2^-9), which the fourier PE multiplies by up to
+# 2^9 in dx (tests/test_torch_cuda.py at 3,000 rows, H100: 1e-2 L2, 7e-2
+# max on dx). So B3 is held to its L2 and to at most 0.1% of entries off
+# by more than 1% (highest) or 10% (bf16) of the scale.
+TOL_BWD = {"lbs_highest": (1e-4, 1e-4), "lbs_bf16": (1e-4, 1e-2),
+           "blend_fwd": (1e-5, 1e-5),
+           "mlp_highest": (2e-3, 1e-2, 1e-3), "mlp_bf16": (2e-2, 1e-1, 1e-3)}
 # Render chunk, sorted kernel path vs dense plain path (gather LBS in f32,
 # module MLPs with cuBLAS bf16). With random weights the subject is faint
 # (alpha up to a few 1e-2), so alpha and the darkening 1 - rgb are compared
@@ -54,7 +103,29 @@ TOL_MLP = {"highest": 1e-5, "bf16": 1e-2}
 # comparison on the CPU at full width differs by <= 0.9% of the maximum
 # -> max 5%, mean 0.2% of the maximum.
 TOL_RENDER_MAX, TOL_RENDER_MEAN, MIN_ALPHA = 5e-2, 2e-3, 1e-2
+# Training gradients, the kernel path on the card vs the same sorted path
+# on the plain versions on the CPU (f32 trunks, bf16 LBS taps on both
+# sides, same weights and batch): relative L2 per parameter with a nonzero
+# gradient, and the loss relative to the plain one. The two differ by the
+# kernels' summation order and the bf16 tap roundings it flips: H100 at
+# the training batch, worst 2.5e-3 (pose decoder's dstR/dstT heads), the
+# loss equal to 8 digits -> 1e-2. A kernel wired wrongly moves gradients
+# by far more (B4 without its dTg term: see PERF.md).
+TOL_GRAD = 1e-2
+TOL_GRAD_LOSS = 1e-4
 ITERS = 10                 # timed launches per kernel measurement
+
+# H100 SXM peaks (NVIDIA data sheet), for the bounds: HBM bytes/s, dense
+# bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
+HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+# f32 operations each kernel does, counted from its arithmetic: per live
+# (sample, bone) pair for the inverse LBS (affine 18, taps 24, xy weights
+# 4, z column 16, blend 8; the backward adds the derivative taps, dvol
+# products and the affine's adjoint), per (computed sample, bone) for the
+# forward LBS (z columns 16, weight 4, blend 2 x 12K; the backward adds
+# dw 2 x 12K, dvol/U 32, dfz 6).
+OPS_B1_PAIR, OPS_B4_PAIR = 75, 250
+OPS_B5F_BONE, OPS_B5B_BONE = 68, 166
 
 
 class SmokeFailure(Exception):
@@ -88,25 +159,72 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def poison(torch, out_bytes: int, device):
-    """Empty the allocator cache, then fill and free NaN blocks: two of the
-    output's size and a few small ones for the wrapper's scratch, so the
-    caching allocator (best fit) hands the output a NaN-filled block, the
-    state a missed write would leave behind. Returns the poisoned address
-    ranges, for `landed`."""
+def bound(nbytes: float, f32_ops: float = 0.0, bf16_ops: float = 0.0):
+    """(least ms the card could take, 'bytes' or 'operations')."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = (f32_ops / F32_FLOPS + bf16_ops / BF16_FLOPS) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def poison(torch, device, *out_bytes: int):
+    """Empty the allocator cache, then fill and free NaN blocks: four of
+    each output's size and a few small ones for the wrapper's scratch, so
+    the caching allocator (best fit) hands each output NaN-filled memory,
+    the state a missed write would leave behind. Callers free the previous
+    round's tensors first, so that no partly used segment keeps a free
+    block that fits an output better. Returns the poisoned address
+    ranges, adjacent ones merged (freed neighbours coalesce), for
+    `landed`."""
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    sizes = [out_bytes, out_bytes] + [4 << 20] * 4
+    sizes = [nb for nb in out_bytes for _ in range(4)] + [4 << 20] * 4
     blocks = [torch.full((-(-nb // 4),), float("nan"), device=device)
               for nb in sizes]
-    return [(b.data_ptr(), b.data_ptr() + 4 * b.numel()) for b in blocks]
+    ranges = []
+    for a, b in sorted((t.data_ptr(), t.data_ptr() + 4 * t.numel())
+                       for t in blocks):
+        if ranges and a <= ranges[-1][1]:
+            ranges[-1] = (ranges[-1][0], max(ranges[-1][1], b))
+        else:
+            ranges.append((a, b))
+    return ranges
 
 
 def landed(t, ranges) -> bool:
-    """Whether tensor t was allocated inside a poisoned block."""
+    """Whether tensor t was allocated inside poisoned memory."""
     lo = t.data_ptr()
     hi = lo + t.numel() * t.element_size()
     return any(a <= lo and hi <= b for a, b in ranges)
+
+
+def close(torch, got, ref, tols, what: str):
+    """Relative L2 within tols[0], and the error over the reference's
+    scale within tols[1]: everywhere, or, with a third entry, outside at
+    most that share of the entries. Returns (max abs error, that error
+    over the scale)."""
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite entries")
+    scale = float(ref.abs().max()) + 1e-30
+    diff = (got - ref).abs()
+    err = float(diff.max())
+    l2 = float(torch.linalg.norm(got - ref) / (torch.linalg.norm(ref)
+                                                + 1e-30))
+    share = float((diff > tols[1] * scale).float().mean())
+    allowed = tols[2] if len(tols) > 2 else 0.0
+    check(l2 <= tols[0] and share <= allowed,
+          f"{what}: rel L2 {l2:.3e} (tol {tols[0]}), max err {err:.3e} of "
+          f"scale {scale:.3e}, {share:.2e} of entries beyond {tols[1]} of "
+          f"it (allowed {allowed})")
+    return err, err / scale
+
+
+def worst(errs):
+    """(max abs error, max error over scale) over several outputs."""
+    errs = list(errs)
+    return max(e for e, _ in errs), max(r for _, r in errs)
 
 
 def frame_item(seed: int, G: int):
@@ -125,11 +243,11 @@ def chunk_batch(torch, item, device, start: int = 0):
     return b
 
 
-def sorted_inputs(torch, model, batch):
-    """The sorted-domain inputs of both kernels for one chunk, as
+def sorted_inputs(torch, model, batch, iter_val=ITER):
+    """The sorted-domain inputs of the inverse LBS for one batch, as
     models/human.py::_samples_sorted builds them."""
     from hosnerf_tpu_torch.ops.cuda import lbs as clbs
-    si = model.sample_inputs(batch, ITER)
+    si = model.sample_inputs(batch, iter_val)
     s_, o_, rg, tg, vol_qz = clbs.grid_tables(
         si["m_sR"], si["m_T"], si["vol"], batch["cnl_bbox_min_xyz"],
         batch["cnl_bbox_scale_xyz"])
@@ -139,14 +257,55 @@ def sorted_inputs(torch, model, batch):
         s_, o_
 
 
+def live_pairs(pts_s, rg, tg, G: int) -> int:
+    """(sample, bone) pairs inside a bone's support: the inverse-LBS
+    kernels' data-dependent work."""
+    from hosnerf_tpu_torch.ops.cuda import lbs as clbs
+    return sum(int(clbs._sample_support(p, rg, tg, G).sum())
+               for p in pts_s.split(1 << 18))
+
+
+def trunk_specs(torch, model, si, n_pad):
+    """Both trunk specs with the model's weights: {name: (keywords, aux,
+    alpha, layers, out)}."""
+    state = torch.stack(list(model.human_stateembeds))[0].contiguous()
+    return {
+        "nonrigid": (dict(kind="hannw", multires=model.nr_multires,
+                          aux_mode="stream", aux_first=True,
+                          skip_before=model.nr_skips[0],
+                          skip_source="embed"),
+                     si["cond"].expand(n_pad, si["cond"].shape[-1]),
+                     si["alpha"],
+                     *model._fused_params(model.non_rigid_mlp,
+                                          model.nr_mlp_depth)),
+        "canonical": (dict(kind="fourier", multires=model.cnl_multires,
+                           aux_mode="broadcast", aux_first=False,
+                           skip_before=5, skip_source="full_input"),
+                      state, None,
+                      *model._fused_params(model.cnl_mlp,
+                                           model.cnl_mlp_depth)),
+    }
+
+
+def trunk_flops(layers, out, rows: int) -> float:
+    """Matmul FLOPs of one trunk forward over `rows` rows."""
+    macs = sum(int(w.shape[0]) * int(w.shape[1]) for w, _ in layers)
+    return 2.0 * rows * (macs + int(out[0].numel()))
+
+
+# ---------------------------------------------------------------------------
+# kernels phase: render shapes (B1, B2)
+# ---------------------------------------------------------------------------
+
 def check_lbs(torch, model, batch, results, iters):
     from hosnerf_tpu_torch.ops.cuda import lbs as clbs
     si, dom, pts_s, rg, tg, vol_qz, s_, o_ = sorted_inputs(torch, model,
                                                            batch)
     dead = int(dom.n_dead_groups) * clbs.SORT_GROUP
+    pairs = live_pairs(pts_s, rg, tg, model.mweight_volume_size)
     for prec in ("bf16", "highest"):
         ref = clbs.inverse_core_plain(pts_s, rg, tg, vol_qz, prec)
-        ranges = poison(torch, ref.numel() * 4, pts_s.device)
+        ranges = poison(torch, pts_s.device, ref.numel() * 4)
         got = clbs.inverse_core_pg_s(pts_s, rg, tg, vol_qz, prec)
         torch.cuda.synchronize()
         check(landed(got, ranges), "inverse LBS output missed the poison")
@@ -162,10 +321,16 @@ def check_lbs(torch, model, batch, results, iters):
             pts_s, rg, tg, vol_qz, prec), iters)
         plain_ms = time_ms(torch, lambda: clbs.inverse_core_plain(
             pts_s, rg, tg, vol_qz, prec), max(1, iters // 5))
+        vol_b = vol_qz.numel() * (2 if prec == "bf16" else 4)
+        bms, by = bound(nbytes(pts_s, rg, tg, got) + vol_b,
+                        f32_ops=OPS_B1_PAIR * pairs)
         print(f"kernel inverse_core_pg_s {prec}: n={pts_s.shape[0]} "
-              f"dead_rows={dead} max_abs_err={err:.3e} scale={scale:.3e} "
-              f"ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
-        results[("lbs", prec)] = dict(err=err, ms=ms, plain_ms=plain_ms)
+              f"dead_rows={dead} live_pairs={pairs} max_abs_err={err:.3e} "
+              f"scale={scale:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bms:.5f} ({by})", flush=True)
+        results[("lbs", prec)] = dict(err=err, rel=err / scale, ms=ms,
+                                      plain_ms=plain_ms, bound_ms=bms,
+                                      bound_by=by)
     acc = clbs.inverse_core_pg_s(pts_s, rg, tg, vol_qz, "bf16")
     x_skel_s, _ = clbs.world_from_grid(acc, s_, o_)
     return si, dom, x_skel_s.contiguous()
@@ -174,27 +339,22 @@ def check_lbs(torch, model, batch, results, iters):
 def check_mlp(torch, model, si, dom, x_skel_s, results, iters):
     """Both trunk specs at the render shapes with the model's weights:
     k0 = 0, the chunk's own dead-prefix k0 (at least 1), and the all-dead
-    clamp; rows below the clamped k0 * 1024 are not compared."""
+    clamp; rows below the clamped k0 * 1024 are not compared. The library
+    route, the module MLPs on cuBLAS bf16, is timed beside the bf16 kernel."""
+    from hosnerf_tpu_torch.models import embedders
     from hosnerf_tpu_torch.ops.cuda import mlp as cmlp
     n_pad = x_skel_s.shape[0]
     n_blocks = -(-n_pad // cmlp.MLP_TILE)
     live_k0 = max(1, int(dom.k0_for(cmlp.MLP_TILE)))
-    state = torch.stack(list(model.human_stateembeds))[0].contiguous()
-    nr_layers, nr_out = model._fused_params(model.non_rigid_mlp,
-                                            model.nr_mlp_depth)
-    cn_layers, cn_out = model._fused_params(model.cnl_mlp,
-                                            model.cnl_mlp_depth)
-    specs = {
-        "nonrigid": (dict(kind="hannw", multires=model.nr_multires,
-                          aux_mode="stream", aux_first=True,
-                          skip_before=model.nr_skips[0],
-                          skip_source="embed"),
-                     si["cond"].expand(n_pad, si["cond"].shape[-1]),
-                     si["alpha"], nr_layers, nr_out),
-        "canonical": (dict(kind="fourier", multires=model.cnl_multires,
-                           aux_mode="broadcast", aux_first=False,
-                           skip_before=5, skip_source="full_input"),
-                      state, None, cn_layers, cn_out),
+    specs = trunk_specs(torch, model, si, n_pad)
+    library = {
+        "nonrigid": lambda: model.non_rigid_mlp(
+            embedders.hannw_fourier_embed(x_skel_s, model.nr_multires,
+                                          si["alpha"]), x_skel_s,
+            specs["nonrigid"][1]),
+        "canonical": lambda: model.cnl_mlp(torch.cat([
+            embedders.fourier_embed(x_skel_s, model.cnl_multires),
+            specs["canonical"][1].expand(n_pad, -1)], -1)),
     }
     for name, (kw, aux, alpha, layers, out) in specs.items():
         espec = cmlp.EmbedSpec(kw["kind"], kw["multires"], aux.shape[-1],
@@ -208,7 +368,7 @@ def check_mlp(torch, model, si, dom, x_skel_s, results, iters):
             for k0 in (0, live_k0, 10 ** 6):
                 k0_t = torch.tensor([k0], dtype=torch.int32,
                                     device=x_skel_s.device)
-                ranges = poison(torch, ref.numel() * 4, x_skel_s.device)
+                ranges = poison(torch, x_skel_s.device, ref.numel() * 4)
                 got = cmlp.fused_embed_trunk(x_skel_s, aux, alpha, layers,
                                              out, precision=prec,
                                              k0_blocks=k0_t, **kw)
@@ -243,10 +403,300 @@ def check_mlp(torch, model, si, dom, x_skel_s, results, iters):
                                 skip_source=kw["skip_source"],
                                 precision=prec), max(1, iters // 5))
                         line += f" plain_ms={plain_ms:.4f}"
-                        results[(name, prec)] = dict(err=err, ms=ms,
-                                                     plain_ms=plain_ms)
+                        res = dict(err=err, rel=err / scale, ms=ms,
+                                   plain_ms=plain_ms)
+                        flops = trunk_flops(layers, out, n_pad)
+                        if prec == "bf16":
+                            res["library_ms"] = time_ms(
+                                torch, library[name], iters)
+                            line += f" library_ms={res['library_ms']:.4f}"
+                        res["bound_ms"], res["bound_by"] = bound(
+                            nbytes(x_skel_s, got, *[t for p in layers
+                                                    for t in p], *out)
+                            + (nbytes(aux) if kw["aux_mode"] == "broadcast"
+                               else aux.shape[-1] * 4),
+                            **({"bf16_ops": flops} if prec == "bf16"
+                               else {"f32_ops": flops}))
+                        line += (f" bound_ms={res['bound_ms']:.5f} "
+                                 f"({res['bound_by']})")
+                        results[(name, prec)] = res
                 print(line, flush=True)
+                del got, g, r, e
 
+
+# ---------------------------------------------------------------------------
+# kernels phase: training shapes (B3, B4, B5)
+# ---------------------------------------------------------------------------
+
+def train_batch(torch, device, n_patches=2, patch_size=32, G=32):
+    from hosnerf_tpu_torch.data import synthetic
+    nb = synthetic.human_batch(n_patches, patch_size, grid_size=G)
+    return {k: torch.as_tensor(v, device=device) for k, v in nb.items()}
+
+
+def train_kernel_inputs(torch, model, batch):
+    """The training kernels' inputs at one step's shapes, as
+    models/human.py::_samples_sorted builds them (every row computed, so
+    the rows below any k0 are finite)."""
+    from hosnerf_tpu_torch.ops.cuda import lbs as clbs
+    from hosnerf_tpu_torch.ops.cuda import mlp as cmlp
+    si, dom, pts_s, rg, tg, vol_qz, s_, o_ = sorted_inputs(
+        torch, model, batch, TRAIN_ITER)
+    n_pad = pts_s.shape[0]
+    acc = clbs.inverse_core_pg_s(pts_s, rg, tg, vol_qz, "bf16")
+    x_skel_s, _ = clbs.world_from_grid(acc, s_, o_)
+    x_skel_s = x_skel_s.contiguous()
+    specs = trunk_specs(torch, model, si, n_pad)
+    kw, aux, alpha, layers, out = specs["nonrigid"]
+    cnl_pts_s = (x_skel_s + cmlp.fused_embed_trunk(
+        x_skel_s, aux, alpha, layers, out, precision="bf16", **kw)
+                 ).contiguous()
+    p_sR, p_T, _ = model._prev_transforms(batch, TRAIN_ITER)
+    s, o, vol_all, rmat = clbs.blend_tables(
+        torch.stack([si["m_sR_fwd"], p_sR]), torch.stack([si["m_T_fwd"],
+                                                          p_T]),
+        si["vol"], batch["cnl_bbox_min_xyz"], batch["cnl_bbox_scale_xyz"])
+    pts_g = (cnl_pts_s * s[None] + o[None]).contiguous()
+    return dict(si=si, dom=dom, pts_s=pts_s, rg=rg, tg=tg, vol_qz=vol_qz,
+                x_skel_s=x_skel_s, cnl_pts_s=cnl_pts_s, specs=specs,
+                pts_g=pts_g, vol_all=vol_all, rmat=rmat.contiguous(),
+                n_pad=n_pad)
+
+
+def check_inverse_bwd(torch, model, ti, results, iters):
+    """B4 vs its plain version: NaN-poisoned dpts, dead rows exactly 0."""
+    from hosnerf_tpu_torch.ops.cuda import lbs as clbs
+    pts_s, rg, tg, vol_qz = ti["pts_s"], ti["rg"], ti["tg"], ti["vol_qz"]
+    dev = pts_s.device
+    dead = int(ti["dom"].n_dead_groups) * clbs.SORT_GROUP
+    gacc = torch.randn(pts_s.shape[0], 4, device=dev,
+                       generator=torch.Generator(dev).manual_seed(5))
+    pairs = live_pairs(pts_s, rg, tg, model.mweight_volume_size)
+    for prec in ("bf16", "highest"):
+        ref = clbs.inverse_core_bwd_plain(pts_s, rg, tg, vol_qz, gacc, prec)
+        ranges = poison(torch, dev, ref[0].numel() * 4)
+        got = clbs.inverse_core_bwd(pts_s, rg, tg, vol_qz, gacc, prec)
+        torch.cuda.synchronize()
+        check(landed(got[0], ranges), "inverse LBS bwd: dpts missed the "
+              "poison")
+        err, rel = worst(close(torch, a, b, TOL_BWD[f"lbs_{prec}"],
+                               f"inverse LBS bwd {prec} {name}")
+                         for name, a, b in zip(("dpts", "drg", "dtg", "dvol"),
+                                               got, ref))
+        check(dead == 0 or float(got[0][:dead].abs().max()) == 0.0,
+              f"inverse LBS bwd {prec}: dead rows of dpts not exactly 0")
+        ms = time_ms(torch, lambda: clbs.inverse_core_bwd(
+            pts_s, rg, tg, vol_qz, gacc, prec), iters)
+        plain_ms = time_ms(torch, lambda: clbs.inverse_core_bwd_plain(
+            pts_s, rg, tg, vol_qz, gacc, prec), 1)
+        vol_b = vol_qz.numel() * (2 if prec == "bf16" else 4)
+        bms, by = bound(nbytes(pts_s, rg, tg, gacc, *got) + vol_b,
+                        f32_ops=OPS_B4_PAIR * pairs)
+        print(f"kernel inverse_core_bwd {prec}: n={pts_s.shape[0]} "
+              f"dead_rows={dead} live_pairs={pairs} max_abs_err={err:.3e} "
+              f"max_err_over_scale={rel:.3e} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bms:.5f} ({by})",
+              flush=True)
+        results[("lbs_bwd", prec)] = dict(err=err, rel=rel, ms=ms,
+                                          plain_ms=plain_ms, bound_ms=bms,
+                                          bound_by=by)
+        del got, ref
+
+
+def check_blend(torch, ti, results, iters):
+    """B5 forward and backward vs their plain versions at k0 = 0, the
+    batch's live k0 (512-row blocks) and the all-dead clamp: forward rows
+    below the clamped k0 * 512 left unwritten (NaN), backward dpts rows
+    there exactly 0."""
+    from hosnerf_tpu_torch.ops.cuda import lbs as clbs
+    pts_g, vol_all, rmat = ti["pts_g"], ti["vol_all"], ti["rmat"]
+    dev = pts_g.device
+    n = pts_g.shape[0]
+    B = rmat.shape[0]
+    gout = torch.randn(n, 7, device=dev,
+                       generator=torch.Generator(dev).manual_seed(6))
+    live_k0 = max(1, int(ti["dom"].k0_for(clbs.TILE_SH)))
+    for prec in ("bf16", "highest"):
+        ref_f = clbs.shared_blend_plain(pts_g, vol_all, rmat, prec)
+        for k0 in (0, live_k0, 10 ** 6):
+            k0_t = torch.tensor([k0], dtype=torch.int32, device=dev)
+            first = clbs.first_live_row(k0, n, clbs.TILE_SH)
+            ranges = poison(torch, dev, ref_f.numel() * 4)
+            got = clbs.shared_blend_fwd(pts_g, vol_all, rmat, k0_t, prec)
+            torch.cuda.synchronize()
+            check(landed(got, ranges), f"forward LBS {prec} k0={k0}: output "
+                  "missed the poison")
+            check(bool(torch.isnan(got[:first]).all()),
+                  f"forward LBS {prec} k0={k0}: rows below k0 were written")
+            err_f, rel_f = close(torch, got[first:], ref_f[first:],
+                                 TOL_BWD["blend_fwd"],
+                                 f"forward LBS {prec} k0={k0}")
+            ref_b = clbs.shared_blend_bwd_plain(pts_g, vol_all, rmat, k0,
+                                                gout, prec)
+            ranges = poison(torch, dev, n * 12)
+            got_b = clbs.shared_blend_bwd(pts_g, vol_all, rmat, k0_t, gout,
+                                          prec)
+            torch.cuda.synchronize()
+            check(landed(got_b[0], ranges), f"forward LBS bwd {prec} "
+                  f"k0={k0}: dpts missed the poison")
+            check(first == 0 or float(got_b[0][:first].abs().max()) == 0.0,
+                  f"forward LBS bwd {prec} k0={k0}: dpts rows below k0 not 0")
+            err_b, rel_b = worst(
+                close(torch, a, b, TOL_BWD[f"lbs_{prec}"],
+                      f"forward LBS bwd {prec} k0={k0} {name}")
+                for name, a, b in zip(("dpts", "dvol", "drmat"), got_b,
+                                      ref_b))
+            line = (f"kernel shared_blend {prec} k0={k0} rows={n - first} "
+                    f"fwd max_abs_err={err_f:.3e} (over scale {rel_f:.3e}) "
+                    f"bwd max_abs_err={err_b:.3e} (over scale {rel_b:.3e})")
+            if k0 in (0, live_k0):
+                ms_f = time_ms(torch, lambda: clbs.shared_blend_fwd(
+                    pts_g, vol_all, rmat, k0_t, prec), iters)
+                ms_b = time_ms(torch, lambda: clbs.shared_blend_bwd(
+                    pts_g, vol_all, rmat, k0_t, gout, prec), iters)
+                line += f" fwd ms={ms_f:.4f} bwd ms={ms_b:.4f}"
+                if k0 == 0:
+                    pf = time_ms(torch, lambda: clbs.shared_blend_plain(
+                        pts_g, vol_all, rmat, prec), 1)
+                    pb = time_ms(torch, lambda: clbs.shared_blend_bwd_plain(
+                        pts_g, vol_all, rmat, k0, gout, prec), 1)
+                    vol_b = vol_all.numel() * (2 if prec == "bf16" else 4)
+                    bf = bound(nbytes(pts_g, rmat, got) + vol_b,
+                               f32_ops=OPS_B5F_BONE * B * n)
+                    bb = bound(nbytes(pts_g, rmat, gout, *got_b) + vol_b,
+                               f32_ops=OPS_B5B_BONE * B * n)
+                    line += (f" fwd plain_ms={pf:.4f} bwd plain_ms={pb:.4f} "
+                             f"fwd bound_ms={bf[0]:.5f} ({bf[1]}) bwd "
+                             f"bound_ms={bb[0]:.5f} ({bb[1]})")
+                    results[("blend_fwd", prec)] = dict(
+                        err=err_f, rel=rel_f, ms=ms_f, plain_ms=pf,
+                        bound_ms=bf[0], bound_by=bf[1])
+                    results[("blend_bwd", prec)] = dict(
+                        err=err_b, rel=rel_b, ms=ms_b, plain_ms=pb,
+                        bound_ms=bb[0], bound_by=bb[1])
+            print(line, flush=True)
+            del got, got_b, ref_b
+
+
+def check_mlp_bwd(torch, model, ti, results, iters):
+    """B3 vs its plain version for both trunk specs at the training shapes
+    (the canonical trunk on the non-rigid output, as in the step), both
+    precisions, k0 = 0 / live / all-dead: dx and stream-daux rows below
+    the clamped k0 * 1024 exactly 0. The library route, autograd through
+    the module MLPs on cuBLAS bf16, is timed beside the bf16 kernel."""
+    from hosnerf_tpu_torch.models import embedders
+    from hosnerf_tpu_torch.ops.cuda import mlp as cmlp
+    n = ti["n_pad"]
+    dev = ti["pts_s"].device
+    live_k0 = max(1, int(ti["dom"].k0_for(cmlp.MLP_TILE)))
+    n_blocks = -(-n // cmlp.MLP_TILE)
+    xs = {"nonrigid": ti["x_skel_s"], "canonical": ti["cnl_pts_s"]}
+    for name, (kw, aux, alpha, layers, out) in ti["specs"].items():
+        x = xs[name]
+        espec = cmlp.EmbedSpec(kw["kind"], kw["multires"], aux.shape[-1],
+                               kw["aux_mode"], kw["aux_first"])
+        gout = torch.randn(n, out[0].shape[0], device=dev,
+                           generator=torch.Generator(dev).manual_seed(7))
+        stream = kw["aux_mode"] == "stream"
+        for prec in ("bf16", "highest"):
+            tols = TOL_BWD[f"mlp_{prec}"]
+            for k0 in (0, live_k0, 10 ** 6):
+                first = min(k0, n_blocks - 1) * cmlp.MLP_TILE
+                k0_t = torch.tensor([k0], dtype=torch.int32, device=dev)
+                ref = cmlp.fused_embed_trunk_bwd_plain(
+                    x, aux, alpha, layers, out, gout, espec=espec,
+                    skip_before=kw["skip_before"],
+                    skip_source=kw["skip_source"], precision=prec,
+                    k0_blocks=k0)
+                ranges = poison(torch, dev, *([ref[0].numel() * 4]
+                                              + [ref[1].numel() * 4] * stream))
+                got = cmlp.fused_embed_trunk_bwd(
+                    x, aux, alpha, layers, out, gout, precision=prec,
+                    k0_blocks=k0_t, **kw)
+                torch.cuda.synchronize()
+                check(landed(got[0], ranges), f"trunk bwd {name} {prec} "
+                      f"k0={k0}: dx missed the poison")
+                check(not stream or landed(got[1], ranges),
+                      f"trunk bwd {name} {prec} k0={k0}: daux missed the "
+                      "poison")
+                flat_g = [got[0], got[1]] + [t for p in got[2] for t in p] \
+                    + list(got[3])
+                flat_r = [ref[0], ref[1]] + [t for p in ref[2] for t in p] \
+                    + list(ref[3])
+                err, rel = worst(
+                    close(torch, a, b, tols,
+                          f"trunk bwd {name} {prec} k0={k0} out {i}")
+                    for i, (a, b) in enumerate(zip(flat_g, flat_r)))
+                check(first == 0 or float(got[0][:first].abs().max()) == 0,
+                      f"trunk bwd {name} {prec} k0={k0}: dx rows below k0")
+                check(not (stream and first)
+                      or float(got[1][:first].abs().max()) == 0.0,
+                      f"trunk bwd {name} {prec} k0={k0}: daux rows below k0")
+                del ref
+                line = (f"kernel fused_embed_trunk_bwd {name} {prec} "
+                        f"k0={k0} rows={n - first} max_abs_err={err:.3e} "
+                        f"max_err_over_scale={rel:.3e}")
+                if k0 in (0, live_k0):
+                    ms = time_ms(torch, lambda: cmlp.fused_embed_trunk_bwd(
+                        x, aux, alpha, layers, out, gout, precision=prec,
+                        k0_blocks=k0_t, **kw), iters)
+                    line += f" ms={ms:.4f}"
+                if k0 == 0:
+                    plain_ms = time_ms(
+                        torch, lambda: cmlp.fused_embed_trunk_bwd_plain(
+                            x, aux, alpha, layers, out, gout, espec=espec,
+                            skip_before=kw["skip_before"],
+                            skip_source=kw["skip_source"], precision=prec,
+                            k0_blocks=0), 1)
+                    line += f" plain_ms={plain_ms:.4f}"
+                    res = dict(err=err, rel=rel, ms=ms, plain_ms=plain_ms)
+                    # recompute + input gradients + dW: three trunk passes
+                    flops = 3.0 * trunk_flops(layers, out, n)
+                    params = [t for p in layers for t in p] + list(out)
+                    io = nbytes(x, gout, got[0], got[1], *params, *got[3],
+                                *[t for p in got[2] for t in p]) + (
+                        nbytes(aux) if not stream else aux.shape[-1] * 4)
+                    res["bound_ms"], res["bound_by"] = bound(
+                        io, **({"bf16_ops": flops} if prec == "bf16"
+                               else {"f32_ops": flops}))
+                    line += (f" bound_ms={res['bound_ms']:.5f} "
+                             f"({res['bound_by']})")
+                    if prec == "bf16":
+                        res["library_ms"] = library_trunk_bwd_ms(
+                            torch, model, name, x, aux, alpha, gout, iters)
+                        line += f" library_ms={res['library_ms']:.4f}"
+                    results[(name + "_bwd", prec)] = res
+                print(line, flush=True)
+                del got, flat_g, flat_r
+        del gout
+
+
+def library_trunk_bwd_ms(torch, model, name, x, aux, alpha, gout,
+                         iters) -> float:
+    """The module path's backward (the model's nn.Module MLPs, cuBLAS bf16
+    layers, through autograd: what mlp_impl='flax' trains with), timed
+    over torch.autograd.grad alone."""
+    from hosnerf_tpu_torch.models import embedders
+    with torch.enable_grad():
+        xg = x.detach().clone().requires_grad_()
+        ag = aux.detach().clone().requires_grad_()
+        if name == "nonrigid":
+            mod = model.non_rigid_mlp
+            y = mod(embedders.hannw_fourier_embed(xg, model.nr_multires,
+                                                  alpha), xg, ag)["offsets"]
+        else:
+            mod = model.cnl_mlp
+            y = mod(torch.cat([embedders.fourier_embed(xg,
+                                                       model.cnl_multires),
+                               ag.expand(xg.shape[0], -1)], -1))
+        inputs = [xg, ag] + list(mod.parameters())
+        return time_ms(torch, lambda: torch.autograd.grad(
+            y, inputs, gout, retain_graph=True), iters)
+
+
+# ---------------------------------------------------------------------------
+# render phase
+# ---------------------------------------------------------------------------
 
 def render_frames(torch, model, items, device):
     from hosnerf_tpu_torch.eval import renderers
@@ -278,20 +728,19 @@ def check_render_chunk(torch, model, batch):
               f"render chunk {name} disagrees with the dense plain path")
 
 
-def profile_frame(torch, model, item, device, frame_ms: float):
-    """One frame under torch.profiler: device and host time by operator,
-    and the device's idle share, of the profiled frame's wall time and of
-    `frame_ms`, the unprofiled render's time per frame."""
+def profile(torch, what: str, fn, ref_ms: float):
+    """fn under torch.profiler: device and host time by operator, and the
+    device's idle share, of the profiled wall time and of `ref_ms`, the
+    same work's unprofiled time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
 
-    from hosnerf_tpu_torch.eval import renderers
-    render_fn = renderers.make_render_fn(model)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        renderers.render_human_image(render_fn, item, device, CHUNK)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     events = prof.key_averages()
@@ -300,13 +749,113 @@ def profile_frame(torch, model, item, device, frame_ms: float):
                   if e.device_type == DeviceType.CUDA
                   and not e.is_user_annotation) / 1e3
     for key in ("self_device_time_total", "self_cpu_time_total"):
-        print(events.table(sort_by=key, row_limit=12,
+        print(events.table(sort_by=key, row_limit=14,
                            max_name_column_width=60))
-    print(f"phase profile: one 128x128 frame, device busy {busy_ms:.2f} ms; "
-          f"idle share {1 - busy_ms / wall_ms:.3f} of {wall_ms:.2f} ms "
-          f"profiled wall, {1 - busy_ms / frame_ms:.3f} of {frame_ms:.2f} "
-          f"ms unprofiled", flush=True)
+    print(f"phase profile: {what}, device busy {busy_ms:.2f} ms; idle share "
+          f"{1 - busy_ms / wall_ms:.3f} of {wall_ms:.2f} ms profiled wall, "
+          f"{1 - busy_ms / ref_ms:.3f} of {ref_ms:.2f} ms unprofiled",
+          flush=True)
 
+
+# ---------------------------------------------------------------------------
+# train phase
+# ---------------------------------------------------------------------------
+
+def launch_counts():
+    from hosnerf_tpu_torch.ops.cuda import lbs as clbs
+    from hosnerf_tpu_torch.ops.cuda import mlp as cmlp
+    return {"inverse_core_pg_s": clbs.inverse_core_pg_s,
+            "fused_embed_trunk": cmlp.fused_embed_trunk,
+            "shared_blend_fwd": clbs.shared_blend_fwd,
+            "inverse_core_bwd": clbs.inverse_core_bwd,
+            "fused_embed_trunk_bwd": cmlp.fused_embed_trunk_bwd,
+            "shared_blend_bwd": clbs.shared_blend_bwd}
+
+
+def train_phase(torch, device, kind, lp, cfg=None):
+    """The training step through init_state + make_train_step on one fixed
+    batch (`cfg`: the full-width bf16 config unless given): warm-up,
+    TRAIN_STEPS timed steps with every kernel's launches counted, the loss
+    checked. Returns (launches, ms/step, a function running one more
+    step)."""
+    from hosnerf_tpu_torch.models.state import state_index
+    from hosnerf_tpu_torch.train import stage2
+    cfg = cfg or stage2.Stage2Config(compute_dtype="bf16")
+    model, opt = stage2.init_state(cfg, seed=0, device=device)
+    step = stage2.make_train_step(cfg, model, opt, lpips_apply=lp)
+    batch = train_batch(torch, device, cfg.n_patches, cfg.patch_size,
+                        cfg.mweight_volume_size)
+    rays = cfg.n_patches * cfg.patch_size ** 2
+
+    def jitter():
+        return torch.Generator(device).manual_seed(11)
+
+    first = step(batch, TRAIN_ITER, jitter())
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(v)) for v in first.values()),
+          f"train warm-up step: non-finite losses {first}")
+    wrappers = launch_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    losses = []
+    t0 = time.time()
+    for _ in range(TRAIN_STEPS):
+        losses.append(step(batch, TRAIN_ITER, jitter()))
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    ms = dt * 1e3 / TRAIN_STEPS
+    print(f"phase train: {TRAIN_STEPS} steps of {rays} rays x "
+          f"{cfg.n_samples} samples, {ms:.2f} ms/step, "
+          f"{rays * TRAIN_STEPS / dt:.0f} rays/s on {kind}; launches "
+          + " ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
+    for k, per in PER_STEP.items():
+        check(launches[k] == per * TRAIN_STEPS,
+              f"train: {k} launched {launches[k]} times in {TRAIN_STEPS} "
+              f"steps (expected {per} per step)")
+    for i, ls in enumerate(losses):
+        check(all(bool(torch.isfinite(v)) for v in ls.values()),
+              f"train step {i}: non-finite losses {ls}")
+    with torch.no_grad():
+        after, _ = stage2.make_loss_fn(cfg, model, lp)(
+            batch, TRAIN_ITER, state_index(batch["time"], None), jitter())
+    l0, l1 = float(first["loss"]), float(after)
+    parts = " ".join(f"{k}={float(v):.6f}" for k, v in first.items())
+    timed = " ".join(f"{float(x['loss']):.6f}" for x in losses)
+    print(f"train losses: first {parts}; per timed step {timed}; after "
+          f"{l1:.6f}", flush=True)
+    check(l1 < l0, f"train: loss did not drop on a fixed batch ({l0} -> "
+          f"{l1})")
+    return launches, ms, lambda: step(batch, TRAIN_ITER, jitter())
+
+
+def gradcheck_phase(torch, device, n_patches=2, patch_size=32):
+    """One step's gradients, the card's kernel path vs the same path on
+    the kernels' plain versions on the CPU, held to TOL_GRAD and
+    TOL_GRAD_LOSS."""
+    import math
+
+    from hosnerf_tpu_torch.train import gradcheck
+    print("gradcheck: kernel path on the card vs plain versions on the CPU "
+          f"({n_patches} patches of {patch_size}x{patch_size} rays)",
+          flush=True)
+    t0 = time.time()
+    res = gradcheck.compare_step_grads(device, n_patches, patch_size)
+    worst_rel, _ = gradcheck.report(res, TOL_GRAD)
+    print(f"phase gradcheck: {time.time() - t0:.1f} s", flush=True)
+    check(all(math.isfinite(v) for pair in res["params"].values()
+              for v in pair) and all(map(math.isfinite, res["loss"])),
+          "gradcheck: non-finite loss or gradients")
+    check(not res["missing"],
+          f"gradcheck: gradient on one side only: {res['missing']}")
+    k_loss, p_loss = res["loss"]
+    check(abs(k_loss - p_loss) <= TOL_GRAD_LOSS * abs(p_loss),
+          f"gradcheck: loss {k_loss} vs plain {p_loss}")
+    check(worst_rel <= TOL_GRAD,
+          f"gradcheck: worst rel L2 {worst_rel:.3e} (tol {TOL_GRAD})")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import numpy as np
@@ -324,11 +873,11 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    with torch.no_grad():
-        return run(torch, np)
+    return run(torch, np)
 
 
 def run(torch, np) -> int:
+    from hosnerf_tpu_torch.models import lpips
     from hosnerf_tpu_torch.models.human import HumanObjectField
     from hosnerf_tpu_torch.ops.cuda import _build
     from hosnerf_tpu_torch.ops.cuda import lbs as clbs
@@ -357,11 +906,19 @@ def run(torch, np) -> int:
 
     t0 = time.time()
     results = {}
-    si, dom, x_skel_s = check_lbs(torch, model, batch, results, ITERS)
-    check_mlp(torch, model, si, dom, x_skel_s, results, ITERS)
+    with torch.no_grad():
+        si, dom, x_skel_s = check_lbs(torch, model, batch, results, ITERS)
+        check_mlp(torch, model, si, dom, x_skel_s, results, ITERS)
+        del si, dom, x_skel_s
+        ti = train_kernel_inputs(torch, model, train_batch(torch, device))
+        check_inverse_bwd(torch, model, ti, results, ITERS)
+        check_blend(torch, ti, results, ITERS)
+        check_mlp_bwd(torch, model, ti, results, ITERS)
+        del ti
+    torch.cuda.empty_cache()
     print(f"phase kernels: {time.time() - t0:.1f} s", flush=True)
 
-    # ---- the main path: warm up once, then count and time 3 frames ----
+    # ---- the render path: warm up once, then count and time 3 frames ----
     render_frames(torch, model, items[:1], device)
     torch.cuda.synchronize()
     clbs.inverse_core_pg_s.launches = 0
@@ -370,50 +927,87 @@ def run(torch, np) -> int:
     images = render_frames(torch, model, items, device)
     torch.cuda.synchronize()
     dt = time.time() - t0
-    launches = {"lbs": clbs.inverse_core_pg_s.launches,
-                "mlp": cmlp.fused_embed_trunk.launches}
+    render_launches = {"lbs": clbs.inverse_core_pg_s.launches,
+                       "mlp": cmlp.fused_embed_trunk.launches}
     chunks = FRAMES * (-(-RAYS // CHUNK))
     print(f"phase render: {FRAMES} frames of 128x128, {chunks} chunks, "
           f"{dt * 1e3 / FRAMES:.2f} ms/frame, {FRAMES * RAYS / dt:.0f} "
           f"rays/s on {kind}; launches inverse_core_pg_s="
-          f"{launches['lbs']} fused_embed_trunk={launches['mlp']}",
-          flush=True)
-    check(launches["lbs"] == chunks and launches["mlp"] == 2 * chunks,
-          f"kernel launches during the render: {launches} for {chunks} "
-          "chunks (expected 1 inverse-LBS and 2 trunk launches each)")
+          f"{render_launches['lbs']} fused_embed_trunk="
+          f"{render_launches['mlp']}", flush=True)
+    check(render_launches["lbs"] == chunks
+          and render_launches["mlp"] == 2 * chunks,
+          f"kernel launches during the render: {render_launches} for "
+          f"{chunks} chunks (expected 1 inverse-LBS and 2 trunk launches "
+          "each)")
     for img in images:
         check(img.shape == (128, 128, 3), f"image shape {img.shape}")
         check(bool(np.isfinite(img).all()), "non-finite rgb")
         check(float(img.min()) >= 0.0 and float(img.max()) <= 1.0 + 1e-6,
               f"rgb outside [0, 1]: {img.min()} .. {img.max()}")
     live = []
-    for it in items:
-        for s in range(0, RAYS, CHUNK):
-            _, d, *_ = sorted_inputs(torch, model,
-                                     chunk_batch(torch, it, device, s))
-            live.append(1.0 - int(d.n_dead_groups) * clbs.SORT_GROUP
-                        / d.n_pad)
-    print(f"render live fraction per chunk: "
-          f"{' '.join(f'{v:.4f}' for v in live)}; image mean "
-          f"{float(np.mean(images)):.4f}", flush=True)
+    with torch.no_grad():
+        for it in items:
+            for s in range(0, RAYS, CHUNK):
+                _, d, *_ = sorted_inputs(torch, model,
+                                         chunk_batch(torch, it, device, s))
+                live.append(1.0 - int(d.n_dead_groups) * clbs.SORT_GROUP
+                            / d.n_pad)
+        print(f"render live fraction per chunk: "
+              f"{' '.join(f'{v:.4f}' for v in live)}; image mean "
+              f"{float(np.mean(images)):.4f}", flush=True)
+        check_render_chunk(torch, model, batch)
 
-    check_render_chunk(torch, model, batch)
-    profile_frame(torch, model, items[0], device, dt * 1e3 / FRAMES)
+    from hosnerf_tpu_torch.eval import renderers
+    render_fn = renderers.make_render_fn(model)
+    profile(torch, "one 128x128 frame", lambda: renderers.render_human_image(
+        render_fn, items[0], device, CHUNK), dt * 1e3 / FRAMES)
+    del model, render_fn
+    torch.cuda.empty_cache()
+
+    # ---- the training step ----
+    lp = lpips.load_weights(lpips.LPIPS(device=device)).requires_grad_(False)
+    train_launches, step_ms, one_step = train_phase(torch, device, kind, lp)
+    profile(torch, "one training step", one_step, step_ms)
+    del one_step
+    torch.cuda.empty_cache()
+    gradcheck_phase(torch, device)
 
     def entry(name, source, replaces, n, parts):
+        lib = [results[p].get("library_ms") for p in parts]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n,
                 "max_abs_err": max(results[p]["err"] for p in parts),
+                "max_err_over_scale": max(results[p]["rel"] for p in parts),
                 "ms": sum(results[p]["ms"] for p in parts),
-                "plain_ms": sum(results[p]["plain_ms"] for p in parts)}
+                "plain_ms": sum(results[p]["plain_ms"] for p in parts),
+                "bound_ms": sum(results[p]["bound_ms"] for p in parts),
+                "bound_by": max((results[p]["bound_ms"], results[p]["bound_by"])
+                                for p in parts)[1],
+                "library_ms": None if None in lib else sum(lib)}
 
+    trunks = [("nonrigid", "bf16"), ("canonical", "bf16")]
     kernels = [
         entry("inverse_core_pg_s", "hosnerf_tpu_torch/csrc/lbs_inverse.cu",
-              "hosnerf_tpu/ops/pallas/lbs.py:1013", launches["lbs"],
+              "hosnerf_tpu/ops/pallas/lbs.py:1013", render_launches["lbs"],
               [("lbs", "bf16")]),
         entry("fused_embed_trunk", "hosnerf_tpu_torch/csrc/embed_trunk.cu",
-              "hosnerf_tpu/ops/pallas/mlp.py:560", launches["mlp"],
-              [("nonrigid", "bf16"), ("canonical", "bf16")]),
+              "hosnerf_tpu/ops/pallas/mlp.py:560", render_launches["mlp"],
+              trunks),
+        entry("fused_embed_trunk_bwd",
+              "hosnerf_tpu_torch/csrc/embed_trunk_bwd.cu",
+              "hosnerf_tpu/ops/pallas/mlp.py:600",
+              train_launches["fused_embed_trunk_bwd"],
+              [(n + "_bwd", p) for n, p in trunks]),
+        entry("inverse_core_bwd", "hosnerf_tpu_torch/csrc/lbs_inverse.cu",
+              "hosnerf_tpu/ops/pallas/lbs.py:1130",
+              train_launches["inverse_core_bwd"], [("lbs_bwd", "bf16")]),
+        entry("shared_blend_fwd", "hosnerf_tpu_torch/csrc/lbs_forward.cu",
+              "hosnerf_tpu/ops/pallas/lbs.py:1922",
+              train_launches["shared_blend_fwd"], [("blend_fwd", "bf16")]),
+        entry("shared_blend_bwd", "hosnerf_tpu_torch/csrc/lbs_forward.cu",
+              "hosnerf_tpu/ops/pallas/lbs.py:1966",
+              train_launches["shared_blend_bwd"], [("blend_bwd", "bf16")]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,4 @@
-"""JAX human params -> this package's state_dict, without importing jax.
+"""JAX params -> this package's state_dicts, without importing jax.
 
 Takes the nested dict of arrays that `HumanObjectField.init` produces in
 the JAX package (leaves as numpy arrays, or anything `np.asarray` reads)
@@ -81,3 +81,25 @@ def human_state_dict(params: Dict[str, Any], device=None
     takes, built from JAX params."""
     return {k: torch.from_numpy(v.copy()).to(device)
             for k, v in human_params_to_numpy(params).items()}
+
+
+def lpips_params_to_numpy(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """JAX LPIPS params -> the port's `models/lpips.py::LPIPS` state_dict
+    arrays: flax conv kernels HWIO -> OIHW, biases as they are, and the
+    five lin heads `lin_i` [C]."""
+    sd: Dict[str, np.ndarray] = {}
+    for name, node in params["vgg"].items():
+        sd[f"vgg.{name}.weight"] = np.ascontiguousarray(
+            np.asarray(node["kernel"], np.float32).transpose(3, 2, 0, 1))
+        sd[f"vgg.{name}.bias"] = np.asarray(node["bias"], np.float32)
+    for i in range(5):
+        sd[f"lin_{i}"] = np.asarray(params[f"lin_{i}"], np.float32)
+    return sd
+
+
+def lpips_state_dict(params: Dict[str, Any], device=None
+                     ) -> Dict[str, torch.Tensor]:
+    """The state_dict `LPIPS.load_state_dict(strict=True)` takes, built
+    from JAX LPIPS params."""
+    return {k: torch.from_numpy(v.copy()).to(device)
+            for k, v in lpips_params_to_numpy(params).items()}

@@ -23,14 +23,15 @@ def make_render_fn(model, transitions: Optional[torch.Tensor] = None
                    ) -> Callable:
     """render_fn(chunk_batch) -> rgb [chunk, 3]: the model at
     iter_val = 10**7 with the state of the batch's time (state 0 without
-    a time), is_train=False."""
+    a time), is_train=False, without autograd."""
 
     def render_fn(b: Dict[str, torch.Tensor]) -> torch.Tensor:
         if "time" in b:
             s_idx = state_index(b["time"], transitions)
         else:
             s_idx = torch.zeros((), dtype=torch.int32)
-        return model(b, RENDER_ITER, s_idx, is_train=False)["rgb"]
+        with torch.no_grad():
+            return model(b, RENDER_ITER, s_idx, is_train=False)["rgb"]
 
     return render_fn
 

@@ -1,15 +1,16 @@
-"""The state-conditional dynamic human-object field, render path
-(counterpart of `hosnerf_tpu/models/human.py::HumanObjectField` with
-is_train=False).
+"""The state-conditional dynamic human-object field (counterpart of
+`hosnerf_tpu/models/human.py::HumanObjectField`): the render path
+(is_train=False) and the stage-2 training path (is_train=True, adding the
+cycle and previous-frame flow branches through the forward LBS).
 
 Two per-sample pipelines with one selection rule, as in the JAX package:
 * dense (`_samples_dense`): gather-form inverse LBS and the nn.Module MLPs
   on every sample; the default on the CPU;
 * sorted (`_samples_sorted`): the liveness sort of `ops/cuda/lbs.py`
   puts zero-support samples in a contiguous prefix, the inverse-LBS
-  kernel writes them as exact zeros, and both fused embed+trunk kernel
-  calls skip whole 1024-row blocks of that prefix; the default for points
-  on a CUDA device.
+  kernel writes them as exact zeros, and every fused embed+trunk and
+  forward-LBS kernel call skips whole blocks of that prefix; the default
+  for points on a CUDA device.
 `lbs_impl` ('auto' | 'gather' | 'pallas') and `mlp_impl` ('auto' | 'flax'
 | 'fused') keep the JAX package's names: 'pallas' / 'fused' force the
 hand-written kernels (or their plain versions for CPU tensors), 'gather' /
@@ -18,7 +19,7 @@ hand-written kernels (or their plain versions for CPU tensors), 'gather' /
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -28,7 +29,8 @@ from hosnerf_tpu_torch.core import render
 from hosnerf_tpu_torch.models import embedders
 from hosnerf_tpu_torch.models.human_components import (
     BodyPoseRefiner, CanonicalMLP, MotionWeightVolumeDecoder, NonRigidMLP)
-from hosnerf_tpu_torch.models.layers import normal_, resolve_compute_dtype
+from hosnerf_tpu_torch.models.layers import (normal_, resolve_compute_dtype,
+                                             resolve_device)
 from hosnerf_tpu_torch.ops import lbs as lbs_ops
 from hosnerf_tpu_torch.ops.cuda import lbs as cuda_lbs
 from hosnerf_tpu_torch.ops.cuda import mlp as cuda_mlp
@@ -53,6 +55,7 @@ class HumanObjectField(nn.Module):
                  lbs_impl: str = "auto", mlp_impl: str = "auto",
                  compute_dtype=None, *, seed: int = 0, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.total_bones = total_bones
         self.n_samples = n_samples
         self.cnl_multires = cnl_multires
@@ -133,12 +136,12 @@ class HumanObjectField(nn.Module):
                   for i in range(depth)]
         return layers, (module.head().weight, module.head().bias)
 
-    def _nr_apply(self, pts, cond, alpha, k0=None):
-        """Non-rigid offset MLP on raw points (hann-windowed PE): pts +
+    def _nr_apply(self, module, pts, cond, alpha, k0=None):
+        """A non-rigid offset MLP (`non_rigid_mlp` or
+        `non_rigid_forward_mlp`) on raw points (hann-windowed PE): pts +
         offsets. cond [N, C] per sample (an expanded row is fine)."""
         if self._use_fused_mlp(pts):
-            layers, out = self._fused_params(self.non_rigid_mlp,
-                                             self.nr_mlp_depth)
+            layers, out = self._fused_params(module, self.nr_mlp_depth)
             return pts + cuda_mlp.fused_embed_trunk(
                 pts, cond, alpha, layers, out, kind="hannw",
                 multires=self.nr_multires, aux_mode="stream",
@@ -146,7 +149,7 @@ class HumanObjectField(nn.Module):
                 skip_source="embed", precision=self._mlp_prec(),
                 k0_blocks=k0)
         embed = embedders.hannw_fourier_embed(pts, self.nr_multires, alpha)
-        return self.non_rigid_mlp(embed, pts, cond)["xyz"]
+        return module(embed, pts, cond)["xyz"]
 
     def _canonical_raw(self, cnl_pts, embed, k0=None):
         """PE + state embedding -> canonical MLP raw rgb + sigma."""
@@ -162,33 +165,82 @@ class HumanObjectField(nn.Module):
         embed = embed.expand(xyz.shape[0], embed.shape[-1])
         return self.cnl_mlp(torch.cat([xyz, embed], dim=-1))
 
+    def _nr_condition(self, posevec, iter_val):
+        """The non-rigid condition row [1, C], zero before its kick-in
+        iteration."""
+        cond = posevec[None, :self.nr_condition_code_size]
+        return cond * float(iter_val >= self.nr_kick_in_iter)
+
+    def _prev_transforms(self, batch, iter_val):
+        """Previous-frame pose refine, forward motion bases and condition:
+        the flow branch's transform set."""
+        dst_Rs, dst_Ts = self._refine_pose(
+            batch["dst_Rs_prev"], batch["dst_Ts_prev"],
+            batch["dst_posevec_prev"][:self.pose_embedding_size], iter_val)
+        _, _, p_sR_fwd, p_T_fwd = body_math.motion_bases(
+            dst_Rs, dst_Ts, batch["cnl_gtfms"])
+        return p_sR_fwd, p_T_fwd, self._nr_condition(
+            batch["dst_posevec_prev"], iter_val)
+
     # ------------------------------------------------------------------
-    def _samples_dense(self, batch, pts_flat, m_sR, m_T, vol, cond, alpha,
-                       embed, R, S):
+    def _samples_dense(self, batch, si, embed, iter_val, is_train, R, S):
         """Every sample through every stage. Returns (raw [R, S, 4],
-        fg_mask [N, 1])."""
+        fg_mask [N, 1], training-branch outputs)."""
+        pts_flat, cond, alpha = si["pts_flat"], si["cond"], si["alpha"]
         x_skel, fg_mask = lbs_ops.inverse_warp(
-            pts_flat, m_sR, m_T, vol, batch["cnl_bbox_min_xyz"],
-            batch["cnl_bbox_scale_xyz"], impl=self.lbs_impl)
+            pts_flat, si["m_sR"], si["m_T"], si["vol"],
+            batch["cnl_bbox_min_xyz"], batch["cnl_bbox_scale_xyz"],
+            impl=self.lbs_impl)
         if not self.ignore_non_rigid_motions:
             cnl_pts = self._nr_apply(
-                x_skel, cond.expand(x_skel.shape[0], cond.shape[-1]), alpha)
+                self.non_rigid_mlp, x_skel,
+                cond.expand(x_skel.shape[0], cond.shape[-1]), alpha)
         else:
             cnl_pts = x_skel
-        return self._canonical_raw(cnl_pts, embed).reshape(R, S, 4), fg_mask
+        raw = self._canonical_raw(cnl_pts, embed).reshape(R, S, 4)
+        outputs: Dict[str, torch.Tensor] = {}
+        if is_train:
+            # the cycle and flow branches sample the weight volume once at
+            # the canonical points and blend both transform sets; one
+            # 2N-sample forward non-rigid pass over both deform streams
+            p_sR_fwd, p_T_fwd, cond_prev = self._prev_transforms(batch,
+                                                                 iter_val)
+            deform_both, _ = lbs_ops.forward_warp_multi(
+                cnl_pts, torch.stack([si["m_sR_fwd"], p_sR_fwd]),
+                torch.stack([si["m_T_fwd"], p_T_fwd]), si["vol"],
+                batch["cnl_bbox_min_xyz"], batch["cnl_bbox_scale_xyz"],
+                impl=self.lbs_impl)
+            n = cnl_pts.shape[0]
+            deform_both = deform_both.reshape(2 * n, 3)
+            if not self.ignore_non_rigid_motions:
+                cond_both = torch.cat([cond.expand(n, cond.shape[-1]),
+                                       cond_prev.expand(n, cond.shape[-1])])
+                deform_both = self._nr_apply(self.non_rigid_forward_mlp,
+                                             deform_both, cond_both, alpha)
+            outputs = {
+                "observe_pts": pts_flat,
+                "cnl_pts": cnl_pts,
+                "deform_pts_final": deform_both[:n],
+                "cycle_mask": (fg_mask[:, 0] > 0.005).float(),
+                "deform_pts_prev_final": deform_both[n:].reshape(R, S, 3),
+            }
+        return raw, fg_mask, outputs
 
-    def _samples_sorted(self, batch, pts_flat, m_sR, m_T, vol, cond, alpha,
-                        embed, R, S):
-        """Liveness-sorted per-sample pipeline (the CUDA render path). The
-        inverse-LBS kernel writes dead rows as exact zeros; the MLP kernels
-        skip the dead prefix in 1024-row blocks (one boundary for both),
-        and their unwritten rows are zeroed on the exact group-aligned
-        dead/live boundary before anything reads them."""
+    def _samples_sorted(self, batch, si, embed, iter_val, is_train, R, S):
+        """Liveness-sorted per-sample pipeline (the CUDA path). The
+        inverse-LBS kernel writes dead rows as exact zeros; the MLP and
+        forward-LBS kernels skip the dead prefix in whole blocks (one
+        boundary, the MLPs' 1024 rows, for all of them), and their
+        unwritten rows are zeroed on the exact group-aligned dead/live
+        boundary before anything reads them. Dead samples are masked out of
+        every consumer (compositing, the cycle mask, the flow weights), so
+        their skipped values and zero cotangents change nothing."""
         B = self.total_bones
         G = self.mweight_volume_size
+        pts_flat, cond, alpha = si["pts_flat"], si["cond"], si["alpha"]
+        bmin, bscale = batch["cnl_bbox_min_xyz"], batch["cnl_bbox_scale_xyz"]
         s_, o_, rg, tg, vol_qz = cuda_lbs.grid_tables(
-            m_sR, m_T, vol, batch["cnl_bbox_min_xyz"],
-            batch["cnl_bbox_scale_xyz"])
+            si["m_sR"], si["m_T"], si["vol"], bmin, bscale)
         dom = cuda_lbs.bp_prepare(pts_flat, rg, tg, G, B)
         pts_s = dom.sort_rows(pts_flat.float())
         n_pad = pts_s.shape[0]
@@ -197,48 +249,93 @@ class HumanObjectField(nn.Module):
         x_skel_s, wsum_s = cuda_lbs.world_from_grid(acc_s, s_, o_)
         live = dom.live_row_mask()
 
+        def grad_gate(x):
+            """Identity on values; dead rows pass no cotangent (the
+            kernels leave skipped rows' input gradients unwritten)."""
+            return torch.where(live, x, x.detach())
+
         k0 = dom.k0_for(cuda_mlp.MLP_TILE)
         if not self.ignore_non_rigid_motions:
             cnl_pts_s = self._nr_apply(
-                x_skel_s.contiguous(), cond.expand(n_pad, cond.shape[-1]),
-                alpha, k0=k0)
+                self.non_rigid_mlp, grad_gate(x_skel_s).contiguous(),
+                cond.expand(n_pad, cond.shape[-1]), alpha, k0=k0)
         else:
             cnl_pts_s = x_skel_s
-        raw_s = self._canonical_raw(cnl_pts_s.contiguous(), embed, k0=k0)
+        cnl_pts_s = grad_gate(cnl_pts_s).contiguous()
+        raw_s = self._canonical_raw(cnl_pts_s, embed, k0=k0)
         raw_s = torch.where(live, raw_s, 0.0)
-        return dom.unsort(raw_s).reshape(R, S, 4), dom.unsort(wsum_s)
+        raw = dom.unsort(raw_s).reshape(R, S, 4)
+        fg_mask = dom.unsort(wsum_s)
+        outputs: Dict[str, torch.Tensor] = {}
+        if is_train:
+            p_sR_fwd, p_T_fwd, cond_prev = self._prev_transforms(batch,
+                                                                 iter_val)
+            deform_s, _ = cuda_lbs.forward_lbs_multi(
+                cnl_pts_s, torch.stack([si["m_sR_fwd"], p_sR_fwd]),
+                torch.stack([si["m_T_fwd"], p_T_fwd]), si["vol"], bmin,
+                bscale, k0_blocks=k0 * (cuda_mlp.MLP_TILE
+                                        // cuda_lbs.TILE_SH))
+            d0, d1 = grad_gate(deform_s[0]), grad_gate(deform_s[1])
+            if not self.ignore_non_rigid_motions:
+                d0 = self._nr_apply(
+                    self.non_rigid_forward_mlp, d0.contiguous(),
+                    cond.expand(n_pad, cond.shape[-1]), alpha, k0=k0)
+                d1 = self._nr_apply(
+                    self.non_rigid_forward_mlp, d1.contiguous(),
+                    cond_prev.expand(n_pad, cond.shape[-1]), alpha, k0=k0)
+            outputs = {
+                "observe_pts": pts_flat,
+                "cnl_pts": dom.unsort(torch.where(live, cnl_pts_s, 0.0)),
+                "deform_pts_final": dom.unsort(torch.where(live, d0, 0.0)),
+                "cycle_mask": (fg_mask[:, 0] > 0.005).float(),
+                "deform_pts_prev_final": dom.unsort(
+                    torch.where(live, d1, 0.0)).reshape(R, S, 3),
+            }
+        return raw, fg_mask, outputs
 
     # ------------------------------------------------------------------
-    @torch.no_grad()
     def forward(self, batch: Dict[str, Any], iter_val, state_idx,
-                is_train: bool = False) -> Dict[str, torch.Tensor]:
+                is_train: bool = False, perturb: float = 0.0,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
         """batch (tensors on one device): rays_o, rays_d [R, 3]; near, far
         [R, 1]; dst_Rs [B, 3, 3], dst_Ts [B, 3], dst_posevec [75],
         cnl_gtfms [B, 4, 4], motion_weights_priors [B+1, G, G, G],
-        cnl_bbox_min_xyz, cnl_bbox_scale_xyz [3], bgcolor [3].
+        cnl_bbox_min_xyz, cnl_bbox_scale_xyz [3], bgcolor [3]; when
+        is_train also dst_Rs_prev, dst_Ts_prev, dst_posevec_prev.
         iter_val: a number (the render path uses 10**7); state_idx: index
-        tensor, 0-d (one state row) or per-sample."""
-        if is_train:
-            raise NotImplementedError(
-                "HumanObjectField(is_train=True) belongs to the stage-2 "
-                "training slice of the port, which is not built yet")
+        tensor, 0-d (one state row) or per-sample. is_train adds the cycle
+        and flow branches' outputs; with perturb > 0 and a generator the
+        samples are jittered within their bins (uniform draws from that
+        generator). Differentiable: callers that only render wrap the call
+        in torch.no_grad()."""
         R = batch["rays_o"].shape[0]
         S = self.n_samples
         si = self.sample_inputs(batch, iter_val)
+        if is_train and perturb > 0.0 and generator is not None:
+            z = si["z_vals"]
+            mids = 0.5 * (z[..., 1:] + z[..., :-1])
+            upper = torch.cat([mids, z[..., -1:]], -1)
+            lower = torch.cat([z[..., :1], mids], -1)
+            u = torch.rand(z.shape, generator=generator,
+                           device=generator.device, dtype=z.dtype)
+            si["z_vals"] = z = lower + (upper - lower) * u.to(z.device)
+            si["pts"] = (batch["rays_o"][:, None, :]
+                         + batch["rays_d"][:, None, :] * z[..., None])
+            si["pts_flat"] = si["pts"].reshape(-1, 3)
         embed = torch.stack(list(self.human_stateembeds))[
             torch.as_tensor(state_idx, device=si["vol"].device).long()]
 
         samples = (self._samples_sorted
                    if self._sparse_ok(si["pts_flat"], si["vol"], embed)
                    else self._samples_dense)
-        raw, fg_mask = samples(batch, si["pts_flat"], si["m_sR"], si["m_T"],
-                               si["vol"], si["cond"], si["alpha"], embed, R,
-                               S)
+        raw, fg_mask, outputs = samples(batch, si, embed, iter_val,
+                                        is_train, R, S)
         pts_mask = fg_mask.reshape(R, S, 1)
 
         rgb_map, acc_map, weights, depth_map = render.raw2outputs(
             raw, pts_mask, si["z_vals"], batch["rays_d"], batch["bgcolor"])
-        return {
+        outputs.update({
             "rgb": rgb_map,
             "alpha": acc_map,
             "depth": depth_map,
@@ -248,25 +345,24 @@ class HumanObjectField(nn.Module):
             "newsmpl_pts": si["pts"],
             "pts_mask": pts_mask[..., 0],
             "z_vals": si["z_vals"],
-        }
+        })
+        return outputs
 
-    @torch.no_grad()
     def sample_inputs(self, batch: Dict[str, Any],
                       iter_val) -> Dict[str, Any]:
         """What both per-sample pipelines start from: refined-pose motion
-        bases (m_sR [B, 3, 3], m_T [B, 3]), the decoded weight volume
-        [B+1, G, G, G], the non-rigid condition row [1, C] and anneal
-        alpha, and the samples (z_vals [R, S], pts [R, S, 3], pts_flat)."""
+        bases (inverse m_sR [B, 3, 3], m_T [B, 3]; forward m_sR_fwd,
+        m_T_fwd), the decoded weight volume [B+1, G, G, G], the non-rigid
+        condition row [1, C] and anneal alpha, and the samples (z_vals
+        [R, S], pts [R, S, 3], pts_flat)."""
         S = self.n_samples
         dst_Rs, dst_Ts = self._refine_pose(
             batch["dst_Rs"], batch["dst_Ts"],
             batch["dst_posevec"][:self.pose_embedding_size], iter_val)
-        m_sR, m_T, _, _ = body_math.motion_bases(dst_Rs, dst_Ts,
-                                                 batch["cnl_gtfms"])
+        m_sR, m_T, m_sR_fwd, m_T_fwd = body_math.motion_bases(
+            dst_Rs, dst_Ts, batch["cnl_gtfms"])
         vol = self.mweight_vol_decoder(batch["motion_weights_priors"])
-        cond = batch["dst_posevec"][None, :self.nr_condition_code_size]
-        if iter_val < self.nr_kick_in_iter:
-            cond = torch.zeros_like(cond)
+        cond = self._nr_condition(batch["dst_posevec"], iter_val)
         alpha = embedders.hann_alpha(iter_val, self.nr_kick_in_iter,
                                      self.nr_full_band_iter,
                                      self.nr_multires)
@@ -276,5 +372,6 @@ class HumanObjectField(nn.Module):
                   + batch["far"] * t_vals[None, :])
         pts = (batch["rays_o"][:, None, :]
                + batch["rays_d"][:, None, :] * z_vals[..., None])
-        return dict(m_sR=m_sR, m_T=m_T, vol=vol, cond=cond, alpha=alpha,
-                    z_vals=z_vals, pts=pts, pts_flat=pts.reshape(-1, 3))
+        return dict(m_sR=m_sR, m_T=m_T, m_sR_fwd=m_sR_fwd, m_T_fwd=m_T_fwd,
+                    vol=vol, cond=cond, alpha=alpha, z_vals=z_vals, pts=pts,
+                    pts_flat=pts.reshape(-1, 3))

@@ -11,6 +11,9 @@ converted JAX state_dict loads with `load_state_dict(strict=True)`:
   mweight_vol_decoder.const_embedding, .decoder.block_mlp.0,
   .decoder.block_conv.{2n}
 
+Every module is built on the CUDA card unless `device` names another
+(device='cpu' for the CPU; no card and no device raises).
+
 `compute_dtype=torch.bfloat16` runs the trunk matmuls on bf16 operands
 (bf16 result, bias added in bf16) while parameters stay f32; the output
 heads always run in f32.
@@ -27,7 +30,8 @@ from torch import nn
 
 from hosnerf_tpu_torch.core.body import rodrigues
 from hosnerf_tpu_torch.models.layers import (blockwise_transposed_conv_init,
-                                             normal_, small_uniform,
+                                             normal_, resolve_device,
+                                             small_uniform,
                                              xavier_uniform_gain)
 
 RELU_GAIN = math.sqrt(2.0)
@@ -74,6 +78,7 @@ class CanonicalMLP(nn.Module):
                  compute_dtype: Optional[torch.dtype] = None, *,
                  generator: torch.Generator, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.mlp_depth = mlp_depth
         self.skips = tuple(skips)
         self.compute_dtype = compute_dtype
@@ -116,6 +121,7 @@ class NonRigidMLP(nn.Module):
                  compute_dtype: Optional[torch.dtype] = None, *,
                  generator: torch.Generator, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.mlp_depth = mlp_depth
         self.skips = tuple(skips)
         self.compute_dtype = compute_dtype
@@ -157,6 +163,7 @@ class BodyPoseRefiner(nn.Module):
                  mlp_width: int = 256, mlp_depth: int = 4, *,
                  generator: torch.Generator, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.refined = total_bones - 1
         self.mlp_depth = mlp_depth
         trunk = []
@@ -201,6 +208,7 @@ class ConvDecoder3D(nn.Module):
                  compute_dtype: Optional[torch.dtype] = None, *,
                  generator: torch.Generator, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.block_mlp = nn.Sequential(
             _linear(embedding_size, 1024, LEAKY02_GAIN, generator, device))
@@ -245,6 +253,7 @@ class MotionWeightVolumeDecoder(nn.Module):
                  compute_dtype: Optional[torch.dtype] = None, *,
                  generator: torch.Generator, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.const_embedding = nn.Parameter(
             torch.empty(embedding_size, device=device))
         normal_(self.const_embedding, 1.0, generator)

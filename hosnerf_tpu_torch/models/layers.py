@@ -26,6 +26,19 @@ def resolve_compute_dtype(spec) -> Optional[torch.dtype]:
     raise ValueError(f"unknown compute_dtype {spec!r}")
 
 
+def resolve_device(device) -> torch.device:
+    """Where a model is built: the CUDA card unless the caller names a
+    device (device='cpu' for the CPU). Raises where torch sees no card and
+    none was named: nothing falls back to the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: hosnerf_tpu_torch builds its models on the "
+                "card by default; pass device='cpu' to build on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
 def uniform_(t: torch.Tensor, bound: float, gen: torch.Generator):
     """In-place U(-bound, bound) drawn on the CPU from `gen`, then copied
     to t's device (the same numbers whatever the device)."""

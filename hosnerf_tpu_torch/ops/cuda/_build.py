@@ -2,8 +2,8 @@
 libraries with a plain C interface, and load them with ctypes.
 
 Each `<name>.cu` becomes `_build/<name>-<hash>.so`, where the hash covers
-the source and the flags, so an edited source rebuilds and an unchanged
-one is reused. Nothing is compiled at import: `load(name)` builds on first
+the source, the shared headers (`csrc/*.cuh`) and the flags, so an edited
+source rebuilds and an unchanged one is reused. Nothing is compiled at import: `load(name)` builds on first
 use, and `build_all()` starts one `nvcc` per source in parallel.
 """
 
@@ -21,7 +21,7 @@ from typing import Dict, Iterable, List
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("lbs_inverse", "embed_trunk")
+SOURCES = ("lbs_inverse", "lbs_forward", "embed_trunk", "embed_trunk_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -47,6 +47,8 @@ def nvcc_path() -> str:
 
 def target_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for hdr in sorted(CSRC_DIR.glob("*.cuh")):
+        src += hdr.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

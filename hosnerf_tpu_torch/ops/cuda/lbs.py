@@ -1,16 +1,22 @@
-"""Sorted-domain inverse LBS: the liveness sort shared by every
-per-sample stage, and the inverse-LBS kernel with its plain version.
+"""Sorted-domain inverse LBS and fused forward LBS: the liveness sort
+shared by every per-sample stage, and the LBS kernels with their plain
+versions and gradients.
 
 Counterpart of the sorted-domain pieces of `hosnerf_tpu/ops/pallas/lbs.py`
 (`_grid_affine`, `_sample_support`, `bp_prepare`/`BPDomain`,
-`inverse_core_pg_s`). The TPU version compacts (tile, bone-quad) pairs into
+`inverse_core_pg_s` with its VJP, `shared_blend_core` with its VJP,
+`forward_lbs_multi`). The TPU version compacts (tile, bone-quad) pairs into
 scalar-prefetch tables so the grid visits only live pairs; the Hopper
-kernel (`csrc/lbs_inverse.cu`) needs no tables: each thread early-outs per
-(sample, bone) on the same support test. So `bp_prepare` here builds only
-the signature sort, the dead-prefix count and the permutations.
+kernels (`csrc/lbs_inverse.cu`, `csrc/lbs_forward.cu`) need no tables:
+each thread early-outs per (sample, bone) on the same support test. So
+`bp_prepare` here builds only the signature sort, the dead-prefix count
+and the permutations.
 
-`inverse_core_pg_s` takes a CPU tensor to `inverse_core_plain` and a CUDA
-tensor to the kernel; it never falls back from one to the other.
+Every kernel entry takes a CPU tensor to its plain version and a CUDA
+tensor to the kernel; it never falls back from one to the other. The
+plain backward versions are written out (not autograd of the plain
+forward) because the kernels round derivative taps to bf16 where the TPU
+kernels' matmuls do.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ SORT_GROUP = 8     # consecutive samples sharing one sort key
 ROW_PAD = 128      # sorted-domain rows padded to a multiple of this (the
                    # JAX pair tile), so both packages sort the same rows
 MAX_SIG_BONES = 31  # the int32 signature holds one bit per bone
+TILE_SH = 512      # forward-LBS k0 counts blocks of this many rows
+MAX_BONES = 32     # csrc kMaxBones
 
 
 def _grid_affine(bbox_min, bbox_scale, G: int):
@@ -107,10 +115,10 @@ def bp_prepare(pts, rg, tg, G: int, B: int) -> BPDomain:
                          f"got {B}")
     n = pts.shape[0]
     n_pad = -(-n // ROW_PAD) * ROW_PAD
-    pts_p = pts.float()
-    if n_pad != n:
-        pts_p = torch.cat([pts_p, pts_p.new_zeros((n_pad - n, 3))], 0)
     with torch.no_grad():
+        pts_p = pts.float()
+        if n_pad != n:
+            pts_p = torch.cat([pts_p, pts_p.new_zeros((n_pad - n, 3))], 0)
         sup = _sample_support(pts_p, rg.float(), tg.float(), G)
         sup[n:] = False
         n_groups = n_pad // SORT_GROUP
@@ -128,16 +136,75 @@ def bp_prepare(pts, rg, tg, G: int, B: int) -> BPDomain:
 
 
 # ---------------------------------------------------------------------------
-# the inverse-LBS kernel and its plain version
+# shared plain-version pieces
 # ---------------------------------------------------------------------------
 
-def _vol_for(vol_qz, precision: str):
+def _vol_for(vol, precision: str):
     if precision == "bf16":
-        return vol_qz.to(torch.bfloat16)
+        return vol.to(torch.bfloat16)
     if precision == "highest":
-        return vol_qz.float()
+        return vol.float()
     raise ValueError(f"unknown precision {precision!r}")
 
+
+def _rounder(precision: str):
+    if precision == "bf16":
+        return lambda t: t.to(torch.bfloat16).float()
+    if precision == "highest":
+        return lambda t: t
+    raise ValueError(f"unknown precision {precision!r}")
+
+
+def _taps(f, G: int):
+    """The two linear taps of f along one axis: [(hat weight, in-grid
+    mask, clamped index, d(hat)/df)] at floor(f) and floor(f) + 1. The
+    derivative is the reference's floor-based one (-1 at the floor, +1
+    above it), not the hat's kink; taps outside [0, G-1] do not exist."""
+    f0 = torch.floor(f)
+    out = []
+    for d in (0, 1):
+        i = f0 + d
+        h = torch.clamp_min(1.0 - torch.abs(f - i), 0.0)
+        valid = (i >= 0) & (i <= G - 1)
+        out.append((h, valid, i.clamp(0, G - 1).long(),
+                    (2.0 * d - 1.0) * valid.float()))
+    return out
+
+
+def _check_cuda(what: str, dev, *named):
+    for name, t in named:
+        if t.device != dev:
+            raise ValueError(f"{what}: {name} is on {t.device}, not {dev}")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous float32")
+
+
+def first_live_row(k0, n: int, tile: int) -> int:
+    """Host-side first computed row for a k0 given on the host: k0
+    clamped to [0, n_blocks - 1], times the tile (what the kernels
+    compute on the device)."""
+    n_blocks = -(-n // tile)
+    return max(0, min(int(k0), n_blocks - 1)) * tile
+
+
+def live_rows_mask(k0, n: int, tile: int, device) -> torch.Tensor:
+    """[n, 1] bool on the device: rows at or after the clamped k0 * tile,
+    from a device k0 without a host sync."""
+    n_blocks = -(-n // tile)
+    k = torch.as_tensor(k0, device=device).reshape(()).long()
+    k = torch.clamp(k, 0, n_blocks - 1)
+    return (torch.arange(n, device=device) >= k * tile)[:, None]
+
+
+def _k0_tensor(k0, device) -> torch.Tensor:
+    if k0 is None:
+        return torch.zeros(1, dtype=torch.int32, device=device)
+    return torch.as_tensor(k0, device=device).reshape(1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# inverse LBS: forward kernel (B1), backward kernel (B4), plain versions
+# ---------------------------------------------------------------------------
 
 def inverse_core_plain(pts_s, rg, tg, vol_qz, precision: str = "bf16"):
     """Plain PyTorch version of the kernel, with the same arithmetic in the
@@ -150,35 +217,22 @@ def inverse_core_plain(pts_s, rg, tg, vol_qz, precision: str = "bf16"):
     f32 throughout. Returns acc [n, 4] in grid coordinates."""
     B, QQ, G = vol_qz.shape
     vol = _vol_for(vol_qz, precision).float().reshape(B, QQ * G)
+    rnd = _rounder(precision)
     x, y, z = pts_s.float().unbind(-1)
     acc = torch.zeros(pts_s.shape[0], 4, device=pts_s.device)
     rg = rg.float()
     tg = tg.float()
-
-    def taps(f):
-        f0 = torch.floor(f)
-        out = []
-        for d in (0, 1):
-            i = f0 + d
-            h = torch.clamp_min(1.0 - torch.abs(f - i), 0.0)
-            valid = (i >= 0) & (i <= G - 1)
-            out.append((h, valid, i.clamp(0, G - 1).long()))
-        return out
-
     for b in range(B):
         r, t = rg[b], tg[b]
         f = [((x * r[3 * c] + y * r[3 * c + 1]) + z * r[3 * c + 2]) + t[c]
              for c in range(3)]
-        tx, ty, tz = taps(f[0]), taps(f[1]), taps(f[2])
+        tx, ty, tz = _taps(f[0], G), _taps(f[1], G), _taps(f[2], G)
         zc = [torch.zeros_like(x), torch.zeros_like(x)]
-        for hx, vx, ix in tx:
-            for hy, vy, iy in ty:
-                w = hx * hy
-                if precision == "bf16":
-                    w = w.to(torch.bfloat16).float()
-                w = w * (vx & vy)
+        for hx, vx, ix, _ in tx:
+            for hy, vy, iy, _ in ty:
+                w = rnd(hx * hy) * (vx & vy)
                 base = (ix * G + iy) * G
-                for dz, (_, vz, iz) in enumerate(tz):
+                for dz, (_, vz, iz, _) in enumerate(tz):
                     zc[dz] = zc[dz] + w * (vol[b][base + iz] * vz)
         wb = tz[0][0] * zc[0] + tz[1][0] * zc[1]
         for c in range(3):
@@ -187,31 +241,95 @@ def inverse_core_plain(pts_s, rg, tg, vol_qz, precision: str = "bf16"):
     return acc
 
 
-def inverse_core_pg_s(pts_s, rg, tg, vol_qz, precision: str = "bf16"):
-    """Inverse-LBS accumulation over (sorted) samples: acc [n, 4] =
-    (sum_b w_b f_b, sum_b w_b) in grid coordinates, dead rows exactly 0.
-    pts_s [n, 3] f32; rg [B, 9]; tg [B, 3]; vol_qz [B, G*G, G].
-    A CPU tensor runs `inverse_core_plain`; a CUDA tensor runs the kernel
-    of csrc/lbs_inverse.cu (or raises)."""
+def inverse_core_bwd_plain(pts_s, rg, tg, vol_qz, gacc,
+                           precision: str = "bf16"):
+    """Plain version of the inverse-LBS backward (the contract of the TPU
+    `_pg_bwd_kernel`, lbs.py:860-956). Per bone, with gw = gx fx + gy fy
+    + gz fz + g_w:
+      dvol[b, xy, z] += bf16(hx hy) * bf16(gw hz);
+      dfx = gx w_b + gw * sum_z hz * sum_xy bf16(dhat(fx) hy) vol, dfy
+      likewise, dfz = gz w_b + gw * sum_z dhat(fz) zc;
+      dRg[b] += (dfx, dfy, dfz) p^T, dTg[b] += (dfx, dfy, dfz);
+      dpts += Rg_b^T (dfx, dfy, dfz).
+    (bf16 rounding only in "bf16"; every sum f32.) Samples outside a
+    bone's support contribute exactly zero, as the skipped TPU pairs do.
+    Returns (dpts [n, 3], drg [B, 9], dtg [B, 3], dvol [B, G*G, G])."""
+    B, QQ, G = vol_qz.shape
+    vol = _vol_for(vol_qz, precision).float().reshape(B, QQ * G)
+    rnd = _rounder(precision)
+    p = pts_s.float()
+    x, y, z = p.unbind(-1)
+    gacc = gacc.float()
+    gx, gy, gz, g_w = gacc.unbind(-1)
+    rg = rg.float()
+    tg = tg.float()
+    dpts = torch.zeros_like(p)
+    drg = torch.zeros(B, 9, device=p.device)
+    dtg = torch.zeros(B, 3, device=p.device)
+    dvol = torch.zeros(B, QQ * G, device=p.device)
+    for b in range(B):
+        r, t = rg[b], tg[b]
+        f = [((x * r[3 * c] + y * r[3 * c + 1]) + z * r[3 * c + 2]) + t[c]
+             for c in range(3)]
+        tx, ty, tz = _taps(f[0], G), _taps(f[1], G), _taps(f[2], G)
+        gw = ((gx * f[0] + gy * f[1]) + gz * f[2]) + g_w
+        zc = [torch.zeros_like(x), torch.zeros_like(x)]
+        m2 = [torch.zeros_like(x), torch.zeros_like(x)]
+        m3 = [torch.zeros_like(x), torch.zeros_like(x)]
+        for hx, vx, ix, dhx in tx:
+            for hy, vy, iy, dhy in ty:
+                vxy = vx & vy
+                w = rnd(hx * hy) * vxy
+                wdx = rnd(dhx * hy) * vxy
+                wdy = rnd(hx * dhy) * vxy
+                base = (ix * G + iy) * G
+                for dz, (hz, vz, iz, _) in enumerate(tz):
+                    v = vol[b][base + iz] * vz
+                    zc[dz] = zc[dz] + w * v
+                    m2[dz] = m2[dz] + wdx * v
+                    m3[dz] = m3[dz] + wdy * v
+                    dvol[b].index_add_(0, base + iz,
+                                       w * rnd(gw * hz) * vz)
+        (hz0, _, _, dhz0), (hz1, _, _, dhz1) = tz
+        wb = hz0 * zc[0] + hz1 * zc[1]
+        df = [gx * wb + gw * (m2[0] * hz0 + m2[1] * hz1),
+              gy * wb + gw * (m3[0] * hz0 + m3[1] * hz1),
+              gz * wb + gw * (dhz0 * zc[0] + dhz1 * zc[1])]
+        for c in range(3):
+            for k in range(3):
+                drg[b, 3 * c + k] = torch.sum(df[c] * p[:, k])
+            dtg[b, c] = torch.sum(df[c])
+        for k in range(3):
+            dpts[:, k] = dpts[:, k] + ((df[0] * r[k] + df[1] * r[3 + k])
+                                       + df[2] * r[6 + k])
+    return dpts, drg, dtg, dvol.reshape(B, QQ, G)
+
+
+def _check_inverse(pts_s, rg, tg, vol_qz):
+    B, QQ, G = vol_qz.shape
+    n = pts_s.shape[0]
+    if QQ != G * G or B > MAX_BONES or B < 1:
+        raise ValueError(f"vol_qz must be [B<={MAX_BONES}, G*G, G], got "
+                         f"{tuple(vol_qz.shape)}")
+    if pts_s.shape != (n, 3) or rg.shape != (B, 9) or tg.shape != (B, 3):
+        raise ValueError("pts_s [n, 3], rg [B, 9], tg [B, 3] expected")
+    _check_cuda("inverse LBS", pts_s.device, ("pts_s", pts_s), ("rg", rg),
+                ("tg", tg))
+    if vol_qz.device != pts_s.device:
+        raise ValueError(f"vol_qz is on {vol_qz.device}, not {pts_s.device}")
+    return B, G, n
+
+
+def inverse_core_fwd(pts_s, rg, tg, vol_qz, precision: str = "bf16"):
+    """B1: inverse-LBS accumulation acc [n, 4]. A CPU tensor runs
+    `inverse_core_plain`; a CUDA tensor runs the kernel of
+    csrc/lbs_inverse.cu (or raises)."""
     if pts_s.device.type == "cpu":
         return inverse_core_plain(pts_s, rg, tg, vol_qz, precision)
     if not pts_s.is_cuda:
         raise ValueError(f"unsupported device {pts_s.device}")
-    B, QQ, G = vol_qz.shape
-    n = pts_s.shape[0]
-    if QQ != G * G or B > 32 or B < 1:
-        raise ValueError(f"vol_qz must be [B<=32, G*G, G], got "
-                         f"{tuple(vol_qz.shape)}")
-    if pts_s.shape != (n, 3) or rg.shape != (B, 9) or tg.shape != (B, 3):
-        raise ValueError("pts_s [n, 3], rg [B, 9], tg [B, 3] expected")
-    for name, t in (("pts_s", pts_s), ("rg", rg), ("tg", tg)):
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous float32")
-        if t.device != pts_s.device:
-            raise ValueError(f"{name} is on {t.device}, not {pts_s.device}")
+    B, G, n = _check_inverse(pts_s, rg, tg, vol_qz)
     vol = _vol_for(vol_qz, precision).contiguous()
-    if vol.device != pts_s.device:
-        raise ValueError(f"vol_qz is on {vol.device}, not {pts_s.device}")
     out = torch.empty(n, 4, device=pts_s.device, dtype=torch.float32)
     lib = _lib()
     stream = torch.cuda.current_stream(pts_s.device).cuda_stream
@@ -223,15 +341,75 @@ def inverse_core_pg_s(pts_s, rg, tg, vol_qz, precision: str = "bf16"):
     return out
 
 
+def inverse_core_bwd(pts_s, rg, tg, vol_qz, gacc, precision: str = "bf16"):
+    """B4: the inverse-LBS backward, (dpts, drg, dtg, dvol). A CPU tensor
+    runs `inverse_core_bwd_plain`; a CUDA tensor the kernel of
+    csrc/lbs_inverse.cu (or raises). dvol/drg/dtg sum over all samples
+    with atomics, so their summation order varies from run to run."""
+    if pts_s.device.type == "cpu":
+        return inverse_core_bwd_plain(pts_s, rg, tg, vol_qz, gacc, precision)
+    if not pts_s.is_cuda:
+        raise ValueError(f"unsupported device {pts_s.device}")
+    B, G, n = _check_inverse(pts_s, rg, tg, vol_qz)
+    gacc = gacc.float().contiguous()
+    if gacc.shape != (n, 4) or gacc.device != pts_s.device:
+        raise ValueError("gacc must be [n, 4] on the device of pts_s")
+    vol = _vol_for(vol_qz, precision).contiguous()
+    dev = pts_s.device
+    dpts = torch.empty(n, 3, device=dev, dtype=torch.float32)
+    drt = torch.zeros(B, 12, device=dev, dtype=torch.float32)
+    dvol = torch.zeros(B, G * G, G, device=dev, dtype=torch.float32)
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.hosnerf_inverse_lbs_bwd(
+        pts_s.data_ptr(), rg.data_ptr(), tg.data_ptr(), vol.data_ptr(),
+        gacc.data_ptr(), dpts.data_ptr(), drt.data_ptr(), dvol.data_ptr(),
+        n, B, G, int(precision == "bf16"), PG_EPS, stream)
+    inverse_core_bwd.launches += 1
+    _build.check(rc, lib, "inverse_core_bwd")
+    return dpts, drt[:, :9].contiguous(), drt[:, 9:].contiguous(), dvol
+
+
+inverse_core_bwd.launches = 0
+
+
+class _InverseCore(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, pts_s, rg, tg, vol_qz, precision):
+        ctx.precision = precision
+        ctx.save_for_backward(pts_s, rg, tg, vol_qz)
+        return inverse_core_fwd(pts_s, rg, tg, vol_qz, precision)
+
+    @staticmethod
+    def backward(ctx, gacc):
+        pts_s, rg, tg, vol_qz = ctx.saved_tensors
+        dpts, drg, dtg, dvol = inverse_core_bwd(pts_s, rg, tg, vol_qz,
+                                                gacc, ctx.precision)
+        return (dpts, drg.to(rg.dtype), dtg.to(tg.dtype),
+                dvol.to(vol_qz.dtype), None)
+
+
+def inverse_core_pg_s(pts_s, rg, tg, vol_qz, precision: str = "bf16"):
+    """Inverse-LBS accumulation over (sorted) samples: acc [n, 4] =
+    (sum_b w_b f_b, sum_b w_b) in grid coordinates, dead rows exactly 0.
+    pts_s [n, 3] f32; rg [B, 9]; tg [B, 3]; vol_qz [B, G*G, G].
+    Differentiable in all four: forward B1, backward B4 (each the plain
+    version for CPU tensors, the kernel for CUDA tensors)."""
+    return _InverseCore.apply(pts_s, rg, tg, vol_qz, precision)
+
+
 inverse_core_pg_s.launches = 0
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("lbs_inverse")
     p = ctypes.c_void_p
+    i = ctypes.c_int
     _build.declare(lib, "hosnerf_inverse_lbs",
-                   [p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_float, p])
+                   [p, p, p, p, p, i, i, i, i, ctypes.c_float, p])
+    _build.declare(lib, "hosnerf_inverse_lbs_bwd",
+                   [p, p, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, p])
     return lib
 
 
@@ -250,3 +428,283 @@ def inverse_lbs(pts, motion_scale_Rs, motion_Ts, motion_weights_vol,
                               precision)
     x_skel_s, wsum_s = world_from_grid(acc_s, s, o)
     return dom.unsort(x_skel_s), dom.unsort(wsum_s)
+
+
+# ---------------------------------------------------------------------------
+# fused forward LBS: forward kernel (B5 fwd), backward kernel (B5 bwd)
+# ---------------------------------------------------------------------------
+
+def _blend_dims(vol_all, rmat):
+    QQ, BG = vol_all.shape
+    G = int(round(QQ ** 0.5))
+    B = BG // G
+    K = rmat.shape[1] // 12
+    if G * G != QQ or B * G != BG or tuple(rmat.shape) != (B, 12 * K):
+        raise ValueError(f"vol_all [G*G, B*G] and rmat [B, 12K] expected, "
+                         f"got {tuple(vol_all.shape)}, {tuple(rmat.shape)}")
+    return G, B, K
+
+
+def _shared_taps(pts_g, G: int, B: int, rnd, vol):
+    """Shared-tap sampling at grid points: the 4 xy taps (bf16(hx hy)
+    weight, mask, q = y*G + x, and the x/y tap pieces), the 2 z taps, and
+    per bone zc[b][dz] = sum_xy w_xy vol[q, b*G + z] (0 off-grid)."""
+    fx, fy, fz = pts_g.float().unbind(-1)
+    tx, ty, tz = _taps(fx, G), _taps(fy, G), _taps(fz, G)
+    BG = B * G
+    xy = []
+    for hx, vx, ix, dhx in tx:
+        for hy, vy, iy, dhy in ty:
+            vxy = vx & vy
+            xy.append(dict(w=rnd(hx * hy) * vxy, q=(iy * G + ix) * BG,
+                           m=vxy.float(), hx=hx, hy=hy, dhx=dhx, dhy=dhy))
+    flat = vol.reshape(-1)
+    zc = []
+    for b in range(B):
+        row = []
+        for _, vz, iz, _ in tz:
+            col = b * G + iz
+            s = None
+            for t in xy:
+                c = t["w"] * flat[t["q"] + col]
+                s = c if s is None else s + c
+            row.append(s * vz)
+        zc.append(row)
+    return (fx, fy, fz), xy, tz, zc
+
+
+def _blend_weights(zc, tz, rnd):
+    """w [N, B]: w_b = sum_z bf16(zc hz) (the TPU sum_blk matmul)."""
+    (hz0, _, _, _), (hz1, _, _, _) = tz
+    return torch.stack([rnd(r[0] * hz0) + rnd(r[1] * hz1) for r in zc], 1)
+
+
+def shared_blend_plain(pts_g, vol_all, rmat, precision: str = "bf16"):
+    """Plain version of the fused forward LBS (`_shared_blend_fwd_kernel`,
+    lbs.py:1796-1817): per sample the 4 xy taps are shared by every bone;
+    zc[b, z] = sum_xy bf16(hx hy) bf16(vol); w_b = sum_z bf16(zc hz);
+    A = w rmat (f32); acc_kc = ((P0 A0 + P1 A1) + P2 A2) + A3 at columns
+    12k + 4c + j, P = the grid point; out = [acc_0, .., acc_{K-1}, sum w].
+    pts_g [N, 3] grid coordinates; vol_all [G*G, B*G] with
+    vol_all[y*G + x, b*G + z]; rmat [B, 12K]. Returns [N, 3K + 1]."""
+    G, B, K = _blend_dims(vol_all, rmat)
+    rnd = _rounder(precision)
+    vol = _vol_for(vol_all, precision).float()
+    P, _, tz, zc = _shared_taps(pts_g, G, B, rnd, vol)
+    w = _blend_weights(zc, tz, rnd)
+    A = w @ rmat.float()
+    cols = []
+    for k in range(K):
+        for c in range(3):
+            j = 12 * k + 4 * c
+            cols.append(((P[0] * A[:, j] + P[1] * A[:, j + 1])
+                         + P[2] * A[:, j + 2]) + A[:, j + 3])
+    return torch.stack(cols + [w.sum(1)], 1)
+
+
+def shared_blend_bwd_plain(pts_g, vol_all, rmat, k0, gout,
+                           precision: str = "bf16"):
+    """Plain version of the fused forward-LBS backward
+    (`_shared_blend_bwd_kernel`, lbs.py:1820-1883), on rows from the
+    clamped k0 * 512 on (the rows below get dpts 0 and add nothing):
+      q[12k+4c+j] = g_kc P_j (P_3 = 1); drmat = w^T q (f32);
+      dw = q rmat^T + g_w; gw = bf16(dw) (the `expand` matmul);
+      dvol[q_xy, b*G+z] += bf16(hx hy) bf16(gw_b hz);
+      U_xy = sum_{b,z} bf16(gw_b hz) bf16(vol); dfx = sum_xy dhat(fx) hy U,
+      dfy = sum_xy hx dhat(fy) U, dfz = sum_b gw_b sum_z dhat(fz) zc;
+      dpts = (dfx, dfy, dfz) + sum_kc g_kc A[12k+4c+j].
+    Returns (dpts [N, 3], dvol [G*G, B*G], drmat [B, 12K])."""
+    G, B, K = _blend_dims(vol_all, rmat)
+    rnd = _rounder(precision)
+    n = pts_g.shape[0]
+    first = first_live_row(0 if k0 is None else k0, n, TILE_SH)
+    vol = _vol_for(vol_all, precision).float()
+    rm = rmat.float()
+    P, xy, tz, zc = _shared_taps(pts_g[first:], G, B, rnd, vol)
+    w = _blend_weights(zc, tz, rnd)
+    A = w @ rm
+    g = gout[first:].float()
+    ones = torch.ones_like(P[0])
+    q = torch.stack([g[:, 3 * k + c] * pj for k in range(K)
+                     for c in range(3) for pj in (*P, ones)], 1)
+    drmat = w.T @ q
+    gw = rnd(q @ rm.T + g[:, 3 * K:3 * K + 1])
+    direct = [sum(g[:, 3 * k + c] * A[:, 12 * k + 4 * c + j]
+                  for k in range(K) for c in range(3)) for j in range(3)]
+    dvol = torch.zeros(G * G * B * G, device=pts_g.device)
+    flat = vol.reshape(-1)
+    U = [torch.zeros_like(P[0]) for _ in xy]
+    dfz = torch.zeros_like(P[0])
+    for b in range(B):
+        for dz, (hz, vz, iz, dhz) in enumerate(tz):
+            d = rnd(gw[:, b] * hz) * vz
+            col = b * G + iz
+            for i, t in enumerate(xy):
+                dvol.index_add_(0, t["q"] + col, t["w"] * d)
+                U[i] = U[i] + d * flat[t["q"] + col]
+            dfz = dfz + gw[:, b] * (dhz * zc[b][dz])
+    dfx = sum(t["dhx"] * t["hy"] * t["m"] * u for t, u in zip(xy, U))
+    dfy = sum(t["hx"] * t["dhy"] * t["m"] * u for t, u in zip(xy, U))
+    dpts = torch.zeros(n, 3, device=pts_g.device)
+    dpts[first:] = torch.stack([dfx + direct[0], dfy + direct[1],
+                                dfz + direct[2]], 1)
+    return dpts, dvol.reshape(G * G, B * G), drmat
+
+
+def _check_blend(pts_g, vol_all, rmat):
+    G, B, K = _blend_dims(vol_all, rmat)
+    n = pts_g.shape[0]
+    if pts_g.shape != (n, 3) or K not in (1, 2) or B > MAX_BONES:
+        raise ValueError(f"kernel takes pts_g [n, 3], K in (1, 2), B <= "
+                         f"{MAX_BONES}; got {tuple(pts_g.shape)}, K={K}, "
+                         f"B={B}")
+    _check_cuda("forward LBS", pts_g.device, ("pts_g", pts_g),
+                ("rmat", rmat))
+    if vol_all.device != pts_g.device:
+        raise ValueError(f"vol_all is on {vol_all.device}, not "
+                         f"{pts_g.device}")
+    return G, B, K, n
+
+
+def shared_blend_fwd(pts_g, vol_all, rmat, k0=None, precision: str = "bf16"):
+    """B5 forward: [N, 3K + 1]. Rows below the clamped k0 * 512 are
+    unspecified (the kernel leaves them unwritten). A CPU tensor runs
+    `shared_blend_plain` (every row); a CUDA tensor runs the kernel of
+    csrc/lbs_forward.cu (or raises)."""
+    if pts_g.device.type == "cpu":
+        return shared_blend_plain(pts_g, vol_all, rmat, precision)
+    if not pts_g.is_cuda:
+        raise ValueError(f"unsupported device {pts_g.device}")
+    G, B, K, n = _check_blend(pts_g, vol_all, rmat)
+    dev = pts_g.device
+    vol = _vol_for(vol_all, precision).contiguous()
+    k0_t = _k0_tensor(k0, dev)
+    out = torch.empty(n, 3 * K + 1, device=dev, dtype=torch.float32)
+    lib = _blend_lib()
+    rc = lib.hosnerf_shared_blend_fwd(
+        pts_g.data_ptr(), vol.data_ptr(), rmat.data_ptr(), k0_t.data_ptr(),
+        out.data_ptr(), n, B, G, K, int(precision == "bf16"),
+        torch.cuda.current_stream(dev).cuda_stream)
+    shared_blend_fwd.launches += 1
+    _build.check(rc, lib, "shared_blend_fwd")
+    return out
+
+
+shared_blend_fwd.launches = 0
+
+
+def shared_blend_bwd(pts_g, vol_all, rmat, k0, gout,
+                     precision: str = "bf16"):
+    """B5 backward: (dpts [N, 3], dvol [G*G, B*G], drmat [B, 12K]) over
+    rows from the clamped k0 * 512 on; dpts rows below it are 0. A CPU
+    tensor runs `shared_blend_bwd_plain`; a CUDA tensor the kernel of
+    csrc/lbs_forward.cu (or raises). dvol/drmat sum over all samples with
+    atomics, so their summation order varies from run to run."""
+    if pts_g.device.type == "cpu":
+        return shared_blend_bwd_plain(pts_g, vol_all, rmat, k0, gout,
+                                      precision)
+    if not pts_g.is_cuda:
+        raise ValueError(f"unsupported device {pts_g.device}")
+    G, B, K, n = _check_blend(pts_g, vol_all, rmat)
+    dev = pts_g.device
+    gout = gout.float().contiguous()
+    if gout.shape != (n, 3 * K + 1) or gout.device != dev:
+        raise ValueError("gout must be [n, 3K + 1] on the device of pts_g")
+    vol = _vol_for(vol_all, precision).contiguous()
+    k0_t = _k0_tensor(k0, dev)
+    dpts = torch.empty(n, 3, device=dev, dtype=torch.float32)
+    dvol = torch.zeros(G * G, B * G, device=dev, dtype=torch.float32)
+    drmat = torch.zeros(B, 12 * K, device=dev, dtype=torch.float32)
+    lib = _blend_lib()
+    rc = lib.hosnerf_shared_blend_bwd(
+        pts_g.data_ptr(), vol.data_ptr(), rmat.data_ptr(), k0_t.data_ptr(),
+        gout.data_ptr(), dpts.data_ptr(), dvol.data_ptr(), drmat.data_ptr(),
+        n, B, G, K, int(precision == "bf16"),
+        torch.cuda.current_stream(dev).cuda_stream)
+    shared_blend_bwd.launches += 1
+    _build.check(rc, lib, "shared_blend_bwd")
+    dpts.masked_fill_(~live_rows_mask(k0_t, n, TILE_SH, dev), 0.0)
+    return dpts, dvol, drmat
+
+
+shared_blend_bwd.launches = 0
+
+
+class _SharedBlend(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, pts_g, vol_all, rmat, k0, precision):
+        ctx.precision = precision
+        ctx.save_for_backward(pts_g, vol_all, rmat, k0)
+        return shared_blend_fwd(pts_g, vol_all, rmat, k0, precision)
+
+    @staticmethod
+    def backward(ctx, gout):
+        pts_g, vol_all, rmat, k0 = ctx.saved_tensors
+        dpts, dvol, drmat = shared_blend_bwd(pts_g, vol_all, rmat, k0, gout,
+                                             ctx.precision)
+        return (dpts.to(pts_g.dtype), dvol.to(vol_all.dtype),
+                drmat.to(rmat.dtype), None, None)
+
+
+def shared_blend_core(pts_g, vol_all, rmat, k0=None,
+                      precision: str = "bf16"):
+    """Fused forward LBS: shared-tap weights + K-set affine blend, with
+    its gradient in pts_g, vol_all and rmat (forward B5 fwd, backward B5
+    bwd; plain versions for CPU tensors). k0: first live 512-row block
+    (a device tensor or int; clamped to n_blocks - 1): the kernel skips
+    the rows below it forward and backward and leaves their outputs
+    unwritten."""
+    k0_t = _k0_tensor(k0, pts_g.device)
+    return _SharedBlend.apply(pts_g, vol_all, rmat, k0_t, precision)
+
+
+def _blend_lib() -> ctypes.CDLL:
+    lib = _build.load("lbs_forward")
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    _build.declare(lib, "hosnerf_shared_blend_fwd",
+                   [p, p, p, p, p, i, i, i, i, i, p])
+    _build.declare(lib, "hosnerf_shared_blend_bwd",
+                   [p, p, p, p, p, p, p, p, i, i, i, i, i, p])
+    return lib
+
+
+def blend_tables(motion_scale_Rs_fwd, motion_Ts_fwd, motion_weights_vol,
+                 bbox_min, bbox_scale):
+    """The forward-LBS folds (lbs.py:2646-2660): (s, o, vol_all
+    [G*G, B*G] with vol_all[y*G + x, b*G + z] = vol[b, z, y, x], rmat
+    [B, 12K] with column 12k + 4c + j holding R' = R diag(1/s) (j < 3) and
+    T' = T - R' o (j = 3), the world-output affine of grid inputs)."""
+    B = motion_weights_vol.shape[0] - 1
+    G = motion_weights_vol.shape[1]
+    K = motion_scale_Rs_fwd.shape[0]
+    s, o = _grid_affine(bbox_min, bbox_scale, G)
+    vol_all = motion_weights_vol[:B].permute(2, 3, 0, 1).reshape(G * G, B * G)
+    Rp = motion_scale_Rs_fwd * (1.0 / s)[None, None, None, :]
+    Tp = motion_Ts_fwd - torch.einsum("kbcj,j->kbc", Rp, o)
+    rmat = torch.cat([torch.cat([Rp[k, :, c, :], Tp[k, :, c:c + 1]], dim=1)
+                      for k in range(K) for c in range(3)], dim=1)
+    return s, o, vol_all.contiguous(), rmat.contiguous()
+
+
+def forward_lbs_multi(pts, motion_scale_Rs_fwd, motion_Ts_fwd,
+                      motion_weights_vol, cnl_bbox_min_xyz,
+                      cnl_bbox_scale_xyz, *, precision: str = "bf16",
+                      k0_blocks=None):
+    """Fused forward LBS for K transform sets at shared canonical points:
+    (x_deform [K, N, 3], wsum [N, 1]). pts [N, 3] world; Rs_fwd
+    [K, B, 3, 3]; Ts_fwd [K, B, 3]. Autograd carries the folds
+    (pts_g = pts s + o, rmat) around `shared_blend_core`. k0_blocks: first
+    live 512-row block of liveness-sorted points (rows below it come back
+    unspecified and must be masked)."""
+    s, o, vol_all, rmat = blend_tables(
+        motion_scale_Rs_fwd, motion_Ts_fwd, motion_weights_vol,
+        cnl_bbox_min_xyz, cnl_bbox_scale_xyz)
+    K = motion_scale_Rs_fwd.shape[0]
+    pts_g = (pts.float() * s[None, :] + o[None, :]).contiguous()
+    out = shared_blend_core(pts_g, vol_all, rmat, k0_blocks, precision)
+    wsum = out[:, 3 * K:3 * K + 1]
+    m = torch.clamp(wsum, min=1e-4)
+    acc = out[:, :3 * K].reshape(-1, K, 3)
+    return acc.permute(1, 0, 2) / m[None], wsum

@@ -1,30 +1,36 @@
-"""Fused positional embedding + MLP trunk + f32 head: the Hopper kernel's
-wrapper (csrc/embed_trunk.cu) and its plain PyTorch version.
+"""Fused positional embedding + MLP trunk + f32 head: the Hopper kernels'
+wrappers (csrc/embed_trunk.cu forward, csrc/embed_trunk_bwd.cu backward),
+their plain PyTorch versions, and the autograd function that joins them.
 
-Counterpart of `hosnerf_tpu/ops/pallas/mlp.py::fused_embed_trunk`. Weights
-come in torch orientation (`nn.Linear.weight`, [dout, din]) with the
-reference's interleaved PE row order; the kernel builds the PE in that
-order itself, so no row permutation is needed (the TPU kernel's
-`embed_row_perm` only served its lane-dense layout).
+Counterpart of `hosnerf_tpu/ops/pallas/mlp.py::fused_embed_trunk` and its
+VJP. Weights come in torch orientation (`nn.Linear.weight`, [dout, din])
+with the reference's interleaved PE row order; the kernels build the PE in
+that order themselves, so no row permutation is needed (the TPU kernel's
+`embed_row_perm` only served its lane-dense layout), and the weight
+gradients come back in the `nn.Linear` layout.
 
-`fused_embed_trunk` takes a CPU tensor to `fused_embed_trunk_plain` and a
-CUDA tensor to the kernel; it never falls back from one to the other.
+Every kernel entry takes a CPU tensor to its plain version and a CUDA
+tensor to the kernel; it never falls back from one to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from hosnerf_tpu_torch.models.embedders import (fourier_embed,
+                                                hann_window,
                                                 hannw_fourier_embed)
 from hosnerf_tpu_torch.ops.cuda import _build
+from hosnerf_tpu_torch.ops.cuda.lbs import (first_live_row, live_rows_mask,
+                                            _k0_tensor)
 
 MLP_TILE = 1024      # k0 counts blocks of this many rows, as on the TPU
-MAX_LAYERS = 12      # csrc/embed_trunk.cu kMaxLayers
+MAX_LAYERS = 12      # csrc/trunk_common.cuh kMaxLayers
+MAX_OUT = 4          # csrc/embed_trunk_bwd.cu kMaxOut
 KERNEL_WIDTHS = (32, 128, 256)
 
 
@@ -74,6 +80,35 @@ def trunk_input(x, aux, alpha, espec: EmbedSpec) -> torch.Tensor:
     return torch.cat([aux, ex] if espec.aux_first else [ex, aux], dim=-1)
 
 
+def _rounder(precision: str):
+    if precision == "bf16":
+        return lambda t: t.to(torch.bfloat16).float()
+    if precision == "highest":
+        return lambda t: t
+    raise ValueError(f"unknown precision {precision!r}")
+
+
+def _plain_forward(x, aux, alpha, layers, out, espec, skip_before,
+                   skip_source, precision):
+    """(output, per-layer (input, output) activations) with the kernel's
+    rounding points."""
+    rnd = _rounder(precision)
+    xc = rnd(trunk_input(x, aux, alpha, espec))
+    off, width = _skip_slice(espec, skip_source)
+    h = xc
+    acts = []
+    for i, (w, b) in enumerate(layers):
+        if i == skip_before:
+            src = xc[:, off:off + width]
+            h = torch.cat([src, h] if skip_source == "full_input"
+                          else [h, src], dim=-1)
+        a_in = h
+        z = rnd(h @ rnd(w.float()).T)
+        h = torch.relu(rnd(z + rnd(b.float())))
+        acts.append((a_in, h))
+    return h @ out[0].float().T + out[1].float(), acts
+
+
 def fused_embed_trunk_plain(x, aux, alpha, layers, out, *,
                             espec: EmbedSpec, skip_before: Optional[int],
                             skip_source: str,
@@ -82,112 +117,165 @@ def fused_embed_trunk_plain(x, aux, alpha, layers, out, *,
     rounded to bf16; each layer takes the f32 product of bf16 operands,
     rounds it to bf16, adds the bf16 bias in bf16, ReLU; the head is f32
     on the bf16 hidden state. highest: f32 throughout."""
-    if precision not in ("bf16", "highest"):
-        raise ValueError(f"unknown precision {precision!r}")
-    bf16 = precision == "bf16"
+    return _plain_forward(x, aux, alpha, layers, out, espec, skip_before,
+                          skip_source, precision)[0]
 
-    def rnd(t):
-        return t.to(torch.bfloat16).float() if bf16 else t
 
-    xc = rnd(trunk_input(x, aux, alpha, espec))
-    off, width = _skip_slice(espec, skip_source)
-    h = xc
-    for i, (w, b) in enumerate(layers):
+def embed_bwd(x, g_ex, espec: EmbedSpec, alpha) -> torch.Tensor:
+    """d/dx of the PE (`_embed_bwd`, mlp.py:405-421) in f32: per
+    coordinate sum_j (g_sin c_j - g_cos s_j) 2^j over the (hann-windowed)
+    sin/cos, plus the identity columns of the fourier kind."""
+    x = x.float()
+    F = espec.multires
+    idoff = 3 if espec.include_input else 0
+    freqs = 2.0 ** torch.arange(F, dtype=x.dtype, device=x.device)
+    scaled = x[:, None, :] * freqs[:, None]                     # [n, F, 3]
+    s, c = torch.sin(scaled), torch.cos(scaled)
+    if espec.kind == "hannw":
+        w = hann_window(alpha, F, x)[:, None]
+        s, c = s * w, c * w
+    g = g_ex[:, idoff:idoff + 6 * F].reshape(-1, F, 2, 3)
+    dx = ((g[:, :, 0] * c - g[:, :, 1] * s) * freqs[:, None]).sum(1)
+    if espec.include_input:
+        dx = dx + g_ex[:, :3]
+    return dx
+
+
+def fused_embed_trunk_bwd_plain(x, aux, alpha, layers, out, gout, *,
+                                espec: EmbedSpec, skip_before: Optional[int],
+                                skip_source: str, precision: str = "bf16",
+                                k0_blocks=None):
+    """Plain version of the backward (`_ebwd_kernel` with
+    `_trunk_bwd_tile` and `_embed_bwd`, mlp.py:145-192, 405-483), on rows
+    from the clamped k0 * 1024 on (rows below get dx = 0, stream daux = 0,
+    and add nothing): recompute the forward with its rounding points; head
+    in f32; per layer in reverse: g *= (h_out > 0), gc = bf16(g),
+    dW += gc^T a_in (bf16 operands), db += sum g (unrounded), g = gc
+    bf16(W); the skip slice's gradient back to its source; the PE chain in
+    f32. Returns (dx [N, 3], daux ([N, A] stream, [A] broadcast),
+    [(dW [dout, din], db [dout])], (dWout, dbout))."""
+    n = x.shape[0]
+    first = first_live_row(0 if k0_blocks is None else k0_blocks, n,
+                           MLP_TILE)
+    rnd = _rounder(precision)
+    stream = espec.aux_mode == "stream"
+    xs = x[first:].float()
+    aux_s = aux[first:] if stream else aux
+    _, acts = _plain_forward(xs, aux_s, alpha, layers, out, espec,
+                             skip_before, skip_source, precision)
+    g_out = gout[first:].float()
+    h_last = acts[-1][1]
+    dout = (g_out.T @ h_last, g_out.sum(0))
+    g = g_out @ out[0].float()
+    off, sw = _skip_slice(espec, skip_source)
+    dlayers: List = [None] * len(layers)
+    gskip = None
+    for i in reversed(range(len(layers))):
+        a_in, h_out = acts[i]
+        g = g * (h_out > 0)
+        gc = rnd(g)
+        dlayers[i] = (gc.T @ a_in, g.sum(0))
+        g = gc @ rnd(layers[i][0].float())
         if i == skip_before:
-            src = xc[:, off:off + width]
-            h = torch.cat([src, h] if skip_source == "full_input"
-                          else [h, src], dim=-1)
-        z = rnd(h @ rnd(w.float()).T)
-        h = torch.relu(rnd(z + rnd(b.float())))
-    return h @ out[0].float().T + out[1].float()
+            if skip_source == "full_input":
+                gskip, g = g[:, :sw], g[:, sw:]
+            else:
+                gskip, g = g[:, g.shape[1] - sw:], g[:, :g.shape[1] - sw]
+    d_full = g
+    if gskip is not None:
+        d_full = d_full.clone()
+        d_full[:, off:off + sw] += gskip
+    A = espec.aux_width
+    if espec.aux_first:
+        g_aux, g_ex = d_full[:, :A], d_full[:, A:]
+    else:
+        g_ex, g_aux = d_full[:, :espec.ex_width], d_full[:, espec.ex_width:]
+    dx = torch.zeros(n, 3, device=x.device)
+    dx[first:] = embed_bwd(xs, g_ex, espec, alpha)
+    if stream:
+        daux = torch.zeros(n, A, device=x.device)
+        daux[first:] = g_aux
+    else:
+        daux = g_aux.sum(0)
+    return dx, daux, dlayers, dout
 
+
+# ---------------------------------------------------------------------------
+# host-side layout for the kernels
+# ---------------------------------------------------------------------------
 
 def _round16(v: int) -> int:
     return -(-v // 16) * 16
 
 
-def _pack(layers, out, espec: EmbedSpec, skip_before, skip_source,
-          precision: str, aux_stride: int):
-    """Host-side layout for the kernel: the meta int32 array, the packed
-    weights and biases. Shared memory Xs holds [PE | pad | aux | pad] with
-    each part padded to 16 columns; every layer input is one or two
-    16-aligned segments of Xs / Hs, and each layer's weight columns are
-    scattered into that order (zeros on the pad columns). bf16 weights are
-    stored [HID, K] (the mma B operand), f32 weights [K, HID]."""
+def _layer_plan(layers, espec: EmbedSpec, skip_before, skip_source):
+    """Per layer: (segments [(buf, off, width)], K, cols). Shared memory Xs
+    holds [PE | pad | aux | pad] with each part padded to 16 columns; a
+    layer input is one or two 16-aligned segments of Xs (buf 0) / Hs
+    (buf 1), K columns in all; cols[j] is the packed column of original
+    input column j (pad columns hold zeros)."""
     hid = int(layers[0][0].shape[0])
     A, ex_w = espec.aux_width, espec.ex_width
-    exp_w, ap = _round16(ex_w), _round16(A)
-    xw = exp_w + ap
-    d0 = ex_w + A
-    dev = layers[0][0].device
-    dt = torch.bfloat16 if precision == "bf16" else torch.float32
-
-    def zeros(k):
-        return torch.zeros(hid, k, device=dev)
-
-    def x_layout(w):
-        """Columns of w over the first input, original order -> Xs."""
-        ex, aux = (w[:, A:], w[:, :A]) if espec.aux_first else \
-            (w[:, :ex_w], w[:, ex_w:])
-        return [ex, zeros(exp_w - ex_w), aux, zeros(ap - A)]
-
-    meta = [len(layers), hid, int(out[0].shape[0]), xw, exp_w, ex_w,
-            0 if espec.kind == "fourier" else 1, espec.multires, A,
-            aux_stride]
-    blocks, w_off = [], 0
+    exp_w = _round16(ex_w)
+    xw = exp_w + _round16(A)
+    ex_cols = list(range(ex_w))
+    aux_cols = [exp_w + a for a in range(A)]
+    x_cols = aux_cols + ex_cols if espec.aux_first else ex_cols + aux_cols
+    plan = []
     for i, (w, _) in enumerate(layers):
-        w = w.float()
         if i == 0:
-            segs, din, parts = [(0, 0, xw)], d0, x_layout(w)
+            segs, cols = [(0, 0, xw)], x_cols
         elif i == skip_before and skip_source == "full_input":
-            segs, din = [(0, 0, xw), (1, 0, hid)], d0 + hid
-            parts = x_layout(w[:, :d0]) + [w[:, d0:]]
+            segs = [(0, 0, xw), (1, 0, hid)]
+            cols = x_cols + [xw + j for j in range(hid)]
         elif i == skip_before:
-            segs, din = [(1, 0, hid), (0, 0, exp_w)], hid + ex_w
-            parts = [w, zeros(exp_w - ex_w)]
+            segs = [(1, 0, hid), (0, 0, exp_w)]
+            cols = list(range(hid)) + [hid + j for j in range(ex_w)]
         else:
-            segs, din, parts = [(1, 0, hid)], hid, [w]
-        K = sum(s[2] for s in segs)
-        if tuple(w.shape) != (hid, din):
+            segs, cols = [(1, 0, hid)], list(range(hid))
+        if tuple(w.shape) != (hid, len(cols)):
             raise ValueError(f"layer {i} weight {tuple(w.shape)} does not "
-                             f"match the spec ({hid}, {din})")
-        wp = torch.cat(parts, dim=1)
-        blocks.append(wp if precision == "bf16" else wp.T)
-        seg_ints = []
+                             f"match the spec ({hid}, {len(cols)})")
+        plan.append((segs, sum(s[2] for s in segs),
+                     torch.tensor(cols, device=w.device)))
+    return plan, hid, xw, exp_w
+
+
+def _packed_weights(layers, plan, hid, k_major: bool, dt):
+    blocks = []
+    for (w, _), (_, K, cols) in zip(layers, plan):
+        wp = torch.zeros(hid, K, device=w.device)
+        wp[:, cols] = w.float()
+        blocks.append(wp.T if k_major else wp)
+    return torch.cat([b.reshape(-1) for b in blocks]).to(dt).contiguous()
+
+
+def _pack(layers, out, espec: EmbedSpec, skip_before, skip_source,
+          precision: str, aux_stride: int):
+    """Host-side layout for the forward kernel: the meta int32 array, the
+    packed weights and biases (`_layer_plan` gives the layout). bf16
+    weights are stored [HID, K] (the mma B operand), f32 weights [K, HID]."""
+    plan, hid, xw, exp_w = _layer_plan(layers, espec, skip_before,
+                                       skip_source)
+    dt = torch.bfloat16 if precision == "bf16" else torch.float32
+    meta = [len(layers), hid, int(out[0].shape[0]), xw, exp_w,
+            espec.ex_width, 0 if espec.kind == "fourier" else 1,
+            espec.multires, espec.aux_width, aux_stride]
+    w_off = 0
+    for segs, K, _ in plan:
         for s in segs + [(0, 0, 0)] * (2 - len(segs)):
-            seg_ints += list(s)
-        meta += seg_ints + [K, w_off]
+            meta += list(s)
+        meta += [K, w_off]
         w_off += hid * K
-    w_all = torch.cat([b.reshape(-1) for b in blocks]).to(dt).contiguous()
+    w_all = _packed_weights(layers, plan, hid, precision != "bf16", dt)
     b_all = torch.stack([b.float() for _, b in layers]).to(dt).contiguous()
     return (np.asarray(meta, np.int32), w_all, b_all,
             out[0].float().contiguous(), out[1].float().contiguous())
 
 
-def fused_embed_trunk(x, aux, alpha,
-                      layers: Sequence[Tuple[torch.Tensor, torch.Tensor]],
-                      out: Tuple[torch.Tensor, torch.Tensor], *, kind: str,
-                      multires: int, aux_mode: str, aux_first: bool,
-                      skip_before: Optional[int], skip_source: str,
-                      precision: str = "bf16",
-                      k0_blocks=None) -> torch.Tensor:
-    """Embed + trunk + head. x [N, 3] raw points; aux = one [A] row
-    (broadcast) or [N, A] rows (stream; a stride-0 expanded row is taken as
-    is); alpha = hann anneal (float or 1-element tensor; unused for
-    'fourier'); layers [(W [dout, din], b [dout])] in the reference row
-    order; out = (W_out [out_dim, hid], b_out), applied in f32.
-
-    k0_blocks: optional int or device tensor, the first live 1024-row
-    block (clamped to n_blocks - 1). Rows below k0_blocks * 1024 are
-    unspecified: the kernel leaves them unwritten. Returns [N, out_dim]."""
-    espec = EmbedSpec(kind, multires, int(aux.shape[-1]), aux_mode,
-                      aux_first)
-    if x.device.type == "cpu":
-        return fused_embed_trunk_plain(
-            x, aux, alpha, layers, out, espec=espec, skip_before=skip_before,
-            skip_source=skip_source, precision=precision)
-    if not x.is_cuda:
-        raise ValueError(f"unsupported device {x.device}")
+def _check_kernel_args(x, aux, layers, out, espec: EmbedSpec,
+                       precision: str) -> int:
+    """Raise on what the kernels do not take; returns the aux row stride."""
     if precision not in ("bf16", "highest"):
         raise ValueError(f"unknown precision {precision!r}")
     n = x.shape[0]
@@ -197,7 +285,7 @@ def fused_embed_trunk(x, aux, alpha,
     A = espec.aux_width
     if aux.dtype != torch.float32 or aux.device != dev:
         raise ValueError("aux must be float32 on the device of x")
-    if aux_mode == "broadcast":
+    if espec.aux_mode == "broadcast":
         if aux.shape != (A,) or not aux.is_contiguous():
             raise ValueError("broadcast aux must be a contiguous [A] row")
         aux_stride = 0
@@ -215,31 +303,213 @@ def fused_embed_trunk(x, aux, alpha,
         if w.device != dev or b.device != dev or w.shape[0] != hid:
             raise ValueError("every trunk layer must be [hid, din] on the "
                              "device of x")
+    if out[0].device != dev or out[0].shape[1] != hid or \
+            out[0].shape[0] > MAX_OUT:
+        raise ValueError(f"head weight must be [out_dim <= {MAX_OUT}, hid] "
+                         "on the device")
+    return aux_stride
+
+
+def _alpha_tensor(alpha, dev) -> torch.Tensor:
+    a = (alpha.reshape(1).float() if torch.is_tensor(alpha)
+         else torch.full((1,), float(alpha or 0.0), device=dev))
+    if a.device != dev:
+        raise ValueError("alpha must be on the device of x")
+    return a
+
+
+# ---------------------------------------------------------------------------
+# B2: forward kernel
+# ---------------------------------------------------------------------------
+
+def embed_trunk_fwd(x, aux, alpha, layers, out, *, espec: EmbedSpec,
+                    skip_before, skip_source, precision="bf16",
+                    k0_blocks=None) -> torch.Tensor:
+    """B2: the forward, [N, out_dim]. A CPU tensor runs
+    `fused_embed_trunk_plain` (every row); a CUDA tensor the kernel of
+    csrc/embed_trunk.cu (or raises), which leaves rows below the clamped
+    k0 * 1024 unwritten."""
+    if x.device.type == "cpu":
+        return fused_embed_trunk_plain(
+            x, aux, alpha, layers, out, espec=espec, skip_before=skip_before,
+            skip_source=skip_source, precision=precision)
+    if not x.is_cuda:
+        raise ValueError(f"unsupported device {x.device}")
+    dev = x.device
+    aux_stride = _check_kernel_args(x, aux, layers, out, espec, precision)
     meta, w_all, b_all, wout, bout = _pack(
         layers, out, espec, skip_before, skip_source, precision, aux_stride)
-    if wout.device != dev or wout.shape[1] != hid:
-        raise ValueError("head weight must be [out_dim, hid] on the device")
-    alpha_t = (alpha.reshape(1).float() if torch.is_tensor(alpha)
-               else torch.full((1,), float(alpha or 0.0), device=dev))
-    k0 = (torch.zeros(1, dtype=torch.int32, device=dev) if k0_blocks is None
-          else torch.as_tensor(k0_blocks, device=dev).reshape(1)
-          .to(torch.int32))
-    if alpha_t.device != dev:
-        raise ValueError("alpha must be on the device of x")
+    alpha_t = _alpha_tensor(alpha, dev)
+    k0 = _k0_tensor(k0_blocks, dev)
+    n = x.shape[0]
     res = torch.empty(n, int(wout.shape[0]), device=dev, dtype=torch.float32)
     lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.hosnerf_embed_trunk(
         meta.ctypes.data, int(precision == "bf16"), x.data_ptr(),
         aux.data_ptr(), alpha_t.data_ptr(), k0.data_ptr(), w_all.data_ptr(),
         b_all.data_ptr(), wout.data_ptr(), bout.data_ptr(), res.data_ptr(),
-        n, stream)
+        n, torch.cuda.current_stream(dev).cuda_stream)
     fused_embed_trunk.launches += 1
     _build.check(rc, lib, "fused_embed_trunk")
     return res
 
 
+# ---------------------------------------------------------------------------
+# B3: backward kernel
+# ---------------------------------------------------------------------------
+
+def embed_trunk_bwd(x, aux, alpha, layers, out, gout, *, espec: EmbedSpec,
+                    skip_before, skip_source, precision="bf16",
+                    k0_blocks=None):
+    """B3: the backward, as `fused_embed_trunk_bwd_plain` returns it. A CPU
+    tensor runs that plain version; a CUDA tensor the kernels of
+    csrc/embed_trunk_bwd.cu (forward recompute with activation store, row
+    tiles in reverse, dW products; one call) or raises. The wrapper zeroes
+    the dx and stream-daux rows the kernels leave unwritten (below the
+    clamped k0 * 1024): stream daux feeds an expand whose backward sums
+    every row. The sums over rows (dW, db, broadcast daux) use atomics, so
+    their summation order varies from run to run."""
+    if x.device.type == "cpu":
+        return fused_embed_trunk_bwd_plain(
+            x, aux, alpha, layers, out, gout, espec=espec,
+            skip_before=skip_before, skip_source=skip_source,
+            precision=precision, k0_blocks=k0_blocks)
+    if not x.is_cuda:
+        raise ValueError(f"unsupported device {x.device}")
+    dev = x.device
+    aux_stride = _check_kernel_args(x, aux, layers, out, espec, precision)
+    meta, w_all, b_all, wout, bout = _pack(
+        layers, out, espec, skip_before, skip_source, precision, aux_stride)
+    plan, hid, xw, _ = _layer_plan(layers, espec, skip_before, skip_source)
+    bf16 = precision == "bf16"
+    dt = torch.bfloat16 if bf16 else torch.float32
+    wt_all = _packed_weights(layers, plan, hid, bf16, dt)
+    n, L, A = x.shape[0], len(layers), espec.aux_width
+    out_dim = int(wout.shape[0])
+    gout = gout.float().contiguous()
+    if gout.shape != (n, out_dim) or gout.device != dev:
+        raise ValueError(f"gout must be [N, {out_dim}] on the device of x")
+    alpha_t = _alpha_tensor(alpha, dev)
+    k0 = _k0_tensor(k0_blocks, dev)
+    stream = espec.aux_mode == "stream"
+
+    def f32(*shape, zero=True):
+        return (torch.zeros if zero else torch.empty)(
+            *shape, device=dev, dtype=torch.float32)
+
+    act_x = torch.empty(n, xw, device=dev, dtype=dt)
+    act_h = torch.empty(L, n, hid, device=dev, dtype=dt)
+    gc = torch.empty(L, n, hid, device=dev, dtype=dt)
+    dx = f32(n, 3, zero=False)
+    daux = f32(n, A, zero=False) if stream else f32(A)
+    db, dwout, dbout = f32(L, hid), f32(out_dim, hid), f32(out_dim)
+    dw = f32(w_all.numel())
+    splits = max(1, min(16, n // 16384))
+    lib = _bwd_lib()
+    rc = lib.hosnerf_embed_trunk_bwd(
+        meta.ctypes.data, int(bf16), int(stream), x.data_ptr(),
+        aux.data_ptr(), alpha_t.data_ptr(), k0.data_ptr(), w_all.data_ptr(),
+        b_all.data_ptr(), wt_all.data_ptr(), wout.data_ptr(),
+        gout.data_ptr(), act_x.data_ptr(), act_h.data_ptr(), gc.data_ptr(),
+        dx.data_ptr(), daux.data_ptr(), db.data_ptr(), dwout.data_ptr(),
+        dbout.data_ptr(), dw.data_ptr(), n, splits,
+        torch.cuda.current_stream(dev).cuda_stream)
+    fused_embed_trunk_bwd.launches += 1
+    _build.check(rc, lib, "fused_embed_trunk_bwd")
+    dead = ~live_rows_mask(k0, n, MLP_TILE, dev)
+    dx.masked_fill_(dead, 0.0)
+    if stream:
+        daux.masked_fill_(dead, 0.0)
+    dlayers, w_off = [], 0
+    for i, (_, K, cols) in enumerate(plan):
+        dwp = dw[w_off:w_off + hid * K].reshape(hid, K)
+        dlayers.append((dwp[:, cols], db[i]))
+        w_off += hid * K
+    return dx, daux, dlayers, (dwout, dbout)
+
+
+# ---------------------------------------------------------------------------
+# the differentiable entry
+# ---------------------------------------------------------------------------
+
+class _TrunkCfg:
+    def __init__(self, espec, skip_before, skip_source, precision, alpha,
+                 depth):
+        self.kw = dict(espec=espec, skip_before=skip_before,
+                       skip_source=skip_source, precision=precision)
+        self.alpha = alpha
+        self.depth = depth
+
+
+class _EmbedTrunk(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, aux, k0, cfg, *params):
+        ctx.cfg = cfg
+        ctx.save_for_backward(x, aux, k0, *params)
+        layers = [(params[2 * i], params[2 * i + 1])
+                  for i in range(cfg.depth)]
+        return embed_trunk_fwd(x, aux, cfg.alpha, layers, params[-2:],
+                               k0_blocks=k0, **cfg.kw)
+
+    @staticmethod
+    def backward(ctx, gout):
+        cfg = ctx.cfg
+        x, aux, k0, *params = ctx.saved_tensors
+        layers = [(params[2 * i], params[2 * i + 1])
+                  for i in range(cfg.depth)]
+        dx, daux, dlayers, dout = embed_trunk_bwd(
+            x, aux, cfg.alpha, layers, params[-2:], gout, k0_blocks=k0,
+            **cfg.kw)
+        flat = [t for pair in dlayers for t in pair] + list(dout)
+        return (dx, daux, None, None, *flat)
+
+
+def fused_embed_trunk(x, aux, alpha,
+                      layers: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                      out: Tuple[torch.Tensor, torch.Tensor], *, kind: str,
+                      multires: int, aux_mode: str, aux_first: bool,
+                      skip_before: Optional[int], skip_source: str,
+                      precision: str = "bf16",
+                      k0_blocks=None) -> torch.Tensor:
+    """Embed + trunk + head, differentiable in x, aux and every weight
+    (forward B2, backward B3; plain versions for CPU tensors; d(alpha) =
+    0). x [N, 3] raw points; aux = one [A] row (broadcast) or [N, A] rows
+    (stream; a stride-0 expanded row is taken as is); alpha = hann anneal
+    (float or 1-element tensor; unused for 'fourier'); layers
+    [(W [dout, din], b [dout])] in the reference row order; out =
+    (W_out [out_dim, hid], b_out), applied in f32.
+
+    k0_blocks: optional int or device tensor, the first live 1024-row
+    block (clamped to n_blocks - 1). On the card, rows below k0_blocks *
+    1024 are unspecified (the kernel leaves them unwritten) and get no
+    gradient. Returns [N, out_dim]."""
+    espec = EmbedSpec(kind, multires, int(aux.shape[-1]), aux_mode,
+                      aux_first)
+    cfg = _TrunkCfg(espec, skip_before, skip_source, precision, alpha,
+                    len(layers))
+    params = [t for pair in layers for t in pair] + list(out)
+    return _EmbedTrunk.apply(x, aux, _k0_tensor(k0_blocks, x.device), cfg,
+                             *params)
+
+
 fused_embed_trunk.launches = 0
+
+
+def fused_embed_trunk_bwd(x, aux, alpha, layers, out, gout, *, kind: str,
+                          multires: int, aux_mode: str, aux_first: bool,
+                          skip_before: Optional[int], skip_source: str,
+                          precision: str = "bf16", k0_blocks=None):
+    """The backward with the keyword interface of `fused_embed_trunk`
+    (B3 on CUDA tensors, the plain version on CPU tensors)."""
+    espec = EmbedSpec(kind, multires, int(aux.shape[-1]), aux_mode,
+                      aux_first)
+    return embed_trunk_bwd(x, aux, alpha, layers, out, gout, espec=espec,
+                           skip_before=skip_before, skip_source=skip_source,
+                           precision=precision, k0_blocks=k0_blocks)
+
+
+fused_embed_trunk_bwd.launches = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -248,4 +518,13 @@ def _lib() -> ctypes.CDLL:
     _build.declare(lib, "hosnerf_embed_trunk",
                    [p, ctypes.c_int, p, p, p, p, p, p, p, p, p,
                     ctypes.c_int, p])
+    return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("embed_trunk_bwd")
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    _build.declare(lib, "hosnerf_embed_trunk_bwd",
+                   [p, i, i] + [p] * 18 + [i, i, p])
     return lib

@@ -1,9 +1,11 @@
-"""Inverse linear blend skinning against a motion weight volume, gather
-form (counterpart of the gather pieces of `hosnerf_tpu/ops/lbs.py`).
+"""Inverse and forward linear blend skinning against a motion weight
+volume, gather form (counterpart of the gather pieces of
+`hosnerf_tpu/ops/lbs.py`).
 
 This is the dense path: every sample through every bone with 8 corner
-gathers. The sorted-domain path with the hand-written Hopper kernel
-lives in `ops/cuda/lbs.py`; `inverse_warp` dispatches between them.
+gathers. The sorted-domain path with the hand-written Hopper kernels
+lives in `ops/cuda/lbs.py`; `inverse_warp` and `forward_warp_multi`
+dispatch between them.
 """
 
 from __future__ import annotations
@@ -92,3 +94,51 @@ def inverse_warp(pts, motion_scale_Rs, motion_Ts, motion_weights_vol,
                                        motion_weights_vol, cnl_bbox_min_xyz,
                                        cnl_bbox_scale_xyz)
     return x_skel, fg
+
+
+def bone_weights(pts, motion_weights_vol, cnl_bbox_min_xyz,
+                 cnl_bbox_scale_xyz) -> torch.Tensor:
+    """All-bone trilinear weights at shared points -> [N, B] (the
+    forward-LBS sampling pattern: every channel at the same point), gather
+    form."""
+    B = motion_weights_vol.shape[0] - 1
+    D, H, W = motion_weights_vol.shape[1:]
+    vol_flat = motion_weights_vol.reshape(B + 1, -1)
+    coords = normalize_coords(pts, cnl_bbox_min_xyz, cnl_bbox_scale_xyz)
+    taps = _trilinear_taps(coords, D, H, W)
+    return torch.stack([_sample_channel(vol_flat[b], taps)
+                        for b in range(B)], dim=1)
+
+
+def apply_forward_lbs_multi(weights, pts, motion_scale_Rs_fwd,
+                            motion_Ts_fwd):
+    """Blend K stacked forward transform sets ([K, B, 3, 3], [K, B, 3])
+    with shared weights [N, B] at shared points [N, 3]: (x_deform
+    [K, N, 3], wsum [N, 1])."""
+    wsum = torch.sum(weights, dim=1)
+    acc = (torch.einsum("nb,kbij,nj->kni", weights, motion_scale_Rs_fwd, pts)
+           + torch.einsum("nb,kbi->kni", weights, motion_Ts_fwd))
+    x_deform = acc / torch.clamp(wsum, min=1e-4)[None, :, None]
+    return x_deform, wsum[:, None]
+
+
+def forward_warp_multi(pts, motion_scale_Rs_fwd, motion_Ts_fwd,
+                       motion_weights_vol, cnl_bbox_min_xyz,
+                       cnl_bbox_scale_xyz, impl: str = "auto"):
+    """Forward LBS for K transform sets at shared canonical points:
+    (x_deform [K, N, 3], wsum [N, 1]). impl: 'gather' (bone_weights +
+    apply_forward_lbs_multi), 'pallas' (the fused forward-LBS kernel of
+    ops/cuda/lbs.py in bf16, or its plain version for CPU tensors) or
+    'auto'."""
+    impl = resolve_impl(impl, motion_weights_vol, pts)
+    if impl == "pallas":
+        from hosnerf_tpu_torch.ops.cuda import lbs as cuda_lbs
+        return cuda_lbs.forward_lbs_multi(
+            pts, motion_scale_Rs_fwd, motion_Ts_fwd, motion_weights_vol,
+            cnl_bbox_min_xyz, cnl_bbox_scale_xyz)
+    if impl != "gather":
+        raise ValueError(f"unknown forward-LBS impl {impl!r}")
+    w = bone_weights(pts, motion_weights_vol, cnl_bbox_min_xyz,
+                     cnl_bbox_scale_xyz)
+    return apply_forward_lbs_multi(w, pts, motion_scale_Rs_fwd,
+                                   motion_Ts_fwd)

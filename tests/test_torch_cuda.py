@@ -163,3 +163,147 @@ def test_embed_trunk_kernel_matches_plain(dev, name, width, prec, k0):
     tol = 1e-2 if prec == "bf16" else 1e-5
     assert float(err.max()) <= tol * scale
     assert float((err > 1e-3 * scale).float().mean()) <= 0.05
+
+
+def _close(got, ref, tol: float, what: str, max_tol=None) -> None:
+    """Max error relative to the reference's scale (max_tol, default
+    tol), and relative L2 error (tol)."""
+    assert torch.isfinite(got).all(), what
+    scale = float(ref.abs().max()) + 1e-30
+    err = float((got - ref).abs().max())
+    l2 = float(torch.linalg.norm(got - ref) / (torch.linalg.norm(ref)
+                                                + 1e-30))
+    max_tol = tol if max_tol is None else max_tol
+    assert err <= max_tol * scale and l2 <= tol, (what, err, scale, l2)
+
+
+@pytest.mark.parametrize("prec", ["bf16", "highest"])
+def test_inverse_bwd_kernel_matches_plain(lbs_inputs, prec):
+    """B4 vs its plain version: the same rounding points; the sums over
+    samples (dvol, drg, dtg) come in atomic order -> 1e-4 of the scale."""
+    pts_s, rg, tg, vol_qz, dom = lbs_inputs
+    g = torch.randn(pts_s.shape[0], 4, device=pts_s.device,
+                    generator=torch.Generator(pts_s.device).manual_seed(1))
+    ref = clbs.inverse_core_bwd_plain(pts_s, rg, tg, vol_qz, g, prec)
+    _poison(64 << 20, pts_s.device)
+    n0 = clbs.inverse_core_bwd.launches
+    got = clbs.inverse_core_bwd(pts_s, rg, tg, vol_qz, g, prec)
+    torch.cuda.synchronize()
+    assert clbs.inverse_core_bwd.launches == n0 + 1
+    for name, a, b in zip(("dpts", "drg", "dtg", "dvol"), got, ref):
+        _close(a, b, 1e-4, name)
+    dead = int(dom.n_dead_groups) * clbs.SORT_GROUP
+    assert float(got[0][:dead].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("k0", [0, 2, 10 ** 6])
+@pytest.mark.parametrize("prec", ["bf16", "highest"])
+def test_shared_blend_kernels_match_plain(lbs_inputs, prec, k0):
+    """B5 forward and backward vs their plain versions on the sorted
+    samples as grid points: forward to 1e-5 of the scale (blend sums in
+    another order); backward 1e-4 (atomic sums over samples), dpts rows
+    below the clamped k0 * 512 exactly 0."""
+    pts_s, rg, tg, vol_qz, _ = lbs_inputs
+    dev = pts_s.device
+    G, B = 32, 26
+    gen = torch.Generator(dev).manual_seed(2)
+    vol_all = vol_qz.reshape(B, G, G, G).permute(2, 1, 0, 3).reshape(
+        G * G, B * G).contiguous()
+    rmat = torch.randn(B, 24, device=dev, generator=gen) * 0.1
+    pts_g = (pts_s @ rg[3].reshape(3, 3).T + tg[3]).contiguous()
+    n = pts_g.shape[0]
+    first = clbs.first_live_row(k0, n, clbs.TILE_SH)
+    k0_t = torch.tensor([k0], device=dev, dtype=torch.int32)
+    ref = clbs.shared_blend_plain(pts_g, vol_all, rmat, prec)
+    _poison(64 << 20, dev)
+    got = clbs.shared_blend_fwd(pts_g, vol_all, rmat, k0_t, prec)
+    torch.cuda.synchronize()
+    _close(got[first:], ref[first:], 1e-5, "fwd")
+    gout = torch.randn(n, 7, device=dev, generator=gen)
+    ref = clbs.shared_blend_bwd_plain(pts_g, vol_all, rmat, k0_t, gout, prec)
+    _poison(64 << 20, dev)
+    got = clbs.shared_blend_bwd(pts_g, vol_all, rmat, k0_t, gout, prec)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dpts", "dvol", "drmat"), got, ref):
+        _close(a, b, 1e-4, name)
+    assert first == 0 or float(got[0][:first].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("k0", [0, 1, 10 ** 6])
+@pytest.mark.parametrize("prec", ["bf16", "highest"])
+@pytest.mark.parametrize("name,width", [("nonrigid", 128),
+                                        ("canonical", 256),
+                                        ("canonical", 32)])
+def test_embed_trunk_bwd_kernel_matches_plain(dev, name, width, prec, k0):
+    """B3 vs its plain version, relative L2 error and max error relative
+    to the scale. highest: f32 sums in another order (~1e-6), but among
+    ~6e6 pre-activations one may sit within f32 noise of 0 and flip its
+    ReLU mask, which moves that row's entries -> 2e-3 L2, 1e-2 max. bf16:
+    the same rounding points, but a flipped bf16 rounding of an activation
+    or of gc (2^-9) moves single entries, and the fourier PE multiplies
+    dx by up to 2^9 (measured on the H100: dx 7e-2 of its max, 1e-2 L2)
+    -> 2e-2 L2, 1e-1 max. dx and stream daux rows below the clamped
+    k0 * 1024 are exactly 0."""
+    n = 3000
+    x, aux, alpha, layers, out, kw = mlp_case(name, n=n, width=width)
+    tl, to = torch_args(layers, out)
+    tl = [(w.to(dev), b.to(dev)) for w, b in tl]
+    to = (to[0].to(dev), to[1].to(dev))
+    xt, at = torch.from_numpy(x).to(dev), torch.from_numpy(aux).to(dev)
+    gout = torch.randn(n, to[0].shape[0], device=dev,
+                       generator=torch.Generator(dev).manual_seed(3))
+    k0_t = torch.tensor([k0], device=dev, dtype=torch.int32)
+    ref = cmlp.fused_embed_trunk_bwd(xt.cpu(), at.cpu(), alpha,
+                                     [(w.cpu(), b.cpu()) for w, b in tl],
+                                     (to[0].cpu(), to[1].cpu()), gout.cpu(),
+                                     precision=prec, k0_blocks=k0, **kw)
+    _poison(256 << 20, dev)
+    n0 = cmlp.fused_embed_trunk_bwd.launches
+    got = cmlp.fused_embed_trunk_bwd(xt, at, alpha, tl, to, gout,
+                                     precision=prec, k0_blocks=k0_t, **kw)
+    torch.cuda.synchronize()
+    assert cmlp.fused_embed_trunk_bwd.launches == n0 + 1
+    tol, max_tol = (2e-2, 1e-1) if prec == "bf16" else (2e-3, 1e-2)
+    flat_g = [got[0], got[1]] + [t for p in got[2] for t in p] + list(got[3])
+    flat_r = [ref[0], ref[1]] + [t for p in ref[2] for t in p] + list(ref[3])
+    for i, (a, b) in enumerate(zip(flat_g, flat_r)):
+        _close(a.cpu(), b, tol, f"output {i}", max_tol)
+    first = min(k0, math.ceil(n / 1024) - 1) * 1024
+    assert first == 0 or float(got[0][:first].abs().max()) == 0.0
+    if kw["aux_mode"] == "stream" and first:
+        assert float(got[1][:first].abs().max()) == 0.0
+
+
+def test_autograd_routes_through_kernels(dev):
+    """A backward through the differentiable entries launches B1+B4, B2+B3
+    and B5 fwd+bwd, and no plain version."""
+    G, B = 8, 5
+    gen = torch.Generator(dev).manual_seed(4)
+    pts = torch.rand(2048, 3, device=dev, generator=gen) * (G - 1)
+    rg = torch.eye(3, device=dev).reshape(1, 9).repeat(B, 1).requires_grad_()
+    tg = torch.zeros(B, 3, device=dev, requires_grad=True)
+    vol = torch.rand(B, G * G, G, device=dev, generator=gen,
+                     requires_grad=True)
+    counts = lambda: (clbs.inverse_core_pg_s.launches,  # noqa: E731
+                      clbs.inverse_core_bwd.launches,
+                      clbs.shared_blend_fwd.launches,
+                      clbs.shared_blend_bwd.launches,
+                      cmlp.fused_embed_trunk.launches,
+                      cmlp.fused_embed_trunk_bwd.launches)
+    before = counts()
+    acc = clbs.inverse_core_pg_s(pts, rg, tg, vol)
+    x, aux, alpha, layers, out, kw = mlp_case("nonrigid", n=2048, width=32)
+    tl, to = torch_args(layers, out)
+    tl = [(w.to(dev).requires_grad_(), b.to(dev)) for w, b in tl]
+    y = cmlp.fused_embed_trunk(acc[:, :3].contiguous(),
+                               torch.from_numpy(aux).to(dev), alpha, tl,
+                               (to[0].to(dev), to[1].to(dev)), **kw)
+    vol_all = vol.reshape(B, G, G, G).permute(1, 2, 0, 3).reshape(G * G,
+                                                                  B * G)
+    z = clbs.shared_blend_core(y.contiguous() + 3.0, vol_all.contiguous(),
+                               torch.randn(B, 24, device=dev, generator=gen))
+    z.square().sum().backward()
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [1] * 6
+    for t in (rg, tg, vol, tl[0][0]):
+        assert t.grad is not None and torch.isfinite(t.grad).all()

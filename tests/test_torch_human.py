@@ -52,8 +52,15 @@ def field():
                 jdense=jdense)
 
 
+@pytest.fixture(autouse=True)
+def _no_grad():
+    """The render-path checks read outputs as numpy: no autograd graph."""
+    with torch.no_grad():
+        yield
+
+
 def _port(field, **kw):
-    m = HumanObjectField(**KW, **kw)
+    m = HumanObjectField(**KW, **kw, device="cpu")
     m.load_state_dict(convert.human_state_dict(field["pnp"]), strict=True)
     return m
 
@@ -73,7 +80,7 @@ def test_converter_equals_export_and_loads_strict(field):
     for k in ref:
         assert sd[k].shape == ref[k].shape, k
         np.testing.assert_array_equal(sd[k], ref[k], err_msg=k)
-    m = HumanObjectField(**KW)
+    m = HumanObjectField(**KW, device="cpu")
     res = m.load_state_dict(convert.human_state_dict(field["pnp"]),
                             strict=True)
     assert not res.missing_keys and not res.unexpected_keys
@@ -172,9 +179,34 @@ def test_per_sample_state_takes_dense_path(field):
                                    err_msg=k)
 
 
-def test_train_mode_is_not_ported(field):
-    with pytest.raises(NotImplementedError, match="training slice"):
-        _port(field)(field["tbatch"], ITER, torch.tensor(0), is_train=True)
+def test_train_mode_matches_jax_dense(field):
+    """is_train=True (perturb 0): the cycle and flow branches' outputs of
+    the port's dense path vs JAX dense, and the port's sorted path (plain
+    kernel versions) vs its dense path. Dense vs dense is f32 op order
+    through the forward LBS and the forward non-rigid MLP: 1e-4 absolute
+    on points of magnitude ~2. Sorted vs dense adds the bf16 taps of both
+    LBS volumes (2^-9 relative on each tap weight): 2e-2 absolute, as the
+    render outputs above."""
+    ref = field["jdense"].apply({"params": field["params"]}, field["batch"],
+                                ITER, jnp.int32(0), is_train=True)
+    with torch.enable_grad():
+        dense = _port(field, lbs_impl="gather", mlp_impl="flax")(
+            field["tbatch"], ITER, torch.tensor(0), is_train=True)
+        srt = _port(field, lbs_impl="pallas", mlp_impl="fused")(
+            field["tbatch"], ITER, torch.tensor(0), is_train=True)
+    keys = ("observe_pts", "cnl_pts", "deform_pts_final", "cycle_mask",
+            "deform_pts_prev_final", "rgb")
+    for k in keys:
+        np.testing.assert_allclose(dense[k].detach().numpy(),
+                                   np.asarray(ref[k]), rtol=0, atol=1e-4,
+                                   err_msg=k)
+    live = dense["cycle_mask"].detach().numpy() > 0
+    assert live.any() and not live.all()
+    for k in ("cnl_pts", "deform_pts_final"):
+        np.testing.assert_allclose(srt[k].detach().numpy()[live],
+                                   dense[k].detach().numpy()[live], rtol=0,
+                                   atol=2e-2, err_msg=k)
+    assert dense["deform_pts_final"].requires_grad
 
 
 def test_render_human_image_chunks(field):
@@ -194,7 +226,9 @@ def test_render_human_image_chunks(field):
 def test_package_imports_without_jax_or_triton():
     code = ("import sys, hosnerf_tpu_torch, hosnerf_tpu_torch.convert, "
             "hosnerf_tpu_torch.models.human, hosnerf_tpu_torch.eval."
-            "renderers\n"
+            "renderers, hosnerf_tpu_torch.models.lpips, "
+            "hosnerf_tpu_torch.train.stage2, "
+            "hosnerf_tpu_torch.train.schedules\n"
             "from hosnerf_tpu_torch.ops.cuda import _build\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'triton', 'hosnerf_tpu')]\n"

@@ -174,7 +174,8 @@ def test_mlps_match_flax(cdt):
     pe = rng.normal(size=(40, 63 + 64)).astype(np.float32)
     jm = jhc.CanonicalMLP(mlp_depth=8, mlp_width=32, compute_dtype=jdt)
     p = _flax_params(jm, pe)
-    tm = thc.CanonicalMLP(127, 8, 32, (4,), tdt, generator=gen)
+    tm = thc.CanonicalMLP(127, 8, 32, (4,), tdt, generator=gen,
+                           device="cpu")
     sd = {}
     for j in range(8):
         sd.update(_dense_sd(f"pts_linears.{2 * j}", p[f"linear_{j}"]))
@@ -190,7 +191,8 @@ def test_mlps_match_flax(cdt):
     cond = rng.normal(size=(40, 75)).astype(np.float32)
     jn = jhc.NonRigidMLP(mlp_depth=6, mlp_width=32, compute_dtype=jdt)
     p = _flax_params(jn, emb, xyz, cond)
-    tn = thc.NonRigidMLP(36, 75, 6, 32, (4,), tdt, generator=gen)
+    tn = thc.NonRigidMLP(36, 75, 6, 32, (4,), tdt, generator=gen,
+                          device="cpu")
     sd = {}
     for j in range(6):
         sd.update(_dense_sd(f"block_mlps.{2 * j}", p[f"linear_{j}"]))
@@ -210,7 +212,8 @@ def test_pose_refiner_matches_flax():
     jm = jhc.BodyPoseRefiner(total_bones=26, mlp_width=32, mlp_depth=4)
     p = _flax_params(jm, posevec)
     tm = thc.BodyPoseRefiner(75, 26, 32, 4,
-                             generator=torch.Generator().manual_seed(0))
+                             generator=torch.Generator().manual_seed(0),
+                             device="cpu")
     sd = {}
     for j in range(3):
         sd.update(_dense_sd(f"block_mlps.{2 * j}", p[f"trunk_{j}"]))
@@ -270,7 +273,8 @@ def test_motion_weight_decoder_matches_flax():
             p["decoder"][name]["kernel"])
         sd[f"decoder.block_conv.{2 * n}.bias"] = p["decoder"][name]["bias"]
     tm = thc.MotionWeightVolumeDecoder(256, 4, 26,
-                                       generator=torch.Generator())
+                                       generator=torch.Generator(),
+                                       device="cpu")
     _load(tm, sd)
     np.testing.assert_allclose(tm(_t(priors)).detach().numpy(),
                                np.asarray(jm.apply({"params": p}, priors)),
