@@ -14,7 +14,16 @@ Phases, each of which fails the run:
             forward LBS B5 forward and backward) at the training step's
             (262,144 samples: 2 patches of 32 x 32 rays, 128 samples each),
             the block-skipping kernels at k0 = 0, at the batch's own live
-            k0 and at the all-dead clamp;
+            k0 and at the all-dead clamp; the four inverse-LBS cores
+            (rows 6, 9, 10, 11: B1/B4 on the training points in each core's
+            row order), the all-bone weights (row 7) on the training step's
+            canonical points, the trunk-only MLP (row 8) at
+            tools/bench_mlp.py's two layouts and 262,144 rows, and the
+            pair-grid prototype (row 12) at its own shapes; rows 7, 8 and
+            12 then once more through their user entry points
+            (`ops/lbs.py::bone_weights`, `ops/cuda/mlp.py::fused_trunk`
+            with its backward, `tools/proto_pairgrid.py`), launches counted
+            around each;
   render    3 frames of 128 x 128 rays through the port's render entry point
             (`eval/renderers.py`: render_human_image + make_render_fn) with
             the full-width stage-2 model (random weights from seed 0, bf16
@@ -30,16 +39,27 @@ Phases, each of which fails the run:
             launch counts read around them; the loss finite at every step
             and lower afterwards than at the first step;
   profile   one more training step under torch.profiler;
-  gradcheck one step's gradients on the training batch, the kernel path
-            on the card against the same path through the kernels' plain
-            versions on the CPU (f32 trunks, same weights), parameter by
-            parameter (`train/gradcheck.py`).
+  dense     the same training step on the dense per-sample path
+            (`sparse=False`: the Morton-order inverse core, the trunks and
+            the forward LBS on every sample): one warm-up and DENSE_STEPS
+            timed steps, launches read around them; one step with
+            lbs_impl='pallas_dense' (the ray-order core); one render chunk
+            through the dense path with each inverse core against the
+            sorted path on the same weights;
+  profile   one dense training step under torch.profiler;
+  gradcheck one step's gradients, the kernel path on the card against the
+            same path through the kernels' plain versions on the CPU (f32
+            trunks, same weights), parameter by parameter
+            (`train/gradcheck.py`), the sorted and the dense path, each
+            on the training batch.
 
 Stdout ends with the card's name and power limit, one JSON line of kernel
 results and one JSON status line. The render kernels' entries report the
 render path (their launches there, their times at its shapes), the training
-kernels' entries the training step. Without a CUDA device, or outside a
-checkout of the repository, it exits non-zero and prints no result.
+kernels' entries the training step, the inverse cores the dense step and
+the dense render chunks, rows 7, 8 and 12 their entry points' runs.
+Without a CUDA device, or outside a checkout of the repository, it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -62,6 +82,17 @@ TRAIN_STEPS = 10
 PER_STEP = {"inverse_core_pg_s": 1, "fused_embed_trunk": 4,
             "shared_blend_fwd": 1, "inverse_core_bwd": 1,
             "fused_embed_trunk_bwd": 4, "shared_blend_bwd": 1}
+DENSE_STEPS = 3
+# per dense training step: the Morton-order inverse core and B4 once, the
+# trunks three times (non-rigid, canonical, and one forward non-rigid call
+# over both deform streams), the forward LBS once; lbs_impl='pallas_dense'
+# takes the ray-order core and, as the JAX package dispatches it, the
+# gather forward LBS
+PER_DENSE_STEP = {"inverse_core_pg": 1, "inverse_core_bwd": 1,
+                  "fused_embed_trunk": 3, "fused_embed_trunk_bwd": 3,
+                  "shared_blend_fwd": 1, "shared_blend_bwd": 1}
+PER_PALLAS_DENSE_STEP = {"inverse_core": 1, "inverse_core_bwd": 1,
+                         "fused_embed_trunk": 3, "fused_embed_trunk_bwd": 3}
 
 # Tolerances, kernel vs its plain version on the same inputs:
 # inverse LBS does the same arithmetic in the same order with
@@ -126,6 +157,11 @@ HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 # dw 2 x 12K, dvol/U 32, dfz 6).
 OPS_B1_PAIR, OPS_B4_PAIR = 75, 250
 OPS_B5F_BONE, OPS_B5B_BONE = 68, 166
+# per (sample, bone) of the all-bone weights (row 7): the forward's thread
+# rebuilds its sample's taps and xy weights (28), then z columns 16 and the
+# weight 4; the backward adds the bone's gradient rounding 2, dvol/U 32 and
+# dfz 6, with the sample's taps (28) and dfx/dfy (16) shared by its bones
+OPS_W_FWD, OPS_W_BWD = 48, 42
 
 
 class SmokeFailure(Exception):
@@ -695,6 +731,454 @@ def library_trunk_bwd_ms(torch, model, name, x, aux, alpha, gout,
 
 
 # ---------------------------------------------------------------------------
+# kernels phase: the dense slice (rows 6-12)
+# ---------------------------------------------------------------------------
+
+INVERSE_CORES = ("inverse_core", "inverse_core_pg", "inverse_core_pgw",
+                 "inverse_core_bp")
+
+
+def check_inverse_cores(torch, model, ti, results, iters):
+    """Rows 6, 9, 10, 11: B1 and B4 on the training step's points in each
+    core's row order (as given; Morton; signature + Morton; signature).
+    Forward: bit-identical across the orders (one per-sample computation)
+    and within TOL_LBS of the plain version; backward within B4's
+    tolerances of the plain backward; outputs NaN-poisoned. Each core is
+    timed whole (sort, B1, unsort) and its kernels alone on its order."""
+    from hosnerf_tpu_torch.ops.cuda import lbs as clbs
+    rg, tg, vol_qz = ti["rg"], ti["tg"], ti["vol_qz"]
+    pts = ti["si"]["pts_flat"].float().contiguous()
+    G = model.mweight_volume_size
+    n, dev = pts.shape[0], pts.device
+    pts_p = clbs._pad_points(pts)
+    n_pad = pts_p.shape[0]
+    gacc = torch.randn(n_pad, 4, device=dev,
+                       generator=torch.Generator(dev).manual_seed(12))
+    pairs = live_pairs(pts, rg, tg, G)
+    orders = {"inverse_core": None, "inverse_core_pg": clbs._morton_order,
+              "inverse_core_pgw": clbs._sig_morton_order,
+              "inverse_core_bp": clbs._support_order}
+    for prec in ("bf16", "highest"):
+        ref = clbs.inverse_core_plain(pts_p, rg, tg, vol_qz, prec)
+        dref = clbs.inverse_core_bwd_plain(pts_p, rg, tg, vol_qz, gacc, prec)
+        plain_f = time_ms(torch, lambda: clbs.inverse_core_plain(
+            pts_p, rg, tg, vol_qz, prec), 1)
+        plain_b = time_ms(torch, lambda: clbs.inverse_core_bwd_plain(
+            pts_p, rg, tg, vol_qz, gacc, prec), 1)
+        scale = float(ref.abs().max())
+        vol_b = vol_qz.numel() * (2 if prec == "bf16" else 4)
+        ray_order = None
+        for name, order in orders.items():
+            entry = getattr(clbs, name)
+            perm = (torch.arange(n_pad, device=dev) if order is None else
+                    clbs._row_perms(order(pts_p, rg, tg, G, n))[0])
+            x, g = pts_p[perm].contiguous(), gacc[perm].contiguous()
+            ranges = poison(torch, dev, n_pad * 16)
+            got = clbs.inverse_core_fwd(x, rg, tg, vol_qz, prec, entry)
+            torch.cuda.synchronize()
+            check(landed(got, ranges), f"{name} {prec}: output missed the "
+                  "poison")
+            check(bool(torch.isfinite(got).all()),
+                  f"{name} {prec}: non-finite output (unwritten rows?)")
+            err = float((got - ref[perm]).abs().max())
+            check(err <= TOL_LBS * scale, f"{name} {prec}: max err {err} > "
+                  f"{TOL_LBS} x {scale}")
+            if ray_order is None:
+                ray_order = got
+            check(bool(torch.equal(got, ray_order[perm])),
+                  f"{name} {prec}: differs from the ray-order result")
+            ranges = poison(torch, dev, n_pad * 12)
+            dgot = clbs.inverse_core_bwd(x, rg, tg, vol_qz, g, prec)
+            torch.cuda.synchronize()
+            check(landed(dgot[0], ranges), f"{name} bwd {prec}: dpts missed "
+                  "the poison")
+            err_b, rel_b = worst(close(torch, a, b, TOL_BWD[f"lbs_{prec}"],
+                                       f"{name} bwd {prec} {what}")
+                                 for what, a, b in zip(
+                                     ("dpts", "drg", "dtg", "dvol"), dgot,
+                                     (dref[0][perm],) + tuple(dref[1:])))
+            ms_f = time_ms(torch, lambda: clbs.inverse_core_fwd(
+                x, rg, tg, vol_qz, prec, entry), iters)
+            ms_b = time_ms(torch, lambda: clbs.inverse_core_bwd(
+                x, rg, tg, vol_qz, g, prec), iters)
+            ms_entry = time_ms(torch, lambda: entry(pts, rg, tg, vol_qz,
+                                                    prec), iters)
+            bf = bound(nbytes(x, rg, tg, got) + vol_b,
+                       f32_ops=OPS_B1_PAIR * pairs)
+            bb = bound(nbytes(x, rg, tg, g, *dgot) + vol_b,
+                       f32_ops=OPS_B4_PAIR * pairs)
+            print(f"kernel {name} {prec}: rows={n_pad} live_pairs={pairs} "
+                  f"fwd max_abs_err={err:.3e} (over scale "
+                  f"{err / scale:.3e}) bwd max_abs_err={err_b:.3e} (over "
+                  f"scale {rel_b:.3e}) B1 ms={ms_f:.4f} B4 ms={ms_b:.4f} "
+                  f"core (sort + B1 + unsort) ms={ms_entry:.4f} plain fwd "
+                  f"ms={plain_f:.4f} bwd ms={plain_b:.4f} bound fwd "
+                  f"{bf[0]:.5f} ({bf[1]}) bwd {bb[0]:.5f} ({bb[1]})",
+                  flush=True)
+            results[(name, prec)] = dict(err=err, rel=err / scale, ms=ms_f,
+                                         plain_ms=plain_f, bound_ms=bf[0],
+                                         bound_by=bf[1], core_ms=ms_entry)
+            results[(name + "_bwd", prec)] = dict(
+                err=err_b, rel=rel_b, ms=ms_b, plain_ms=plain_b,
+                bound_ms=bb[0], bound_by=bb[1])
+            del got, dgot, x, g
+        del ref, dref, ray_order
+
+
+def library_weights(torch, pts_g, vol_all):
+    """The all-bone weights as one PyTorch call (the library yardstick of
+    row 7): grid_sample of the f32 [1, B, G, G, G] volume (vol[b, z, y, x])
+    at the [1, 1, 1, N, 3] points (x, y, z) mapped to [-1, 1] with
+    align_corners=True, zeros padding. Returns (fn(grid) -> w [N, B],
+    grid)."""
+    QQ, BG = vol_all.shape
+    G = int(round(QQ ** 0.5))
+    B = BG // G
+    vol5 = vol_all.float().reshape(G, G, B, G).permute(2, 3, 0, 1)[None]
+    grid = (pts_g / (G - 1) * 2.0 - 1.0)[None, None, None]
+
+    def fn(gr, v=vol5):
+        return torch.nn.functional.grid_sample(
+            v, gr, mode="bilinear", padding_mode="zeros",
+            align_corners=True)[0, :, 0, 0].T
+
+    return fn, grid.contiguous(), vol5.contiguous()
+
+
+def check_shared_core(torch, ti, results, iters):
+    """Row 7 forward and backward vs their plain versions on the training
+    step's canonical points (grid coordinates) and its decoded volume, both
+    precisions, outputs NaN-poisoned; the library call (grid_sample) held
+    to the f32 plain version before its time is quoted."""
+    from hosnerf_tpu_torch.ops.cuda import lbs as clbs
+    pts_g, vol_all = ti["pts_g"], ti["vol_all"]
+    n, dev = pts_g.shape[0], pts_g.device
+    B = vol_all.shape[1] // int(round(vol_all.shape[0] ** 0.5))
+    gw = torch.randn(n, B, device=dev,
+                     generator=torch.Generator(dev).manual_seed(13))
+    for prec in ("bf16", "highest"):
+        ref = clbs.shared_core_plain(pts_g, vol_all, prec)
+        ranges = poison(torch, dev, ref.numel() * 4)
+        got = clbs.shared_core_fwd(pts_g, vol_all, prec)
+        torch.cuda.synchronize()
+        check(landed(got, ranges), f"weights {prec}: output missed the "
+              "poison")
+        err_f, rel_f = close(torch, got, ref, TOL_BWD["blend_fwd"],
+                             f"weights {prec}")
+        del ref
+        dref = clbs.shared_core_bwd_plain(pts_g, vol_all, gw, prec)
+        ranges = poison(torch, dev, n * 12)
+        dgot = clbs.shared_core_bwd(pts_g, vol_all, gw, prec)
+        torch.cuda.synchronize()
+        check(landed(dgot[0], ranges), f"weights bwd {prec}: dpts missed "
+              "the poison")
+        err_b, rel_b = worst(close(torch, a, b, TOL_BWD[f"lbs_{prec}"],
+                                   f"weights bwd {prec} {what}")
+                             for what, a, b in zip(("dpts", "dvol"), dgot,
+                                                   dref))
+        ms_f = time_ms(torch, lambda: clbs.shared_core_fwd(
+            pts_g, vol_all, prec), iters)
+        ms_b = time_ms(torch, lambda: clbs.shared_core_bwd(
+            pts_g, vol_all, gw, prec), iters)
+        pf = time_ms(torch, lambda: clbs.shared_core_plain(
+            pts_g, vol_all, prec), 1)
+        pb = time_ms(torch, lambda: clbs.shared_core_bwd_plain(
+            pts_g, vol_all, gw, prec), 1)
+        vol_b = vol_all.numel() * (2 if prec == "bf16" else 4)
+        bf = bound(nbytes(pts_g, got) + vol_b, f32_ops=OPS_W_FWD * B * n)
+        bb = bound(nbytes(pts_g, gw, *dgot) + vol_b,
+                   f32_ops=OPS_W_BWD * B * n)
+        res_f = dict(err=err_f, rel=rel_f, ms=ms_f, plain_ms=pf,
+                     bound_ms=bf[0], bound_by=bf[1])
+        res_b = dict(err=err_b, rel=rel_b, ms=ms_b, plain_ms=pb,
+                     bound_ms=bb[0], bound_by=bb[1])
+        line = (f"kernel shared_core {prec}: n={n} fwd max_abs_err="
+                f"{err_f:.3e} (over scale {rel_f:.3e}) bwd max_abs_err="
+                f"{err_b:.3e} (over scale {rel_b:.3e}) fwd ms={ms_f:.4f} "
+                f"bwd ms={ms_b:.4f} fwd plain_ms={pf:.4f} bwd plain_ms="
+                f"{pb:.4f} fwd bound_ms={bf[0]:.5f} ({bf[1]}) bwd bound_ms="
+                f"{bb[0]:.5f} ({bb[1]})")
+        if prec == "bf16":
+            lib_fn, grid, vol5 = library_weights(torch, pts_g, vol_all)
+            lib_err, _ = close(torch, lib_fn(grid), clbs.shared_core_plain(
+                pts_g, vol_all, "highest"), TOL_BWD["blend_fwd"],
+                "grid_sample vs row 7 plain f32")
+            res_f["library_ms"] = time_ms(torch, lambda: lib_fn(grid), iters)
+            with torch.enable_grad():
+                gr = grid.detach().clone().requires_grad_()
+                vr = vol5.detach().clone().requires_grad_()
+                y = lib_fn(gr, vr)
+                res_b["library_ms"] = time_ms(torch, lambda: torch.autograd
+                                              .grad(y, (gr, vr), gw,
+                                                    retain_graph=True),
+                                              iters)
+            line += (f" library (grid_sample f32, max err vs plain f32 "
+                     f"{lib_err:.3e}) fwd ms={res_f['library_ms']:.4f} bwd "
+                     f"ms={res_b['library_ms']:.4f}")
+            del lib_fn, grid, vol5, y, gr, vr
+        print(line, flush=True)
+        results[("weights_fwd", prec)] = res_f
+        results[("weights_bwd", prec)] = res_b
+        del got, dgot, dref
+
+
+# tools/bench_mlp.py's two production layouts: (din, width, depth, skip
+# keywords, dout)
+TRUNK_LAYOUTS = {
+    "canonical": (127, 256, 8, dict(skip_before=5, skip_order="input_first",
+                                    skip_off=0, skip_width=127), 4),
+    "nonrigid": (111, 128, 6, dict(skip_before=4, skip_order="h_first",
+                                   skip_off=75, skip_width=36), 3),
+}
+BENCH_ROWS = 262_144
+
+
+def trunk_weights(torch, name, device, seed=0):
+    """Random bench_mlp-style weights ([dout, din], N(0, 1/din)) for a
+    layout, and x ~ N(0, 1) [BENCH_ROWS, din]."""
+    din, width, depth, kw, dout = TRUNK_LAYOUTS[name]
+    gen = torch.Generator(device).manual_seed(seed)
+    layers, prev = [], din
+    for i in range(depth):
+        k = prev + (kw["skip_width"] if i == kw["skip_before"] else 0)
+        layers.append((torch.randn(width, k, device=device, generator=gen)
+                       / k ** 0.5,
+                       torch.randn(width, device=device, generator=gen)
+                       * 0.01))
+        prev = width
+    out = (torch.randn(dout, width, device=device, generator=gen) * 0.05,
+           torch.zeros(dout, device=device))
+    x = torch.randn(BENCH_ROWS, din, device=device, generator=gen)
+    return x, layers, out, kw
+
+
+def check_trunk(torch, model, results, iters):
+    """Row 8 forward and backward vs their plain versions at
+    tools/bench_mlp.py's two layouts and 262,144 rows (bf16; f32 too for
+    the canonical one), outputs NaN-poisoned, tolerances of B2 and B3; the
+    library route (the model's module MLP of the same layout, cuBLAS
+    bf16, and its autograd backward) timed beside bf16."""
+    from hosnerf_tpu_torch.ops.cuda import mlp as cmlp
+    dev = next(model.parameters()).device
+    for name in TRUNK_LAYOUTS:
+        x, layers, out, kw = trunk_weights(torch, name, dev)
+        spec = cmlp.TrunkSpec(x.shape[1], **kw)
+        gout = torch.randn(BENCH_ROWS, out[0].shape[0], device=dev,
+                           generator=torch.Generator(dev).manual_seed(14))
+        params = [t for p in layers for t in p] + list(out)
+        flops = trunk_flops(layers, out, BENCH_ROWS)
+        for prec in ("bf16", "highest") if name == "canonical" else ("bf16",):
+            ref = cmlp.fused_trunk_plain(x, layers, out, spec=spec,
+                                         precision=prec)
+            ranges = poison(torch, dev, ref.numel() * 4)
+            got = cmlp.trunk_fwd(x, layers, out, spec=spec, precision=prec)
+            torch.cuda.synchronize()
+            check(landed(got, ranges), f"trunk {name} {prec}: output missed "
+                  "the poison")
+            check(bool(torch.isfinite(got).all()),
+                  f"trunk {name} {prec}: non-finite output")
+            scale = float(ref.abs().max())
+            e = (got - ref).abs()
+            err_f = float(e.max())
+            frac = float((e > 1e-3 * scale).float().mean())
+            check(err_f <= TOL_MLP[prec] * scale and frac <= 0.05,
+                  f"trunk {name} {prec}: max err {err_f} (scale {scale}), "
+                  f"{frac:.4f} of entries beyond 1e-3")
+            del e
+            dref = cmlp.fused_trunk_bwd_plain(x, layers, out, gout,
+                                              spec=spec, precision=prec)
+            ranges = poison(torch, dev, x.numel() * 4)
+            dgot = cmlp.trunk_bwd(x, layers, out, gout, spec=spec,
+                                  precision=prec)
+            torch.cuda.synchronize()
+            check(landed(dgot[0], ranges), f"trunk bwd {name} {prec}: dx "
+                  "missed the poison")
+            flat_g = [dgot[0]] + [t for p in dgot[1] for t in p] \
+                + list(dgot[2])
+            flat_r = [dref[0]] + [t for p in dref[1] for t in p] \
+                + list(dref[2])
+            err_b, rel_b = worst(close(torch, a, b, TOL_BWD[f"mlp_{prec}"],
+                                       f"trunk bwd {name} {prec} out {i}")
+                                 for i, (a, b) in enumerate(zip(flat_g,
+                                                                flat_r)))
+            ms_f = time_ms(torch, lambda: cmlp.trunk_fwd(
+                x, layers, out, spec=spec, precision=prec), iters)
+            ms_b = time_ms(torch, lambda: cmlp.trunk_bwd(
+                x, layers, out, gout, spec=spec, precision=prec), iters)
+            pf = time_ms(torch, lambda: cmlp.fused_trunk_plain(
+                x, layers, out, spec=spec, precision=prec), 2)
+            pb = time_ms(torch, lambda: cmlp.fused_trunk_bwd_plain(
+                x, layers, out, gout, spec=spec, precision=prec), 1)
+            ops = {"bf16_ops" if prec == "bf16" else "f32_ops": flops}
+            bf = bound(nbytes(x, got, *params), **ops)
+            bb = bound(nbytes(x, gout, *flat_g, *params),
+                       **{k: 3 * v for k, v in ops.items()})
+            res_f = dict(err=err_f, rel=err_f / scale, ms=ms_f, plain_ms=pf,
+                         bound_ms=bf[0], bound_by=bf[1])
+            res_b = dict(err=err_b, rel=rel_b, ms=ms_b, plain_ms=pb,
+                         bound_ms=bb[0], bound_by=bb[1])
+            line = (f"kernel fused_trunk {name} {prec}: rows={BENCH_ROWS} "
+                    f"fwd max_abs_err={err_f:.3e} (over scale "
+                    f"{err_f / scale:.3e}, beyond_1e-3={frac:.4f}) bwd "
+                    f"max_abs_err={err_b:.3e} (over scale {rel_b:.3e}) fwd "
+                    f"ms={ms_f:.4f} bwd ms={ms_b:.4f} fwd plain_ms={pf:.4f} "
+                    f"bwd plain_ms={pb:.4f} fwd bound_ms={bf[0]:.5f} "
+                    f"({bf[1]}) bwd bound_ms={bb[0]:.5f} ({bb[1]})")
+            if prec == "bf16":
+                res_f["library_ms"], res_b["library_ms"] = \
+                    library_trunk_ms(torch, model, name, x, gout, iters)
+                line += (f" library fwd ms={res_f['library_ms']:.4f} bwd "
+                         f"ms={res_b['library_ms']:.4f}")
+            print(line, flush=True)
+            results[("trunk_" + name, prec)] = res_f
+            results[("trunk_" + name + "_bwd", prec)] = res_b
+            del got, dgot, ref, dref, flat_g, flat_r
+        del x, gout, layers, out, params
+
+
+def library_trunk_ms(torch, model, name, x, gout, iters):
+    """(forward ms, backward ms) of the model's module MLP with the same
+    layout as a trunk-only MLP (CanonicalMLP on [N, 127]; NonRigidMLP on
+    [cond 75 | embed 36], which it concatenates itself): cuBLAS bf16
+    layers, the backward through torch.autograd.grad."""
+    def run(xx):
+        if name == "canonical":
+            return model.cnl_mlp(xx)
+        return model.non_rigid_mlp(xx[:, 75:], xx[:, :3],
+                                   xx[:, :75])["offsets"]
+
+    with torch.no_grad():
+        fwd = time_ms(torch, lambda: run(x), iters)
+    mod = model.cnl_mlp if name == "canonical" else model.non_rigid_mlp
+    with torch.enable_grad():
+        xg = x.detach().clone().requires_grad_()
+        y = run(xg)
+        inputs = [xg] + list(mod.parameters())
+        bwd = time_ms(torch, lambda: torch.autograd.grad(
+            y, inputs, gout, retain_graph=True), iters)
+    return fwd, bwd
+
+
+def check_proto(torch, device, results, iters):
+    """Row 12 at the prototype's shapes, full length and cut to 2 steps
+    (the count a device tensor): against its plain version and the JAX
+    script's numpy reference (out 1e-5 of the scale, dvol exactly), rows
+    of tiles no counted step visits still NaN (unwritten)."""
+    from hosnerf_tpu_torch.tools import proto_pairgrid as pp
+    pts, vol, ptile, pbone = pp.case()
+    args = [torch.from_numpy(a).to(device) for a in (ptile, pbone, pts,
+                                                      vol)]
+    rows_all = pp.N_TILES * pp.T
+    for n_pairs, tiles in ((7, pp.N_TILES), (2, 1)):
+        count = torch.tensor([n_pairs], dtype=torch.int32, device=device)
+        plain, plain_dvol = pp.run_plain(n_pairs, *args, pp.N_TILES)
+        ref, ref_dvol = pp.reference(pts, vol, n_pairs)
+        ranges = poison(torch, device, rows_all * pp.G * 4)
+        out, dvol = pp.run(count, *args, pp.N_TILES)
+        torch.cuda.synchronize()
+        check(landed(out, ranges), "proto_pairgrid: output missed the poison")
+        rows = tiles * pp.T
+        err, rel = close(torch, out[:rows], plain[:rows], (1e-5, 1e-5),
+                         f"proto_pairgrid n={n_pairs} vs plain")
+        close(torch, out[:rows].cpu(), torch.from_numpy(ref[:rows]),
+              (1e-5, 1e-5), f"proto_pairgrid n={n_pairs} vs reference")
+        check(bool(torch.isnan(out[rows:]).all()),
+              f"proto_pairgrid n={n_pairs}: unvisited tiles were written")
+        check(bool(torch.equal(dvol.cpu(), torch.from_numpy(ref_dvol)))
+              and bool(torch.equal(dvol, plain_dvol)),
+              f"proto_pairgrid n={n_pairs}: dvol")
+        if n_pairs == 7:
+            ms = time_ms(torch, lambda: pp.run(count, *args, pp.N_TILES),
+                         iters)
+            pms = time_ms(torch, lambda: pp.run_plain(7, *args, pp.N_TILES),
+                          1)
+            bms, by = bound(nbytes(*args, out, dvol))
+            results[("proto", "f32")] = dict(err=err, rel=rel, ms=ms,
+                                             plain_ms=pms, bound_ms=bms,
+                                             bound_by=by)
+            print(f"kernel proto_pairgrid: n_pairs=7 max_abs_err={err:.3e} "
+                  f"ms={ms:.4f} plain_ms={pms:.4f} bound_ms={bms:.6f} "
+                  f"({by}); n_pairs=2 unvisited rows unwritten", flush=True)
+
+
+def entry_point_runs(torch, ti, batch, device):
+    """Rows 7, 8 and 12 through their user entry points, every launch
+    count zeroed just before and read just after: the all-bone weights of
+    the step's canonical points through `ops/lbs.py::bone_weights`
+    (impl='pallas') and their backward; the canonical trunk-only MLP
+    through `fused_trunk` and its backward; `tools/proto_pairgrid.py`'s
+    main. Returns the counts."""
+    from hosnerf_tpu_torch.ops import lbs as lbs_ops
+    from hosnerf_tpu_torch.ops.cuda import mlp as cmlp
+    from hosnerf_tpu_torch.tools import proto_pairgrid as pp
+    wrappers = launch_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    with torch.enable_grad():
+        pts = ti["cnl_pts_s"].detach().clone().requires_grad_()
+        vol = ti["si"]["vol"].detach().clone().requires_grad_()
+        w = lbs_ops.bone_weights(pts, vol, batch["cnl_bbox_min_xyz"],
+                                 batch["cnl_bbox_scale_xyz"], impl="pallas")
+        w.square().sum().backward()
+        check(bool(torch.isfinite(pts.grad).all())
+              and bool(torch.isfinite(vol.grad).all()),
+              "bone_weights: non-finite gradients")
+        x, layers, out, kw = trunk_weights(torch, "canonical", device, 1)
+        x.requires_grad_()
+        cmlp.fused_trunk(x, layers, out, **kw).square().sum().backward()
+        check(bool(torch.isfinite(x.grad).all()),
+              "fused_trunk: non-finite gradient")
+    pp.main()
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    expect = {"shared_core_fwd": 1, "shared_core_bwd": 1, "fused_trunk": 1,
+              "fused_trunk_bwd": 1, "proto_pairgrid": 2}
+    print("phase entry points: launches "
+          + " ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
+    check(launches == {k: expect.get(k, 0) for k in launches},
+          f"entry points: launches {launches}, expected {expect}")
+    return launches
+
+
+def check_dense_render(torch, model, batch):
+    """One render chunk through the dense path with each inverse core (the
+    pair-grid cores 'quad', 'win', 'bp' and 'pallas_dense') against the
+    sorted path on the same weights: the inverse LBS is per-sample the
+    same computation in any row order, so rgb and alpha are held to the
+    render check's tolerances relative to their maxima. Returns each
+    core's launches over these chunks."""
+    state = torch.zeros((), dtype=torch.int32)
+    ref = model(batch, ITER, state)
+    wrappers = launch_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    model.sparse = False
+    for lbs_impl, pg_impl in (("auto", "quad"), ("auto", "win"),
+                              ("auto", "bp"), ("pallas_dense", "quad")):
+        model.lbs_impl, model.pg_impl = lbs_impl, pg_impl
+        out = model(batch, ITER, state)
+        for name in ("alpha", "rgb"):
+            got, r = out[name], ref[name]
+            if name == "rgb":
+                got, r = 1.0 - got, 1.0 - r
+            scale = float(r.abs().max())
+            diff = (got - r).abs()
+            rmax, rmean = float(diff.max()) / scale, float(diff.mean()) / scale
+            print(f"dense render chunk ({lbs_impl}, {pg_impl}) vs sorted: "
+                  f"{name} max abs diff {float(diff.max()):.3e}, {rmax:.3e} "
+                  f"(max) {rmean:.3e} (mean) of its maximum {scale:.4e}",
+                  flush=True)
+            check(rmax <= TOL_RENDER_MAX and rmean <= TOL_RENDER_MEAN,
+                  f"dense render chunk ({lbs_impl}, {pg_impl}) {name} "
+                  "disagrees with the sorted path")
+    model.sparse, model.lbs_impl, model.pg_impl = True, "auto", "quad"
+    launches = {k: wrappers[k].launches for k in INVERSE_CORES}
+    check(launches == dict.fromkeys(INVERSE_CORES, 1),
+          f"dense render chunks: inverse-core launches {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # render phase
 # ---------------------------------------------------------------------------
 
@@ -762,25 +1246,36 @@ def profile(torch, what: str, fn, ref_ms: float):
 # ---------------------------------------------------------------------------
 
 def launch_counts():
+    """{name: wrapper} of every kernel wrapper; each counts its launches."""
     from hosnerf_tpu_torch.ops.cuda import lbs as clbs
     from hosnerf_tpu_torch.ops.cuda import mlp as cmlp
+    from hosnerf_tpu_torch.tools import proto_pairgrid as pp
     return {"inverse_core_pg_s": clbs.inverse_core_pg_s,
             "fused_embed_trunk": cmlp.fused_embed_trunk,
             "shared_blend_fwd": clbs.shared_blend_fwd,
             "inverse_core_bwd": clbs.inverse_core_bwd,
             "fused_embed_trunk_bwd": cmlp.fused_embed_trunk_bwd,
-            "shared_blend_bwd": clbs.shared_blend_bwd}
+            "shared_blend_bwd": clbs.shared_blend_bwd,
+            **{name: getattr(clbs, name) for name in INVERSE_CORES},
+            "shared_core_fwd": clbs.shared_core_fwd,
+            "shared_core_bwd": clbs.shared_core_bwd,
+            "fused_trunk": cmlp.fused_trunk,
+            "fused_trunk_bwd": cmlp.fused_trunk_bwd,
+            "proto_pairgrid": pp.run}
 
 
-def train_phase(torch, device, kind, lp, cfg=None):
+def train_phase(torch, device, kind, lp, cfg=None, steps=TRAIN_STEPS,
+                per_step=None, label="train"):
     """The training step through init_state + make_train_step on one fixed
     batch (`cfg`: the full-width bf16 config unless given): warm-up,
-    TRAIN_STEPS timed steps with every kernel's launches counted, the loss
-    checked. Returns (launches, ms/step, a function running one more
-    step)."""
+    `steps` timed steps with every kernel's launches counted and held to
+    `per_step` (PER_STEP unless given; any kernel not named there must not
+    launch), the loss checked. Returns (launches, ms/step, a function
+    running one more step)."""
     from hosnerf_tpu_torch.models.state import state_index
     from hosnerf_tpu_torch.train import stage2
     cfg = cfg or stage2.Stage2Config(compute_dtype="bf16")
+    per_step = PER_STEP if per_step is None else per_step
     model, opt = stage2.init_state(cfg, seed=0, device=device)
     step = stage2.make_train_step(cfg, model, opt, lpips_apply=lp)
     batch = train_batch(torch, device, cfg.n_patches, cfg.patch_size,
@@ -799,50 +1294,52 @@ def train_phase(torch, device, kind, lp, cfg=None):
         w.launches = 0
     losses = []
     t0 = time.time()
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         losses.append(step(batch, TRAIN_ITER, jitter()))
     torch.cuda.synchronize()
     dt = time.time() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
-    ms = dt * 1e3 / TRAIN_STEPS
-    print(f"phase train: {TRAIN_STEPS} steps of {rays} rays x "
+    ms = dt * 1e3 / steps
+    print(f"phase {label}: {steps} steps of {rays} rays x "
           f"{cfg.n_samples} samples, {ms:.2f} ms/step, "
-          f"{rays * TRAIN_STEPS / dt:.0f} rays/s on {kind}; launches "
+          f"{rays * steps / dt:.0f} rays/s on {kind}; launches "
           + " ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
-    for k, per in PER_STEP.items():
-        check(launches[k] == per * TRAIN_STEPS,
-              f"train: {k} launched {launches[k]} times in {TRAIN_STEPS} "
-              f"steps (expected {per} per step)")
+    for k, n in launches.items():
+        per = per_step.get(k, 0)
+        check(n == per * steps, f"{label}: {k} launched {n} times in "
+              f"{steps} steps (expected {per} per step)")
     for i, ls in enumerate(losses):
         check(all(bool(torch.isfinite(v)) for v in ls.values()),
-              f"train step {i}: non-finite losses {ls}")
+              f"{label} step {i}: non-finite losses {ls}")
     with torch.no_grad():
         after, _ = stage2.make_loss_fn(cfg, model, lp)(
             batch, TRAIN_ITER, state_index(batch["time"], None), jitter())
     l0, l1 = float(first["loss"]), float(after)
     parts = " ".join(f"{k}={float(v):.6f}" for k, v in first.items())
     timed = " ".join(f"{float(x['loss']):.6f}" for x in losses)
-    print(f"train losses: first {parts}; per timed step {timed}; after "
+    print(f"{label} losses: first {parts}; per timed step {timed}; after "
           f"{l1:.6f}", flush=True)
-    check(l1 < l0, f"train: loss did not drop on a fixed batch ({l0} -> "
+    check(l1 < l0, f"{label}: loss did not drop on a fixed batch ({l0} -> "
           f"{l1})")
     return launches, ms, lambda: step(batch, TRAIN_ITER, jitter())
 
 
-def gradcheck_phase(torch, device, n_patches=2, patch_size=32):
-    """One step's gradients, the card's kernel path vs the same path on
-    the kernels' plain versions on the CPU, held to TOL_GRAD and
-    TOL_GRAD_LOSS."""
+def gradcheck_phase(torch, device, n_patches=2, patch_size=32, dense=False):
+    """One step's gradients, the card's kernel path vs the same path (the
+    sorted one, or the dense one) on the kernels' plain versions on the
+    CPU, held to TOL_GRAD and TOL_GRAD_LOSS."""
     import math
 
     from hosnerf_tpu_torch.train import gradcheck
-    print("gradcheck: kernel path on the card vs plain versions on the CPU "
-          f"({n_patches} patches of {patch_size}x{patch_size} rays)",
-          flush=True)
+    what = "dense" if dense else "sorted"
+    print(f"gradcheck ({what} path): kernel path on the card vs plain "
+          f"versions on the CPU ({n_patches} patches of {patch_size}x"
+          f"{patch_size} rays)", flush=True)
     t0 = time.time()
-    res = gradcheck.compare_step_grads(device, n_patches, patch_size)
+    res = gradcheck.compare_step_grads(device, n_patches, patch_size,
+                                       dense=dense)
     worst_rel, _ = gradcheck.report(res, TOL_GRAD)
-    print(f"phase gradcheck: {time.time() - t0:.1f} s", flush=True)
+    print(f"phase gradcheck ({what}): {time.time() - t0:.1f} s", flush=True)
     check(all(math.isfinite(v) for pair in res["params"].values()
               for v in pair) and all(map(math.isfinite, res["loss"])),
           "gradcheck: non-finite loss or gradients")
@@ -914,7 +1411,14 @@ def run(torch, np) -> int:
         check_inverse_bwd(torch, model, ti, results, ITERS)
         check_blend(torch, ti, results, ITERS)
         check_mlp_bwd(torch, model, ti, results, ITERS)
-        del ti
+        check_inverse_cores(torch, model, ti, results, ITERS)
+        check_shared_core(torch, ti, results, ITERS)
+        check_trunk(torch, model, results, ITERS)
+        check_proto(torch, device, results, ITERS)
+    torch.cuda.empty_cache()
+    entry_launches = entry_point_runs(torch, ti, train_batch(torch, device),
+                                      device)
+    del ti
     torch.cuda.empty_cache()
     print(f"phase kernels: {time.time() - t0:.1f} s", flush=True)
 
@@ -957,6 +1461,7 @@ def run(torch, np) -> int:
               f"{' '.join(f'{v:.4f}' for v in live)}; image mean "
               f"{float(np.mean(images)):.4f}", flush=True)
         check_render_chunk(torch, model, batch)
+        render_cores = check_dense_render(torch, model, batch)
 
     from hosnerf_tpu_torch.eval import renderers
     render_fn = renderers.make_render_fn(model)
@@ -971,7 +1476,24 @@ def run(torch, np) -> int:
     profile(torch, "one training step", one_step, step_ms)
     del one_step
     torch.cuda.empty_cache()
+
+    # ---- the dense per-sample path ----
+    from hosnerf_tpu_torch.train import stage2
+    dense_launches, dense_ms, one_step = train_phase(
+        torch, device, kind, lp, stage2.Stage2Config(
+            sparse=False, compute_dtype="bf16"), DENSE_STEPS,
+        PER_DENSE_STEP, "dense")
+    profile(torch, "one dense training step", one_step, dense_ms)
+    del one_step
+    torch.cuda.empty_cache()
+    pd_launches, _, _ = train_phase(
+        torch, device, kind, lp, stage2.Stage2Config(
+            sparse=False, lbs_impl="pallas_dense", compute_dtype="bf16"), 1,
+        PER_PALLAS_DENSE_STEP, "dense pallas_dense")
+    torch.cuda.empty_cache()
+
     gradcheck_phase(torch, device)
+    gradcheck_phase(torch, device, dense=True)
 
     def entry(name, source, replaces, n, parts):
         lib = [results[p].get("library_ms") for p in parts]
@@ -1008,6 +1530,38 @@ def run(torch, np) -> int:
         entry("shared_blend_bwd", "hosnerf_tpu_torch/csrc/lbs_forward.cu",
               "hosnerf_tpu/ops/pallas/lbs.py:1966",
               train_launches["shared_blend_bwd"], [("blend_bwd", "bf16")]),
+    ]
+    # rows 6, 9, 10, 11: B1 + B4 in each core's row order; launches on the
+    # dense training step (rows 9 and 6) or the dense render chunks
+    core_rows = {"inverse_core": ("hosnerf_tpu/ops/pallas/lbs.py:490",
+                                  pd_launches["inverse_core"]),
+                 "inverse_core_pg": ("hosnerf_tpu/ops/pallas/lbs.py:1077",
+                                     dense_launches["inverse_core_pg"]),
+                 "inverse_core_pgw": ("hosnerf_tpu/ops/pallas/lbs.py:1502",
+                                      render_cores["inverse_core_pgw"]),
+                 "inverse_core_bp": ("hosnerf_tpu/ops/pallas/lbs.py:2487",
+                                     render_cores["inverse_core_bp"])}
+    kernels += [entry(name, "hosnerf_tpu_torch/csrc/lbs_inverse.cu", where,
+                      n, [(name, "bf16"), (name + "_bwd", "bf16")])
+                for name, (where, n) in core_rows.items()]
+    trunk_parts = [("trunk_canonical", "bf16"), ("trunk_nonrigid", "bf16")]
+    kernels += [
+        entry("shared_core_fwd", "hosnerf_tpu_torch/csrc/lbs_forward.cu",
+              "hosnerf_tpu/ops/pallas/lbs.py:1694",
+              entry_launches["shared_core_fwd"], [("weights_fwd", "bf16")]),
+        entry("shared_core_bwd", "hosnerf_tpu_torch/csrc/lbs_forward.cu",
+              "hosnerf_tpu/ops/pallas/lbs.py:1725",
+              entry_launches["shared_core_bwd"], [("weights_bwd", "bf16")]),
+        entry("fused_trunk", "hosnerf_tpu_torch/csrc/embed_trunk.cu",
+              "hosnerf_tpu/ops/pallas/mlp.py:242",
+              entry_launches["fused_trunk"], trunk_parts),
+        entry("fused_trunk_bwd", "hosnerf_tpu_torch/csrc/embed_trunk_bwd.cu",
+              "hosnerf_tpu/ops/pallas/mlp.py:268",
+              entry_launches["fused_trunk_bwd"],
+              [(n + "_bwd", p) for n, p in trunk_parts]),
+        entry("proto_pairgrid", "hosnerf_tpu_torch/csrc/proto_pairgrid.cu",
+              "tools/proto_pairgrid.py:60",
+              entry_launches["proto_pairgrid"], [("proto", "f32")]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,13 +1,17 @@
-// Fused positional embedding + MLP trunk + f32 head, for Hopper.
+// Fused MLP trunk + f32 head, for Hopper, on a positional embedding or on
+// raw input rows.
 //
 // Replaces: hosnerf_tpu/ops/pallas/mlp.py::fused_embed_trunk (the Pallas
-// kernel _efwd_kernel, launched from _make_embed_fused.run_fwd).
+// kernel _efwd_kernel, launched from _make_embed_fused.run_fwd) and
+// fused_trunk (the Pallas kernel _fwd_kernel, launched from
+// _make_fused.run_fwd).
 //
 // Per row: build the PE of x [3] (fourier with the input prepended, or
-// hann-windowed), concat it with the aux row (a 75-d condition code or a
-// 64-d state embedding; row stride 0 broadcasts one row), run L ReLU layers
-// of width HID with one skip layer whose input re-concatenates part of the
-// first input, then an f32 linear head.
+// hann-windowed) and concat it with the aux row (a 75-d condition code or a
+// 64-d state embedding; row stride 0 broadcasts one row), or take the raw
+// row x [Din] (trunk_common.cuh, kind 2); run L ReLU layers of width HID
+// with one skip layer whose input re-concatenates part of the first input,
+// then an f32 linear head.
 //
 // Design. The TPU kernel keeps every layer's weights resident in a 100 MB
 // VMEM budget and streams row tiles through. An SM has 227 KB, and the
@@ -51,11 +55,12 @@ const char* hosnerf_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// meta: int32 host array, see hosnerf_tpu_torch/ops/cuda/mlp.py::_pack.
-// x [n, 3] f32; aux rows of A floats at stride meta.aux_stride; alpha [1]
-// f32 and k0 [1] int32 on the device; w/b packed weights and biases (bf16
-// when bf16, else f32); wout [out_dim, HID] f32; bout [out_dim] f32;
-// out [n, out_dim] f32. Returns cudaGetLastError() after the launch.
+// meta: int32 host array, see hosnerf_tpu_torch/ops/cuda/mlp.py::_pack_meta.
+// x [n, 3] f32 ([n, Din] for the raw kind); aux rows of A floats at stride
+// meta.aux_stride; alpha [1] f32 and k0 [1] int32 on the device; w/b packed
+// weights and biases (bf16 when bf16, else f32); wout [out_dim, HID] f32;
+// bout [out_dim] f32; out [n, out_dim] f32. Returns cudaGetLastError()
+// after the launch.
 int hosnerf_embed_trunk(const int* meta, int bf16, const float* x,
                         const float* aux, const float* alpha, const int* k0,
                         const void* w, const void* b, const float* wout,

@@ -1,13 +1,15 @@
-// Backward of the fused positional embedding + MLP trunk + f32 head, for
-// Hopper.
+// Backward of the fused MLP trunks (positional embedding + trunk + f32 head,
+// or the trunk alone on raw input rows), for Hopper.
 //
 // Replaces: hosnerf_tpu/ops/pallas/mlp.py::fused_embed_trunk backward (the
 // Pallas kernel _ebwd_kernel with _trunk_bwd_tile and _embed_bwd, launched
-// from _make_embed_fused.run_bwd).
+// from _make_embed_fused.run_bwd) and fused_trunk backward (_bwd_kernel
+// with _trunk_bwd_tile, launched from _make_fused.run_bwd).
 //
-// Given gout [n, out_dim] it returns dx [n, 3], daux (per row, or summed
-// over rows for a broadcast aux row), and dW/db of every layer and of the
-// head, all f32; d(alpha) = 0.
+// Given gout [n, out_dim] it returns dx ([n, 3] through the PE, or the full
+// [n, Din] input row of the raw kind, the skip slice's part included), daux
+// (per row, or summed over rows for a broadcast aux row; none for the raw
+// kind), and dW/db of every layer and of the head, all f32; d(alpha) = 0.
 //
 // Design. The TPU kernel recomputes each row tile's forward and keeps every
 // dW accumulator resident in VMEM across its sequential grid. A Hopper CTA
@@ -69,9 +71,21 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t& r0, uint32_t& r1,
 }
 
 // dx and daux of one row tile from dXs (the gradient over the Xs layout).
+// Raw input rows (kind 2): dx [n, ex_w] is dXs itself, plus the skip
+// slice's copy in the aux columns.
 __device__ __forceinline__ void embed_aux_bwd(
     const Meta& m, const float* dXs, int dstr, const float* x, float alpha,
     int row0, int nrows, int aux_stream, float* dx, float* daux) {
+  if (m.kind == 2) {
+    for (int i = threadIdx.x; i < nrows * m.ex_w; i += blockDim.x) {
+      const int r = i / m.ex_w, c = i - r * m.ex_w;
+      float v = dXs[r * dstr + c];
+      const int a = c - m.skip_off;
+      if (a >= 0 && a < m.A) v = __fadd_rn(v, dXs[r * dstr + m.exp_w + a]);
+      dx[(size_t)(row0 + r) * m.ex_w + c] = v;
+    }
+    return;
+  }
   const int idoff = m.kind == 0 ? 3 : 0;
   for (int i = threadIdx.x; i < nrows * 3; i += blockDim.x) {
     const int r = i / 3, cd = i - 3 * r, row = row0 + r;

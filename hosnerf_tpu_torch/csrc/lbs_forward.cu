@@ -1,45 +1,57 @@
-// Fused forward linear blend skinning (shared-tap weights blended against
-// K transform sets), forward and backward, for Hopper.
+// Shared-tap LBS for Hopper: the all-bone weights at shared points (forward
+// and backward), and the fused forward linear blend skinning (those weights
+// blended against K transform sets), forward and backward.
 //
-// Replaces: hosnerf_tpu/ops/pallas/lbs.py::shared_blend_core, forward (the
-// Pallas kernel _shared_blend_fwd_kernel, launched from _shared_blend_fwd)
-// and backward (_shared_blend_bwd_kernel, launched from _shared_blend_bwd).
+// Replaces: hosnerf_tpu/ops/pallas/lbs.py::shared_core (the Pallas kernels
+// _shared_fwd_kernel, launched from _shared_fwd, and _shared_bwd_kernel,
+// from _shared_bwd) and shared_blend_core, forward (_shared_blend_fwd_kernel,
+// launched from _shared_blend_fwd) and backward (_shared_blend_bwd_kernel,
+// launched from _shared_blend_bwd).
 //
 //   w_b(p) = trilinear sample of bone b's weight volume at grid point p
 //            (all B bones share the point, hence its taps);
-//   A = w rmat [12K];  acc_kc = P0 A[12k+4c] + P1 A[+1] + P2 A[+2] + A[+3];
-//   out[n] = (acc_0 [3], .., acc_{K-1} [3], sum_b w_b).
+//   shared_core: out[n] = (w_0, .., w_{B-1});
+//   shared_blend: A = w rmat [12K];
+//            acc_kc = P0 A[12k+4c] + P1 A[+1] + P2 A[+2] + A[+3];
+//            out[n] = (acc_0 [3], .., acc_{K-1} [3], sum_b w_b).
 //
-// Design. The TPU kernel contracts [T, G^2] one-hot tap rows with the whole
+// Design. The TPU kernels contract [T, G^2] one-hot tap rows with the whole
 // [G^2, B*G] volume on the MXU: ~850 k MACs per sample for 208 true taps
-// (lbs.py:1775-1778). On Hopper a tap is a gather: one thread owns one
-// sample, computes its 4 xy taps once, and gathers the 2 z taps of every
-// bone (8 x 26 loads from a 1.7 MB bf16 volume that stays in L2). rmat
-// [B, 12K] sits in shared memory; A and the output stay in registers.
-// The backward recomputes the taps, then:
-//   * drmat = w^T q [B, 12K] is a sum over samples hit by every sample, so
-//     each CTA stages w [T, B] and q [T, 12K] in shared memory, reduces the
-//     block's product there and adds it with one atomicAdd per entry;
+// (lbs.py:1775-1778). On Hopper a tap is a gather. The weights kernel runs
+// one thread per (sample, bone), so its [n, B] rows are stored coalesced;
+// each thread recomputes its sample's 4 xy taps (a few FLOPs) and gathers
+// its bone's 8 corners from a copy of the volume relaid [G*G, G, B], where
+// the threads of one sample read adjacent bytes. The blend kernel runs one
+// thread per sample: it computes the 4 xy taps once and gathers the 2 z taps
+// of every bone (8 x 26 loads from a 1.7 MB bf16 volume that stays in L2).
+// rmat [B, 12K] sits in shared memory; A and the output stay in registers.
+// The backwards run one thread per sample, recompute the taps, then:
+//   * drmat = w^T q [B, 12K] (blend) is a sum over samples hit by every
+//     sample, so each CTA stages w [T, B] and q [T, 12K] in shared memory,
+//     reduces the block's product there and adds it with one atomicAdd per
+//     entry;
 //   * dvol [G^2, B*G] (3.4 MB f32) cannot live on chip and its taps
 //     scatter: each nonzero tap contribution is one atomicAdd into device
 //     memory (L2-resident);
 //   * dpts is a per-sample store.
-// Live suffix: k0 (a device int, in 512-row blocks) is clamped to
-// [0, n_blocks - 1]; rows below k0 * 512 are skipped forward and backward
+// Live suffix (blend only): k0 (a device int, in 512-row blocks) is clamped
+// to [0, n_blocks - 1]; rows below k0 * 512 are skipped forward and backward
 // and their output rows left unwritten, as the TPU kernel does.
 //
 // Bound. ~1.5 KFLOP per sample forward, ~4 backward: nothing for the card.
 // The cost is 208 dependent L2 gathers per sample (and in the backward 208
-// more plus up to 208 atomics), so both kernels are bound by L2 latency
-// and throughput, not by device memory (pts in, 7 floats out per sample).
+// more plus up to 208 atomics), so the kernels are bound by L2 latency and
+// throughput and, in the backwards, by the atomics, not by device memory
+// (pts in, B or 7 floats out per sample).
 //
-// Numerics (bf16, `_mm` of the TPU kernel): xy tap products hx*hy and the
+// Numerics (bf16, `_mm` of the TPU kernels): xy tap products hx*hy and the
 // volume rounded to bf16; zc = sum_xy in f32; w_b = sum_z bf16(zc hz);
 // A in f32. Backward: gw = bf16(dw) (the `expand` matmul), dvol and U take
 // bf16(gw hz); every sum f32. vol_bf16 = 0 is f32 throughout. The order of
-// every per-sample sum is the plain version's
-// (hosnerf_tpu_torch/ops/cuda/lbs.py::shared_blend_plain and
-// shared_blend_bwd_plain), without FMA contraction.
+// every per-sample sum is the plain versions'
+// (hosnerf_tpu_torch/ops/cuda/lbs.py::shared_core_plain,
+// shared_core_bwd_plain, shared_blend_plain and shared_blend_bwd_plain),
+// without FMA contraction.
 
 #include "lbs_common.cuh"
 
@@ -93,6 +105,108 @@ __device__ __forceinline__ void bone_zc(const XYTaps& s, const Taps& tz,
       zc[dz] = __fadd_rn(zc[dz], __fmul_rn(s.w[t], v[t][dz]));
     }
   }
+}
+
+// Gradients of one sample's shared-tap weights through their taps: for
+// each bone gw_b = bf16(dw_of(b)) (the TPU kernels' `expand` matmul),
+// dvol[q_xy, b*G+z] += bf16(hx hy) bf16(gw_b hz) by atomics, and df =
+// (dfx, dfy, dfz) with U_xy = sum_{b,z} bf16(gw_b hz) vol,
+// dfx = sum_xy dhat(fx) hy U, dfy = sum_xy hx dhat(fy) U,
+// dfz = sum_b gw_b sum_z dhat(fz) zc.
+template <typename VT, typename DW>
+__device__ __forceinline__ void tap_grads(const XYTaps& s, const Taps& tx,
+                                          const Taps& ty, const Taps& tz,
+                                          const VT* vol, int B, int G,
+                                          float* dvol, float* df, DW dw_of) {
+  float U[4] = {0.f, 0.f, 0.f, 0.f};
+  float dfz = 0.f;
+  const float dh[2] = {-1.f, 1.f};
+  for (int b = 0; b < B; ++b) {
+    const float gw = round_tap(dw_of(b), vol);
+    float zc[2], v[4][2];
+    bone_zc(s, tz, vol, b * G, zc, v);
+    float* dvb = dvol + b * G;
+#pragma unroll
+    for (int dz = 0; dz < 2; ++dz) {
+      if (!tz.v[dz]) continue;
+      const float d = round_tap(__fmul_rn(gw, tz.h[dz]), vol);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        if (!s.v[t]) continue;
+        const float dv = __fmul_rn(s.w[t], d);
+        if (dv != 0.f) atomicAdd(dvb + s.qoff[t] + tz.i[dz], dv);
+        U[t] = __fadd_rn(U[t], __fmul_rn(d, v[t][dz]));
+      }
+      dfz = __fadd_rn(dfz, __fmul_rn(gw, __fmul_rn(dh[dz], zc[dz])));
+    }
+  }
+  float dfx = 0.f, dfy = 0.f;
+#pragma unroll
+  for (int dx = 0; dx < 2; ++dx) {
+#pragma unroll
+    for (int dy = 0; dy < 2; ++dy) {
+      const int t = 2 * dx + dy;
+      if (!s.v[t]) continue;
+      dfx = __fadd_rn(dfx, __fmul_rn(__fmul_rn(dh[dx], ty.h[dy]), U[t]));
+      dfy = __fadd_rn(dfy, __fmul_rn(__fmul_rn(tx.h[dx], dh[dy]), U[t]));
+    }
+  }
+  df[0] = dfx;
+  df[1] = dfy;
+  df[2] = dfz;
+}
+
+// Row 7 forward: w [n, B], one thread per (sample, bone). vol_r is the
+// volume relaid [G*G, G, B] (bones innermost): tap (q, z) of bone b at
+// (q * G + z) * B + b.
+template <typename VT>
+__global__ void __launch_bounds__(kFwdThreads)
+shared_weights_fwd_kernel(const float* __restrict__ pts,
+                          const VT* __restrict__ vol_r,
+                          float* __restrict__ w, int n, int B, int G) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n * B) return;
+  const int row = idx / B, b = idx - row * B;
+  const float* p = pts + 3 * row;
+  const Taps tx = make_taps(p[0], G), ty = make_taps(p[1], G),
+             tz = make_taps(p[2], G);
+  const XYTaps s = make_xy(tx, ty, G, G * B, vol_r);
+  float zc[2] = {0.f, 0.f};
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    if (!s.v[t]) continue;
+#pragma unroll
+    for (int dz = 0; dz < 2; ++dz) {
+      if (!tz.v[dz]) continue;
+      const float v = load_vol(vol_r, s.qoff[t] + tz.i[dz] * B + b);
+      zc[dz] = __fadd_rn(zc[dz], __fmul_rn(s.w[t], v));
+    }
+  }
+  w[idx] = __fadd_rn(round_tap(__fmul_rn(zc[0], tz.h[0]), vol_r),
+                     round_tap(__fmul_rn(zc[1], tz.h[1]), vol_r));
+}
+
+// Row 7 backward: dpts [n, 3] stored, dvol [G*G, B*G] accumulated; one
+// thread per sample over the volume in its [G*G, B*G] layout.
+template <typename VT>
+__global__ void __launch_bounds__(kBwdThreads)
+shared_weights_bwd_kernel(const float* __restrict__ pts,
+                          const VT* __restrict__ vol,
+                          const float* __restrict__ gw,
+                          float* __restrict__ dpts, float* __restrict__ dvol,
+                          int n, int B, int G) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n) return;
+  const float* p = pts + 3 * row;
+  const Taps tx = make_taps(p[0], G), ty = make_taps(p[1], G),
+             tz = make_taps(p[2], G);
+  const XYTaps s = make_xy(tx, ty, G, B * G, vol);
+  const float* g = gw + (size_t)row * B;
+  float df[3];
+  tap_grads(s, tx, ty, tz, vol, B, G, dvol, df, [&](int b) { return g[b]; });
+  dpts[3 * row] = df[0];
+  dpts[3 * row + 1] = df[1];
+  dpts[3 * row + 2] = df[2];
 }
 
 template <typename VT, int K>
@@ -221,47 +335,17 @@ shared_blend_bwd_kernel(const float* __restrict__ pts,
     }
 
     // sampling gradients with gw_b = bf16(dw_b)
-    float U[4] = {0.f, 0.f, 0.f, 0.f};
-    float dfz = 0.f;
-    const float dhz[2] = {-1.f, 1.f};
-    for (int b = 0; b < B; ++b) {
+    float df[3];
+    tap_grads(s, tx, ty, tz, vol, B, G, dvol, df, [&](int b) {
       const float* rb = s_rm + b * J;
       float dw = 0.f;
 #pragma unroll
       for (int j = 0; j < J; ++j) dw = __fadd_rn(dw, __fmul_rn(q[j], rb[j]));
-      const float gw = round_tap(__fadd_rn(dw, gws), vol);
-      float zc[2], v[4][2];
-      bone_zc(s, tz, vol, b * G, zc, v);
-      float* dvb = dvol + b * G;
-#pragma unroll
-      for (int dz = 0; dz < 2; ++dz) {
-        if (!tz.v[dz]) continue;
-        const float d = round_tap(__fmul_rn(gw, tz.h[dz]), vol);
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          if (!s.v[t]) continue;
-          const float dv = __fmul_rn(s.w[t], d);
-          if (dv != 0.f) atomicAdd(dvb + s.qoff[t] + tz.i[dz], dv);
-          U[t] = __fadd_rn(U[t], __fmul_rn(d, v[t][dz]));
-        }
-        dfz = __fadd_rn(dfz, __fmul_rn(gw, __fmul_rn(dhz[dz], zc[dz])));
-      }
-    }
-    float dfx = 0.f, dfy = 0.f;
-    const float dh[2] = {-1.f, 1.f};
-#pragma unroll
-    for (int dx = 0; dx < 2; ++dx) {
-#pragma unroll
-      for (int dy = 0; dy < 2; ++dy) {
-        const int t = 2 * dx + dy;
-        if (!s.v[t]) continue;
-        dfx = __fadd_rn(dfx, __fmul_rn(__fmul_rn(dh[dx], ty.h[dy]), U[t]));
-        dfy = __fadd_rn(dfy, __fmul_rn(__fmul_rn(tx.h[dx], dh[dy]), U[t]));
-      }
-    }
-    dpts[3 * row] = __fadd_rn(dfx, direct[0]);
-    dpts[3 * row + 1] = __fadd_rn(dfy, direct[1]);
-    dpts[3 * row + 2] = __fadd_rn(dfz, direct[2]);
+      return __fadd_rn(dw, gws);
+    });
+    dpts[3 * row] = __fadd_rn(df[0], direct[0]);
+    dpts[3 * row + 1] = __fadd_rn(df[1], direct[1]);
+    dpts[3 * row + 2] = __fadd_rn(df[2], direct[2]);
   }
   __syncthreads();
   // this block's drmat = w^T q, one atomic per entry
@@ -315,6 +399,34 @@ int dispatch(const float* pts, const void* vol, const float* rmat,
   }
 }
 
+int shared_weights(const float* pts, const void* vol, const float* gw,
+                   float* w, float* dpts, float* dvol, int n, int B, int G,
+                   int bf16, void* stream) {
+  if (n <= 0) return 0;
+  if (B < 1 || B > kMaxBones || (long long)n * B > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (gw == nullptr) {
+    const dim3 grid((n * B + kFwdThreads - 1) / kFwdThreads);
+    if (bf16)
+      shared_weights_fwd_kernel<__nv_bfloat16><<<grid, kFwdThreads, 0, st>>>(
+          pts, static_cast<const __nv_bfloat16*>(vol), w, n, B, G);
+    else
+      shared_weights_fwd_kernel<float><<<grid, kFwdThreads, 0, st>>>(
+          pts, static_cast<const float*>(vol), w, n, B, G);
+  } else {
+    const dim3 grid((n + kBwdThreads - 1) / kBwdThreads);
+    if (bf16)
+      shared_weights_bwd_kernel<__nv_bfloat16><<<grid, kBwdThreads, 0, st>>>(
+          pts, static_cast<const __nv_bfloat16*>(vol), gw, dpts, dvol, n, B,
+          G);
+    else
+      shared_weights_bwd_kernel<float><<<grid, kBwdThreads, 0, st>>>(
+          pts, static_cast<const float*>(vol), gw, dpts, dvol, n, B, G);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -344,6 +456,23 @@ int hosnerf_shared_blend_bwd(const float* pts, const void* vol,
                              int bf16, void* stream) {
   return dispatch(pts, vol, rmat, k0, gout, nullptr, dpts, dvol, drmat, n,
                   B, G, K, bf16, stream);
+}
+
+// Row 7: pts [n, 3] f32 grid coordinates; vol_r [G*G, G, B] (bf16 when
+// bf16, else f32); w [n, B] f32. Returns cudaGetLastError().
+int hosnerf_shared_weights_fwd(const float* pts, const void* vol_r, float* w,
+                               int n, int B, int G, int bf16, void* stream) {
+  return shared_weights(pts, vol_r, nullptr, w, nullptr, nullptr, n, B, G,
+                        bf16, stream);
+}
+
+// Row 7 backward: vol [G*G, B*G]; gw [n, B] f32 in; dpts [n, 3] out; dvol
+// [G*G, B*G] f32 accumulated, zeroed by the caller.
+int hosnerf_shared_weights_bwd(const float* pts, const void* vol,
+                               const float* gw, float* dpts, float* dvol,
+                               int n, int B, int G, int bf16, void* stream) {
+  return shared_weights(pts, vol, gw, nullptr, dpts, dvol, n, B, G, bf16,
+                        stream);
 }
 
 }  // extern "C"

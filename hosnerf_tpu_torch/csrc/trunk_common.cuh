@@ -1,7 +1,15 @@
-// Pieces shared by the fused embed + trunk kernels (embed_trunk.cu, the
-// forward; embed_trunk_bwd.cu, the backward): the layer metadata the host
-// packs (hosnerf_tpu_torch/ops/cuda/mlp.py::_pack), cp.async and mma.sync
-// helpers, the PE input builder, and the forward kernels themselves.
+// Pieces shared by the fused trunk kernels (embed_trunk.cu, the forward;
+// embed_trunk_bwd.cu, the backward): the layer metadata the host packs
+// (hosnerf_tpu_torch/ops/cuda/mlp.py::_pack_meta), cp.async and mma.sync
+// helpers, the input stage, and the forward kernels themselves.
+//
+// The input stage builds each row's first-layer input in shared memory (Xs)
+// in one of three kinds: the fourier PE with the input prepended (kind 0)
+// or the hann-windowed PE (kind 1) of x [n, 3], each followed by an aux row
+// (B2/B3, replacing mlp.py::fused_embed_trunk); or the raw rows of x
+// [n, ex_w] themselves (kind 2, the trunk-only MLP, replacing
+// mlp.py::fused_trunk), whose aux columns, if any, hold a copy of the skip
+// slice read from x at row stride ex_w.
 //
 // The forward kernels take STORE = true in the backward's recompute: they
 // then write the bf16/f32 input row (Xs) and every layer's output (Hs) to
@@ -33,10 +41,12 @@ struct Meta {
   int xw;         // Xs columns (multiple of 16): [ex (exp_w) | aux (rest)]
   int exp_w;      // padded PE width
   int ex_w;       // PE width
-  int kind;       // 0 fourier (input prepended), 1 hann-windowed
+  int kind;       // 0 fourier (input prepended), 1 hann-windowed, 2 raw
   int F;          // frequencies
   int A;          // aux width
   int aux_stride; // aux row stride in floats (0 broadcasts one row)
+  int skip_off;   // kind 2: first x column of the skip slice the aux copies
+  int x_stride;   // x row stride in floats: 3, or ex_w for kind 2
   Layer layer[kMaxLayers];
 };
 
@@ -64,6 +74,8 @@ inline bool parse_meta(const int* meta, Meta& m) {
     ly.K = meta[p++];
     ly.w_off = meta[p++];
   }
+  m.skip_off = meta[p++];
+  m.x_stride = m.kind == 2 ? m.ex_w : 3;
   return true;
 }
 
@@ -127,6 +139,7 @@ __device__ __forceinline__ float input_value(const Meta& m, const float* xr,
                                              const float* auxr, float alpha,
                                              int c) {
   if (c < m.ex_w) {
+    if (m.kind == 2) return xr[c];
     const PECol pc = pe_col(m, c);
     if (pc.j < 0) return xr[pc.coord];
     const float arg = __fmul_rn(xr[pc.coord], exp2f((float)pc.j));
@@ -205,8 +218,8 @@ embed_trunk_bf16(Meta m, const float* __restrict__ x,
     const int r = i / m.xw, c = i - r * m.xw, row = row0 + r;
     float v = 0.f;
     if (row < n)
-      v = input_value(m, x + 3 * row, aux + (size_t)row * m.aux_stride,
-                      alpha, c);
+      v = input_value(m, x + (size_t)row * m.x_stride,
+                      aux + (size_t)row * m.aux_stride, alpha, c);
     const __nv_bfloat16 vb = __float2bfloat16_rn(v);
     Xs[r * xstr + c] = vb;
     if (STORE && row < n) act_x[(size_t)row * m.xw + c] = vb;
@@ -342,8 +355,8 @@ embed_trunk_f32(Meta m, const float* __restrict__ x,
     const int r = i / m.xw, c = i - r * m.xw, row = row0 + r;
     float v = 0.f;
     if (row < n)
-      v = input_value(m, x + 3 * row, aux + (size_t)row * m.aux_stride,
-                      alpha, c);
+      v = input_value(m, x + (size_t)row * m.x_stride,
+                      aux + (size_t)row * m.aux_stride, alpha, c);
     Xs[r * xstr + c] = v;
     if (STORE && row < n) act_x[(size_t)row * m.xw + c] = v;
   }

@@ -4,25 +4,31 @@
 cycle and previous-frame flow branches through the forward LBS).
 
 Two per-sample pipelines with one selection rule, as in the JAX package:
-* dense (`_samples_dense`): gather-form inverse LBS and the nn.Module MLPs
-  on every sample; the default on the CPU;
+* dense (`_samples_dense`): every sample through every stage: the inverse
+  LBS of `ops/lbs.py::inverse_warp` (gather form, or the inverse-LBS
+  kernel in the row order of `pg_impl`, or its dense core), the MLPs as
+  fused kernels or as nn.Modules (over `mlp_chunk` slices, recomputed in
+  the backward as `remat` says), the forward LBS of `forward_warp_multi`;
 * sorted (`_samples_sorted`): the liveness sort of `ops/cuda/lbs.py`
   puts zero-support samples in a contiguous prefix, the inverse-LBS
   kernel writes them as exact zeros, and every fused embed+trunk and
   forward-LBS kernel call skips whole blocks of that prefix; the default
-  for points on a CUDA device.
-`lbs_impl` ('auto' | 'gather' | 'pallas') and `mlp_impl` ('auto' | 'flax'
-| 'fused') keep the JAX package's names: 'pallas' / 'fused' force the
-hand-written kernels (or their plain versions for CPU tensors), 'gather' /
-'flax' the plain module path.
+  for points on a CUDA device, unless `sparse` is False.
+`lbs_impl` ('auto' | 'gather' | 'pallas' | 'pallas_dense') and `mlp_impl`
+('auto' | 'flax' | 'fused') keep the JAX package's names: 'pallas' /
+'pallas_dense' / 'fused' force the hand-written kernels (or their plain
+versions for CPU tensors), 'gather' / 'flax' the plain module path.
+`sparse` and `pg_impl` stand for the JAX package's environment variables
+HOSNERF_SPARSE and HOSNERF_PG_IMPL; the port reads no environment.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from hosnerf_tpu_torch.core import body as body_math
 from hosnerf_tpu_torch.core import render
@@ -30,7 +36,7 @@ from hosnerf_tpu_torch.models import embedders
 from hosnerf_tpu_torch.models.human_components import (
     BodyPoseRefiner, CanonicalMLP, MotionWeightVolumeDecoder, NonRigidMLP)
 from hosnerf_tpu_torch.models.layers import (normal_, resolve_compute_dtype,
-                                             resolve_device)
+                                             resolve_device, resolve_remat)
 from hosnerf_tpu_torch.ops import lbs as lbs_ops
 from hosnerf_tpu_torch.ops.cuda import lbs as cuda_lbs
 from hosnerf_tpu_torch.ops.cuda import mlp as cuda_mlp
@@ -53,9 +59,14 @@ class HumanObjectField(nn.Module):
                  mweight_volume_size: int = 32,
                  ignore_non_rigid_motions: bool = False,
                  lbs_impl: str = "auto", mlp_impl: str = "auto",
-                 compute_dtype=None, *, seed: int = 0, device=None):
+                 compute_dtype=None, sparse: bool = True,
+                 pg_impl: str = "quad", remat: Union[bool, str] = "all",
+                 mlp_chunk: Optional[int] = None, *, seed: int = 0,
+                 device=None):
         super().__init__()
         device = resolve_device(device)
+        if pg_impl not in cuda_lbs.PG_CORES:
+            raise ValueError(f"unknown pg_impl {pg_impl!r}")
         self.total_bones = total_bones
         self.n_samples = n_samples
         self.cnl_multires = cnl_multires
@@ -72,6 +83,10 @@ class HumanObjectField(nn.Module):
         self.ignore_non_rigid_motions = ignore_non_rigid_motions
         self.lbs_impl = lbs_impl
         self.mlp_impl = mlp_impl
+        self.sparse = sparse
+        self.pg_impl = pg_impl
+        self.remat = resolve_remat(remat)
+        self.mlp_chunk = mlp_chunk
         self.compute_dtype = resolve_compute_dtype(compute_dtype)
         cdt = self.compute_dtype
         gen = torch.Generator().manual_seed(seed)
@@ -124,12 +139,41 @@ class HumanObjectField(nn.Module):
         return "bf16" if self.compute_dtype == torch.bfloat16 else "highest"
 
     def _sparse_ok(self, pts, motion_weights_vol, embed) -> bool:
-        """Sorted path: the fused MLP kernels AND the sorted inverse-LBS
-        kernel, with one state row for every sample (a per-sample state
-        embedding takes the dense path)."""
-        return (self._use_fused_mlp(pts) and embed.ndim == 1
+        """Sorted path: `sparse`, the fused MLP kernels AND the pair-grid
+        inverse-LBS kernel, with one state row for every sample (a
+        per-sample state embedding takes the dense path)."""
+        return (self.sparse and self._use_fused_mlp(pts) and embed.ndim == 1
                 and lbs_ops.resolve_impl(self.lbs_impl, motion_weights_vol,
                                          pts) == "pallas")
+
+    def _chunked(self, fn, *args):
+        """fn over `mlp_chunk`-row slices of the sample axis (all of it at
+        once when unset): the rows padded with zeros to a chunk multiple,
+        the outputs (tensors or dicts of them) joined and stripped."""
+        if not self.mlp_chunk:
+            return fn(*args)
+        n, c = args[0].shape[0], self.mlp_chunk
+        pad = (-n) % c
+        if pad:
+            args = [torch.cat([a, a.new_zeros((pad,) + a.shape[1:])])
+                    for a in args]
+        outs = [fn(*(a[s:s + c] for a in args)) for s in range(0, n + pad, c)]
+        if isinstance(outs[0], dict):
+            return {k: torch.cat([o[k] for o in outs])[:n] for k in outs[0]}
+        return torch.cat(outs)[:n]
+
+    def _module_mlp(self, module, *args):
+        """A per-sample nn.Module MLP through `_chunked`, each chunk's
+        activations recomputed in the backward where `remat` covers the
+        module ('all': every MLP; 'heavy': the canonical MLP only), as the
+        JAX package's nn.remat does. Values, gradients and parameter names
+        do not change."""
+        remat = self.remat == "all" or (self.remat == "heavy"
+                                        and module is self.cnl_mlp)
+        if not remat:
+            return self._chunked(module, *args)
+        return self._chunked(
+            lambda *a: checkpoint(module, *a, use_reentrant=False), *args)
 
     def _fused_params(self, module, depth: int):
         layers = [(module.layer(i).weight, module.layer(i).bias)
@@ -149,7 +193,7 @@ class HumanObjectField(nn.Module):
                 skip_source="embed", precision=self._mlp_prec(),
                 k0_blocks=k0)
         embed = embedders.hannw_fourier_embed(pts, self.nr_multires, alpha)
-        return module(embed, pts, cond)["xyz"]
+        return self._module_mlp(module, embed, pts, cond)["xyz"]
 
     def _canonical_raw(self, cnl_pts, embed, k0=None):
         """PE + state embedding -> canonical MLP raw rgb + sigma."""
@@ -163,7 +207,7 @@ class HumanObjectField(nn.Module):
                 precision=self._mlp_prec(), k0_blocks=k0)
         xyz = embedders.fourier_embed(cnl_pts, self.cnl_multires)
         embed = embed.expand(xyz.shape[0], embed.shape[-1])
-        return self.cnl_mlp(torch.cat([xyz, embed], dim=-1))
+        return self._module_mlp(self.cnl_mlp, torch.cat([xyz, embed], dim=-1))
 
     def _nr_condition(self, posevec, iter_val):
         """The non-rigid condition row [1, C], zero before its kick-in
@@ -190,7 +234,7 @@ class HumanObjectField(nn.Module):
         x_skel, fg_mask = lbs_ops.inverse_warp(
             pts_flat, si["m_sR"], si["m_T"], si["vol"],
             batch["cnl_bbox_min_xyz"], batch["cnl_bbox_scale_xyz"],
-            impl=self.lbs_impl)
+            impl=self.lbs_impl, pg_impl=self.pg_impl)
         if not self.ignore_non_rigid_motions:
             cnl_pts = self._nr_apply(
                 self.non_rigid_mlp, x_skel,

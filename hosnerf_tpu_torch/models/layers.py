@@ -1,5 +1,6 @@
 """Initialization helpers with the reference's (torch) semantics and the
-compute-dtype resolver (counterpart of `hosnerf_tpu/models/layers.py`).
+compute-dtype and remat resolvers (counterpart of
+`hosnerf_tpu/models/layers.py`).
 
 Every initializer takes an explicit `torch.Generator`, so a model built
 from a seed is the same on every run and device.
@@ -11,6 +12,19 @@ import math
 from typing import Optional
 
 import torch
+
+
+def resolve_remat(spec) -> str:
+    """Remat config spec -> 'none' | 'heavy' | 'all'. Accepts bools
+    (False -> 'none', True -> 'all') or the strings. 'heavy' recomputes
+    only a model's memory-dominant trunk in the backward (the human
+    field's 8x256 canonical MLP); 'all' every per-sample MLP."""
+    if isinstance(spec, str):
+        key = spec.lower()
+        if key in ("none", "heavy", "all"):
+            return key
+        raise ValueError(f"unknown remat mode {spec!r}")
+    return "all" if spec else "none"
 
 
 def resolve_compute_dtype(spec) -> Optional[torch.dtype]:

@@ -21,7 +21,8 @@ from typing import Dict, Iterable, List
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("lbs_inverse", "lbs_forward", "embed_trunk", "embed_trunk_bwd")
+SOURCES = ("lbs_inverse", "lbs_forward", "embed_trunk", "embed_trunk_bwd",
+           "proto_pairgrid")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 

@@ -1,16 +1,29 @@
-"""Sorted-domain inverse LBS and fused forward LBS: the liveness sort
-shared by every per-sample stage, and the LBS kernels with their plain
-versions and gradients.
+"""Inverse LBS in every row order of the JAX package, the all-bone weight
+sampling, and fused forward LBS: the liveness sort shared by every
+per-sample stage, and the LBS kernels with their plain versions and
+gradients.
 
-Counterpart of the sorted-domain pieces of `hosnerf_tpu/ops/pallas/lbs.py`
-(`_grid_affine`, `_sample_support`, `bp_prepare`/`BPDomain`,
-`inverse_core_pg_s` with its VJP, `shared_blend_core` with its VJP,
-`forward_lbs_multi`). The TPU version compacts (tile, bone-quad) pairs into
-scalar-prefetch tables so the grid visits only live pairs; the Hopper
-kernels (`csrc/lbs_inverse.cu`, `csrc/lbs_forward.cu`) need no tables:
-each thread early-outs per (sample, bone) on the same support test. So
-`bp_prepare` here builds only the signature sort, the dead-prefix count
-and the permutations.
+Counterpart of `hosnerf_tpu/ops/pallas/lbs.py` (`_grid_affine`,
+`_sample_support`, `bp_prepare`/`BPDomain`, the inverse cores
+`inverse_core`, `inverse_core_pg`, `inverse_core_pgw`, `inverse_core_bp`
+and `inverse_core_pg_s` with their VJPs, `shared_core` with its VJP,
+`shared_blend_core` with its VJP, `inverse_lbs`, `bone_weights`,
+`forward_lbs_multi`).
+
+The TPU's five inverse cores compute one function, acc[n] = (sum_b w_b f_b,
+sum_b w_b), with the same bf16 rounding; they differ in how they order the
+samples and schedule (tile, bone) pairs for the MXU and scalar prefetch.
+The Hopper kernel (`csrc/lbs_inverse.cu`) computes that function per
+sample in bone order with a per-(sample, bone) support early-out, takes no
+tables and is right for any row order. So the cores are entries that put
+the rows in their own order around the one kernel pair (forward B1,
+backward B4): `inverse_core` the rows as given, `inverse_core_pg` the
+Morton group sort, `inverse_core_pgw` the signature + Morton sort,
+`inverse_core_bp` and `bp_prepare` the signature sort. The TPU pair
+tables (`_build_pairs`, `_build_window_pairs`, `_slot_pairs`,
+`_bp_combine`) have no counterpart here, and neither has the windowed
+core's NaN on table overflow (`PGW_CAP_QUADS`): it signals a full TPU
+table, and there is no table to fill.
 
 Every kernel entry takes a CPU tensor to its plain version and a CUDA
 tensor to the kernel; it never falls back from one to the other. The
@@ -34,6 +47,8 @@ ROW_PAD = 128      # sorted-domain rows padded to a multiple of this (the
 MAX_SIG_BONES = 31  # the int32 signature holds one bit per bone
 TILE_SH = 512      # forward-LBS k0 counts blocks of this many rows
 MAX_BONES = 32     # csrc kMaxBones
+SORT_CELLS = 16    # Morton cells per axis, as the JAX package's SORT_CELLS
+MORTON_BITS = (SORT_CELLS - 1).bit_length()
 
 
 def _grid_affine(bbox_min, bbox_scale, G: int):
@@ -106,33 +121,73 @@ class BPDomain:
         return x[self.perm]
 
 
+def _pad_points(pts) -> torch.Tensor:
+    """pts [n, 3] as f32, zero rows appended to a multiple of ROW_PAD."""
+    n = pts.shape[0]
+    pts_p = pts.float()
+    pad = -(-n // ROW_PAD) * ROW_PAD - n
+    if pad:
+        pts_p = torch.cat([pts_p, pts_p.new_zeros((pad, 3))], 0)
+    return pts_p
+
+
+def _group_support(pts_p, rg, tg, G: int, n: int) -> torch.Tensor:
+    """[n_pad / SORT_GROUP, B] bool: whether any real sample of a group lies
+    in a bone's support (padding rows support nothing)."""
+    B = rg.shape[0]
+    if B > MAX_SIG_BONES:
+        raise ValueError(f"signature sort needs B <= {MAX_SIG_BONES}, "
+                         f"got {B}")
+    sup = _sample_support(pts_p, rg.float(), tg.float(), G)
+    sup[n:] = False
+    return torch.any(sup.reshape(-1, SORT_GROUP, B), dim=1)
+
+
+def _signature(g) -> torch.Tensor:
+    """Group support bits [n_groups, B] -> int64 signature (bit b = bone b)."""
+    bits = torch.arange(g.shape[1], device=g.device, dtype=torch.int64)
+    return torch.sum(g.to(torch.int64) << bits[None], dim=1)
+
+
+def _morton_cells(pts_p) -> torch.Tensor:
+    """Morton key of each group's centroid cell (`_group_sort_perm` and
+    `_sig_morton_perm` of the JAX package): centroids scaled to
+    SORT_CELLS cells per axis over their bounding box; bit i of the x, y
+    and z cells goes to key bit 3i + 2, 3i + 1 and 3i."""
+    ctr = pts_p.reshape(-1, SORT_GROUP, 3).mean(1)
+    lo, hi = ctr.min(0).values, ctr.max(0).values
+    qf = (ctr - lo) / torch.clamp(hi - lo, min=1e-9) * SORT_CELLS
+    q = torch.clamp(qf.to(torch.int64), 0, SORT_CELLS - 1)
+    key = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
+    for i in range(MORTON_BITS):
+        key = (key | (((q[:, 0] >> i) & 1) << (3 * i + 2))
+               | (((q[:, 1] >> i) & 1) << (3 * i + 1))
+               | (((q[:, 2] >> i) & 1) << (3 * i)))
+    return key
+
+
+def _row_perms(gperm):
+    """Group permutation -> (perm, inv_perm) over rows, built at group
+    level so that unsorting is a gather."""
+    inv_gperm = torch.empty_like(gperm)
+    inv_gperm[gperm] = torch.arange(gperm.shape[0], device=gperm.device)
+    lane = torch.arange(SORT_GROUP, device=gperm.device)[None, :]
+    return ((gperm[:, None] * SORT_GROUP + lane).reshape(-1),
+            (inv_gperm[:, None] * SORT_GROUP + lane).reshape(-1))
+
+
 def bp_prepare(pts, rg, tg, G: int, B: int) -> BPDomain:
     """Support test, group signature, stable signature sort and dead-prefix
     count for the sorted domain (counterpart of the JAX `bp_prepare`, which
     additionally builds the TPU pair tables)."""
-    if B > MAX_SIG_BONES:
-        raise ValueError(f"signature sort needs B <= {MAX_SIG_BONES}, "
-                         f"got {B}")
     n = pts.shape[0]
-    n_pad = -(-n // ROW_PAD) * ROW_PAD
     with torch.no_grad():
-        pts_p = pts.float()
-        if n_pad != n:
-            pts_p = torch.cat([pts_p, pts_p.new_zeros((n_pad - n, 3))], 0)
-        sup = _sample_support(pts_p, rg.float(), tg.float(), G)
-        sup[n:] = False
-        n_groups = n_pad // SORT_GROUP
-        g = torch.any(sup.reshape(n_groups, SORT_GROUP, B), dim=1)
-        bits = torch.arange(B, device=pts.device, dtype=torch.int64)
-        sig = torch.sum(g.to(torch.int64) << bits[None], dim=1)
-        gperm = torch.argsort(sig, stable=True)
-        inv_gperm = torch.empty_like(gperm)
-        inv_gperm[gperm] = torch.arange(n_groups, device=pts.device)
-        lane = torch.arange(SORT_GROUP, device=pts.device)[None, :]
-        perm = (gperm[:, None] * SORT_GROUP + lane).reshape(-1)
-        inv_perm = (inv_gperm[:, None] * SORT_GROUP + lane).reshape(-1)
-        n_dead_groups = n_groups - torch.sum(torch.any(g, dim=1))
-    return BPDomain(n_pad, perm, inv_perm, n, n_dead_groups)
+        pts_p = _pad_points(pts)
+        g = _group_support(pts_p, rg[:B], tg[:B], G, n)
+        perm, inv_perm = _row_perms(torch.argsort(_signature(g),
+                                                  stable=True))
+        n_dead_groups = g.shape[0] - torch.sum(torch.any(g, dim=1))
+    return BPDomain(pts_p.shape[0], perm, inv_perm, n, n_dead_groups)
 
 
 # ---------------------------------------------------------------------------
@@ -320,10 +375,13 @@ def _check_inverse(pts_s, rg, tg, vol_qz):
     return B, G, n
 
 
-def inverse_core_fwd(pts_s, rg, tg, vol_qz, precision: str = "bf16"):
+def inverse_core_fwd(pts_s, rg, tg, vol_qz, precision: str = "bf16",
+                     entry=None):
     """B1: inverse-LBS accumulation acc [n, 4]. A CPU tensor runs
     `inverse_core_plain`; a CUDA tensor runs the kernel of
-    csrc/lbs_inverse.cu (or raises)."""
+    csrc/lbs_inverse.cu (or raises) and adds one to the launch count of
+    `entry`, the inverse core that asked (`inverse_core_pg_s` unless
+    named)."""
     if pts_s.device.type == "cpu":
         return inverse_core_plain(pts_s, rg, tg, vol_qz, precision)
     if not pts_s.is_cuda:
@@ -336,8 +394,9 @@ def inverse_core_fwd(pts_s, rg, tg, vol_qz, precision: str = "bf16"):
     rc = lib.hosnerf_inverse_lbs(
         pts_s.data_ptr(), rg.data_ptr(), tg.data_ptr(), vol.data_ptr(),
         out.data_ptr(), n, B, G, int(precision == "bf16"), PG_EPS, stream)
-    inverse_core_pg_s.launches += 1
-    _build.check(rc, lib, "inverse_core_pg_s")
+    entry = entry or inverse_core_pg_s
+    entry.launches += 1
+    _build.check(rc, lib, entry.__name__)
     return out
 
 
@@ -376,10 +435,10 @@ inverse_core_bwd.launches = 0
 class _InverseCore(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, pts_s, rg, tg, vol_qz, precision):
+    def forward(ctx, pts_s, rg, tg, vol_qz, precision, entry):
         ctx.precision = precision
         ctx.save_for_backward(pts_s, rg, tg, vol_qz)
-        return inverse_core_fwd(pts_s, rg, tg, vol_qz, precision)
+        return inverse_core_fwd(pts_s, rg, tg, vol_qz, precision, entry)
 
     @staticmethod
     def backward(ctx, gacc):
@@ -387,7 +446,7 @@ class _InverseCore(torch.autograd.Function):
         dpts, drg, dtg, dvol = inverse_core_bwd(pts_s, rg, tg, vol_qz,
                                                 gacc, ctx.precision)
         return (dpts, drg.to(rg.dtype), dtg.to(tg.dtype),
-                dvol.to(vol_qz.dtype), None)
+                dvol.to(vol_qz.dtype), None, None)
 
 
 def inverse_core_pg_s(pts_s, rg, tg, vol_qz, precision: str = "bf16"):
@@ -396,10 +455,77 @@ def inverse_core_pg_s(pts_s, rg, tg, vol_qz, precision: str = "bf16"):
     pts_s [n, 3] f32; rg [B, 9]; tg [B, 3]; vol_qz [B, G*G, G].
     Differentiable in all four: forward B1, backward B4 (each the plain
     version for CPU tensors, the kernel for CUDA tensors)."""
-    return _InverseCore.apply(pts_s, rg, tg, vol_qz, precision)
+    return _InverseCore.apply(pts_s, rg, tg, vol_qz, precision,
+                              inverse_core_pg_s)
 
 
 inverse_core_pg_s.launches = 0
+
+
+def _in_row_order(order, pts, rg, tg, vol_qz, precision, entry):
+    """acc [n, 4] of the rows of pts through B1/B4 in the row order that
+    `order(pts_p, rg, tg, G, n)` gives the zero-padded points (a group
+    permutation); the result is unsorted back and unpadded."""
+    n = pts.shape[0]
+    G = vol_qz.shape[-1]
+    pts_p = _pad_points(pts)
+    with torch.no_grad():
+        perm, inv_perm = _row_perms(order(pts_p, rg, tg, G, n))
+    acc_s = _InverseCore.apply(pts_p[perm], rg, tg, vol_qz, precision,
+                               entry)
+    return acc_s[inv_perm][:n]
+
+
+def _morton_order(pts_p, rg, tg, G, n):
+    return torch.argsort(_morton_cells(pts_p), stable=True)
+
+
+def _sig_morton_order(pts_p, rg, tg, G, n):
+    key = (_signature(_group_support(pts_p, rg, tg, G, n))
+           << (3 * MORTON_BITS)) | _morton_cells(pts_p)
+    return torch.argsort(key, stable=True)
+
+
+def _support_order(pts_p, rg, tg, G, n):
+    return torch.argsort(_signature(_group_support(pts_p, rg, tg, G, n)),
+                         stable=True)
+
+
+def inverse_core(pts_g, rg, tg, vol_qz, precision: str = "bf16"):
+    """Row 6 (`inverse_core`, the TPU's dense tile schedule): the rows in
+    the order given, unpadded. Same contract as `inverse_core_pg_s`."""
+    return _InverseCore.apply(pts_g.float().contiguous(), rg, tg, vol_qz,
+                              precision, inverse_core)
+
+
+def inverse_core_pg(pts_g, rg, tg, vol_qz, precision: str = "bf16"):
+    """Row 9 (`inverse_core_pg`, the TPU's quad pair grid over
+    `_group_sort_perm`'s Morton order): groups of SORT_GROUP samples
+    sorted by the Morton cell of their centroid."""
+    return _in_row_order(_morton_order, pts_g, rg, tg, vol_qz, precision,
+                         inverse_core_pg)
+
+
+def inverse_core_pgw(pts_g, rg, tg, vol_qz, precision: str = "bf16"):
+    """Row 10 (`inverse_core_pgw`, the TPU's windowed pair grid): groups
+    sorted by support signature, then Morton cell (`_sig_morton_perm`)."""
+    return _in_row_order(_sig_morton_order, pts_g, rg, tg, vol_qz,
+                         precision, inverse_core_pgw)
+
+
+def inverse_core_bp(pts_g, rg, tg, vol_qz, precision: str = "bf16"):
+    """Row 11 (`inverse_core_bp`, the TPU's bone-packed slots): groups
+    sorted by support signature (`_support_sort_perm`), dead groups
+    first."""
+    return _in_row_order(_support_order, pts_g, rg, tg, vol_qz, precision,
+                         inverse_core_bp)
+
+
+for _entry in (inverse_core, inverse_core_pg, inverse_core_pgw,
+               inverse_core_bp):
+    _entry.launches = 0
+PG_CORES = {"quad": inverse_core_pg, "win": inverse_core_pgw,
+            "bp": inverse_core_bp}
 
 
 def _lib() -> ctypes.CDLL:
@@ -414,24 +540,25 @@ def _lib() -> ctypes.CDLL:
 
 
 def inverse_lbs(pts, motion_scale_Rs, motion_Ts, motion_weights_vol,
-                cnl_bbox_min_xyz, cnl_bbox_scale_xyz,
-                precision: str = "bf16"):
-    """Unsorted-input inverse LBS through the sorted domain: returns
-    (x_skel [N, 3], fg_likelihood_mask [N, 1]) in world coordinates."""
-    B = motion_weights_vol.shape[0] - 1
-    G = motion_weights_vol.shape[1]
+                cnl_bbox_min_xyz, cnl_bbox_scale_xyz, *,
+                precision: str = "bf16", pair_grid: bool = True,
+                pg_impl: str = "quad"):
+    """Inverse LBS of unsorted points (the JAX `inverse_lbs`): returns
+    (x_skel [N, 3], fg_likelihood_mask [N, 1]) in world coordinates.
+    pair_grid=False takes `inverse_core`; True the pair-grid core named by
+    pg_impl ('quad' `inverse_core_pg`, 'win' `inverse_core_pgw`, 'bp'
+    `inverse_core_bp`; the JAX package reads it from HOSNERF_PG_IMPL)."""
+    if pair_grid and pg_impl not in PG_CORES:
+        raise ValueError(f"unknown pg_impl {pg_impl!r}")
     s, o, rg, tg, vol_qz = grid_tables(
         motion_scale_Rs, motion_Ts, motion_weights_vol, cnl_bbox_min_xyz,
         cnl_bbox_scale_xyz)
-    dom = bp_prepare(pts, rg, tg, G, B)
-    acc_s = inverse_core_pg_s(dom.sort_rows(pts.float()), rg, tg, vol_qz,
-                              precision)
-    x_skel_s, wsum_s = world_from_grid(acc_s, s, o)
-    return dom.unsort(x_skel_s), dom.unsort(wsum_s)
+    core = PG_CORES[pg_impl] if pair_grid else inverse_core
+    return world_from_grid(core(pts, rg, tg, vol_qz, precision), s, o)
 
 
 # ---------------------------------------------------------------------------
-# fused forward LBS: forward kernel (B5 fwd), backward kernel (B5 bwd)
+# shared-tap sampling: every bone's weight at one point (row 7 and B5)
 # ---------------------------------------------------------------------------
 
 def _blend_dims(vol_all, rmat):
@@ -478,6 +605,187 @@ def _blend_weights(zc, tz, rnd):
     (hz0, _, _, _), (hz1, _, _, _) = tz
     return torch.stack([rnd(r[0] * hz0) + rnd(r[1] * hz1) for r in zc], 1)
 
+
+def _tap_grads(xy, tz, zc, gw, vol, G: int, B: int, rnd):
+    """Gradients of the shared-tap weights w_b through their taps, given
+    gw [n, B] = dL/dw already rounded as the TPU kernels' `expand` matmul
+    rounds it: ((dfx, dfy, dfz), dvol [G*G, B*G]) with
+      dvol[q_xy, b*G+z] += bf16(hx hy) bf16(gw_b hz);
+      U_xy = sum_{b,z} bf16(gw_b hz) bf16(vol); dfx = sum_xy dhat(fx) hy U,
+      dfy = sum_xy hx dhat(fy) U, dfz = sum_b gw_b sum_z dhat(fz) zc."""
+    dvol = torch.zeros(G * G * B * G, device=gw.device)
+    flat = vol.reshape(-1)
+    U = [torch.zeros_like(gw[:, 0]) for _ in xy]
+    dfz = torch.zeros_like(gw[:, 0])
+    for b in range(B):
+        for dz, (hz, vz, iz, dhz) in enumerate(tz):
+            d = rnd(gw[:, b] * hz) * vz
+            col = b * G + iz
+            for i, t in enumerate(xy):
+                dvol.index_add_(0, t["q"] + col, t["w"] * d)
+                U[i] = U[i] + d * flat[t["q"] + col]
+            dfz = dfz + gw[:, b] * (dhz * zc[b][dz])
+    dfx = sum(t["dhx"] * t["hy"] * t["m"] * u for t, u in zip(xy, U))
+    dfy = sum(t["hx"] * t["dhy"] * t["m"] * u for t, u in zip(xy, U))
+    return (dfx, dfy, dfz), dvol.reshape(G * G, B * G)
+
+
+# ---------------------------------------------------------------------------
+# all-bone weights at shared points: forward and backward kernels (row 7)
+# ---------------------------------------------------------------------------
+
+def _shared_dims(vol_all):
+    QQ, BG = vol_all.shape
+    G = int(round(QQ ** 0.5))
+    B = BG // G
+    if G * G != QQ or B * G != BG:
+        raise ValueError(f"vol_all must be [G*G, B*G], got "
+                         f"{tuple(vol_all.shape)}")
+    return G, B
+
+
+def shared_core_plain(pts_g, vol_all, precision: str = "bf16"):
+    """Plain version of the all-bone weights (`_shared_fwd_kernel`,
+    lbs.py:1608-1626): the 4 xy taps of a point are shared by every bone;
+    zc[b, z] = sum_xy bf16(hx hy) bf16(vol[q, b*G+z]) in f32; w_b =
+    sum_z bf16(zc hz) in f32 (the second `_mm` rounds its operand).
+    pts_g [N, 3] grid coordinates; vol_all [G*G, B*G] with
+    vol_all[y*G + x, b*G + z]. Returns w [N, B] f32."""
+    G, B = _shared_dims(vol_all)
+    rnd = _rounder(precision)
+    vol = _vol_for(vol_all, precision).float()
+    _, _, tz, zc = _shared_taps(pts_g, G, B, rnd, vol)
+    return _blend_weights(zc, tz, rnd)
+
+
+def shared_core_bwd_plain(pts_g, vol_all, gw, precision: str = "bf16"):
+    """Plain version of the all-bone weights' backward
+    (`_shared_bwd_kernel`, lbs.py:1629-1671): gw_exp = bf16(gw) (:1656);
+    dvol += bf16(onehot)^T bf16(gw_exp hz) (:1660); U = bf16(gw_exp hz)
+    bf16(vol)^T (:1664); dfx, dfy, dfz in f32 from the floor-based tap
+    derivatives (:1665-1671). Returns (dpts [N, 3], dvol [G*G, B*G])."""
+    G, B = _shared_dims(vol_all)
+    rnd = _rounder(precision)
+    vol = _vol_for(vol_all, precision).float()
+    _, xy, tz, zc = _shared_taps(pts_g, G, B, rnd, vol)
+    df, dvol = _tap_grads(xy, tz, zc, rnd(gw.float()), vol, G, B, rnd)
+    return torch.stack(df, 1), dvol
+
+
+def _check_shared(pts_g, vol_all):
+    G, B = _shared_dims(vol_all)
+    n = pts_g.shape[0]
+    if pts_g.shape != (n, 3) or B > MAX_BONES:
+        raise ValueError(f"kernel takes pts_g [n, 3] and B <= {MAX_BONES}; "
+                         f"got {tuple(pts_g.shape)}, B={B}")
+    _check_cuda("all-bone weights", pts_g.device, ("pts_g", pts_g))
+    if vol_all.device != pts_g.device:
+        raise ValueError(f"vol_all is on {vol_all.device}, not "
+                         f"{pts_g.device}")
+    return G, B, n
+
+
+def shared_core_fwd(pts_g, vol_all, precision: str = "bf16"):
+    """Row 7 forward: w [N, B]. A CPU tensor runs `shared_core_plain`; a
+    CUDA tensor the kernel of csrc/lbs_forward.cu (or raises): one thread
+    per (sample, bone), over the volume relaid with the bones innermost."""
+    if pts_g.device.type == "cpu":
+        return shared_core_plain(pts_g, vol_all, precision)
+    if not pts_g.is_cuda:
+        raise ValueError(f"unsupported device {pts_g.device}")
+    G, B, n = _check_shared(pts_g, vol_all)
+    dev = pts_g.device
+    # [G*G, B*G] -> [G*G, G, B]: the bones of one tap are adjacent
+    vol_r = _vol_for(vol_all, precision).reshape(G * G, B, G).transpose(
+        1, 2).contiguous()
+    w = torch.empty(n, B, device=dev, dtype=torch.float32)
+    lib = _blend_lib()
+    rc = lib.hosnerf_shared_weights_fwd(
+        pts_g.data_ptr(), vol_r.data_ptr(), w.data_ptr(), n, B, G,
+        int(precision == "bf16"), torch.cuda.current_stream(dev).cuda_stream)
+    shared_core_fwd.launches += 1
+    _build.check(rc, lib, "shared_core_fwd")
+    return w
+
+
+shared_core_fwd.launches = 0
+
+
+def shared_core_bwd(pts_g, vol_all, gw, precision: str = "bf16"):
+    """Row 7 backward: (dpts [N, 3], dvol [G*G, B*G]). A CPU tensor runs
+    `shared_core_bwd_plain`; a CUDA tensor the kernel of
+    csrc/lbs_forward.cu (or raises). dvol sums over all samples with
+    atomics, so its summation order varies from run to run."""
+    if pts_g.device.type == "cpu":
+        return shared_core_bwd_plain(pts_g, vol_all, gw, precision)
+    if not pts_g.is_cuda:
+        raise ValueError(f"unsupported device {pts_g.device}")
+    G, B, n = _check_shared(pts_g, vol_all)
+    dev = pts_g.device
+    gw = gw.float().contiguous()
+    if gw.shape != (n, B) or gw.device != dev:
+        raise ValueError(f"gw must be [n, {B}] on the device of pts_g")
+    vol = _vol_for(vol_all, precision).contiguous()
+    dpts = torch.empty(n, 3, device=dev, dtype=torch.float32)
+    dvol = torch.zeros(G * G, B * G, device=dev, dtype=torch.float32)
+    lib = _blend_lib()
+    rc = lib.hosnerf_shared_weights_bwd(
+        pts_g.data_ptr(), vol.data_ptr(), gw.data_ptr(), dpts.data_ptr(),
+        dvol.data_ptr(), n, B, G, int(precision == "bf16"),
+        torch.cuda.current_stream(dev).cuda_stream)
+    shared_core_bwd.launches += 1
+    _build.check(rc, lib, "shared_core_bwd")
+    return dpts, dvol
+
+
+shared_core_bwd.launches = 0
+
+
+class _SharedCore(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, pts_g, vol_all, precision):
+        ctx.precision = precision
+        ctx.save_for_backward(pts_g, vol_all)
+        return shared_core_fwd(pts_g, vol_all, precision)
+
+    @staticmethod
+    def backward(ctx, gw):
+        pts_g, vol_all = ctx.saved_tensors
+        dpts, dvol = shared_core_bwd(pts_g, vol_all, gw, ctx.precision)
+        return dpts.to(pts_g.dtype), dvol.to(vol_all.dtype), None
+
+
+def shared_core(pts_g, vol_all, precision: str = "bf16"):
+    """All-bone trilinear weights at shared grid points: w [N, B], with
+    its gradient in pts_g and vol_all (row 7: forward and backward
+    kernels, plain versions for CPU tensors)."""
+    return _SharedCore.apply(pts_g.float().contiguous(), vol_all, precision)
+
+
+def shared_layout(motion_weights_vol) -> torch.Tensor:
+    """vol [B+1, G, G, G] -> vol_all [G*G, B*G], vol_all[y*G + x, b*G + z]
+    = vol[b, z, y, x] (the shared-tap kernels' layout)."""
+    B = motion_weights_vol.shape[0] - 1
+    G = motion_weights_vol.shape[1]
+    return motion_weights_vol[:B].permute(2, 3, 0, 1).reshape(
+        G * G, B * G).contiguous()
+
+
+def bone_weights(pts, motion_weights_vol, cnl_bbox_min_xyz,
+                 cnl_bbox_scale_xyz, *, precision: str = "bf16"):
+    """All-bone weights [N, B] at world points (the JAX `bone_weights`,
+    lbs.py:2671-2686): the points move to grid coordinates, then
+    `shared_core`."""
+    G = motion_weights_vol.shape[1]
+    s, o = _grid_affine(cnl_bbox_min_xyz, cnl_bbox_scale_xyz, G)
+    pts_g = pts.float() * s[None, :] + o[None, :]
+    return shared_core(pts_g, shared_layout(motion_weights_vol), precision)
+
+
+# ---------------------------------------------------------------------------
+# fused forward LBS: forward kernel (B5 fwd), backward kernel (B5 bwd)
+# ---------------------------------------------------------------------------
 
 def shared_blend_plain(pts_g, vol_all, rmat, precision: str = "bf16"):
     """Plain version of the fused forward LBS (`_shared_blend_fwd_kernel`,
@@ -531,24 +839,11 @@ def shared_blend_bwd_plain(pts_g, vol_all, rmat, k0, gout,
     gw = rnd(q @ rm.T + g[:, 3 * K:3 * K + 1])
     direct = [sum(g[:, 3 * k + c] * A[:, 12 * k + 4 * c + j]
                   for k in range(K) for c in range(3)) for j in range(3)]
-    dvol = torch.zeros(G * G * B * G, device=pts_g.device)
-    flat = vol.reshape(-1)
-    U = [torch.zeros_like(P[0]) for _ in xy]
-    dfz = torch.zeros_like(P[0])
-    for b in range(B):
-        for dz, (hz, vz, iz, dhz) in enumerate(tz):
-            d = rnd(gw[:, b] * hz) * vz
-            col = b * G + iz
-            for i, t in enumerate(xy):
-                dvol.index_add_(0, t["q"] + col, t["w"] * d)
-                U[i] = U[i] + d * flat[t["q"] + col]
-            dfz = dfz + gw[:, b] * (dhz * zc[b][dz])
-    dfx = sum(t["dhx"] * t["hy"] * t["m"] * u for t, u in zip(xy, U))
-    dfy = sum(t["hx"] * t["dhy"] * t["m"] * u for t, u in zip(xy, U))
+    (dfx, dfy, dfz), dvol = _tap_grads(xy, tz, zc, gw, vol, G, B, rnd)
     dpts = torch.zeros(n, 3, device=pts_g.device)
     dpts[first:] = torch.stack([dfx + direct[0], dfy + direct[1],
                                 dfz + direct[2]], 1)
-    return dpts, dvol.reshape(G * G, B * G), drmat
+    return dpts, dvol, drmat
 
 
 def _check_blend(pts_g, vol_all, rmat):
@@ -667,6 +962,10 @@ def _blend_lib() -> ctypes.CDLL:
                    [p, p, p, p, p, i, i, i, i, i, p])
     _build.declare(lib, "hosnerf_shared_blend_bwd",
                    [p, p, p, p, p, p, p, p, i, i, i, i, i, p])
+    _build.declare(lib, "hosnerf_shared_weights_fwd",
+                   [p, p, p, i, i, i, i, p])
+    _build.declare(lib, "hosnerf_shared_weights_bwd",
+                   [p, p, p, p, p, i, i, i, i, p])
     return lib
 
 
@@ -676,16 +975,15 @@ def blend_tables(motion_scale_Rs_fwd, motion_Ts_fwd, motion_weights_vol,
     [G*G, B*G] with vol_all[y*G + x, b*G + z] = vol[b, z, y, x], rmat
     [B, 12K] with column 12k + 4c + j holding R' = R diag(1/s) (j < 3) and
     T' = T - R' o (j = 3), the world-output affine of grid inputs)."""
-    B = motion_weights_vol.shape[0] - 1
     G = motion_weights_vol.shape[1]
     K = motion_scale_Rs_fwd.shape[0]
     s, o = _grid_affine(bbox_min, bbox_scale, G)
-    vol_all = motion_weights_vol[:B].permute(2, 3, 0, 1).reshape(G * G, B * G)
+    vol_all = shared_layout(motion_weights_vol)
     Rp = motion_scale_Rs_fwd * (1.0 / s)[None, None, None, :]
     Tp = motion_Ts_fwd - torch.einsum("kbcj,j->kbc", Rp, o)
     rmat = torch.cat([torch.cat([Rp[k, :, c, :], Tp[k, :, c:c + 1]], dim=1)
                       for k in range(K) for c in range(3)], dim=1)
-    return s, o, vol_all.contiguous(), rmat.contiguous()
+    return s, o, vol_all, rmat.contiguous()
 
 
 def forward_lbs_multi(pts, motion_scale_Rs_fwd, motion_Ts_fwd,

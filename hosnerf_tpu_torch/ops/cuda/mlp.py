@@ -1,13 +1,17 @@
-"""Fused positional embedding + MLP trunk + f32 head: the Hopper kernels'
-wrappers (csrc/embed_trunk.cu forward, csrc/embed_trunk_bwd.cu backward),
-their plain PyTorch versions, and the autograd function that joins them.
+"""The fused MLP trunks: positional embedding + trunk + f32 head (B2/B3),
+and the trunk alone on raw input rows (row 8). The Hopper kernels'
+wrappers (csrc/embed_trunk.cu forward, csrc/embed_trunk_bwd.cu backward,
+on the machinery of csrc/trunk_common.cuh), their plain PyTorch versions,
+and the autograd functions that join them.
 
-Counterpart of `hosnerf_tpu/ops/pallas/mlp.py::fused_embed_trunk` and its
-VJP. Weights come in torch orientation (`nn.Linear.weight`, [dout, din])
-with the reference's interleaved PE row order; the kernels build the PE in
-that order themselves, so no row permutation is needed (the TPU kernel's
-`embed_row_perm` only served its lane-dense layout), and the weight
-gradients come back in the `nn.Linear` layout.
+Counterpart of `hosnerf_tpu/ops/pallas/mlp.py::fused_embed_trunk` and
+`fused_trunk` with their VJPs. Weights come in torch orientation
+(`nn.Linear.weight`, [dout, din]) with the reference's interleaved PE row
+order; the kernels build the PE in that order themselves, so no row
+permutation is needed (the TPU kernel's `embed_row_perm` only served its
+lane-dense layout), and the weight gradients come back in the `nn.Linear`
+layout. A bias gradient has its bias's shape [dout] (the JAX trunk VJP's
+[1, dout] is not copied).
 
 Every kernel entry takes a CPU tensor to its plain version and a CUDA
 tensor to the kernel; it never falls back from one to the other.
@@ -88,6 +92,51 @@ def _rounder(precision: str):
     raise ValueError(f"unknown precision {precision!r}")
 
 
+def _trunk_pass(xc, layers, skip_before, skip_src, src_first, rnd):
+    """The trunk on a (rounded) first-layer input: (last hidden state,
+    per-layer (input, output) activations) with the kernels' rounding
+    points. The `skip_before` layer takes [skip_src, h] (src_first) or
+    [h, skip_src]."""
+    h = xc
+    acts = []
+    for i, (w, b) in enumerate(layers):
+        if i == skip_before:
+            h = torch.cat([skip_src, h] if src_first else [h, skip_src],
+                          dim=-1)
+        a_in = h
+        z = rnd(h @ rnd(w.float()).T)
+        h = torch.relu(rnd(z + rnd(b.float())))
+        acts.append((a_in, h))
+    return h, acts
+
+
+def _trunk_backprop(acts, layers, out, g_out, skip_before, skip_width,
+                    src_first, rnd):
+    """Backward of `_trunk_pass` + the f32 head: head in f32; per layer in
+    reverse: g *= (h_out > 0), gc = bf16(g), dW += gc^T a_in (bf16
+    operands), db += sum g (unrounded), g = gc bf16(W); the skip layer's
+    input gradient split into its source slice's part. Returns (d/d first
+    input, d/d skip source (or None), [(dW [dout, din], db [dout])],
+    (dWout, dbout))."""
+    dout = (g_out.T @ acts[-1][1], g_out.sum(0))
+    g = g_out @ out[0].float()
+    dlayers: List = [None] * len(layers)
+    gskip = None
+    sw = skip_width
+    for i in reversed(range(len(layers))):
+        a_in, h_out = acts[i]
+        g = g * (h_out > 0)
+        gc = rnd(g)
+        dlayers[i] = (gc.T @ a_in, g.sum(0))
+        g = gc @ rnd(layers[i][0].float())
+        if i == skip_before:
+            if src_first:
+                gskip, g = g[:, :sw], g[:, sw:]
+            else:
+                gskip, g = g[:, g.shape[1] - sw:], g[:, :g.shape[1] - sw]
+    return g, gskip, dlayers, dout
+
+
 def _plain_forward(x, aux, alpha, layers, out, espec, skip_before,
                    skip_source, precision):
     """(output, per-layer (input, output) activations) with the kernel's
@@ -95,17 +144,8 @@ def _plain_forward(x, aux, alpha, layers, out, espec, skip_before,
     rnd = _rounder(precision)
     xc = rnd(trunk_input(x, aux, alpha, espec))
     off, width = _skip_slice(espec, skip_source)
-    h = xc
-    acts = []
-    for i, (w, b) in enumerate(layers):
-        if i == skip_before:
-            src = xc[:, off:off + width]
-            h = torch.cat([src, h] if skip_source == "full_input"
-                          else [h, src], dim=-1)
-        a_in = h
-        z = rnd(h @ rnd(w.float()).T)
-        h = torch.relu(rnd(z + rnd(b.float())))
-        acts.append((a_in, h))
+    h, acts = _trunk_pass(xc, layers, skip_before, xc[:, off:off + width],
+                          skip_source == "full_input", rnd)
     return h @ out[0].float().T + out[1].float(), acts
 
 
@@ -163,25 +203,10 @@ def fused_embed_trunk_bwd_plain(x, aux, alpha, layers, out, gout, *,
     aux_s = aux[first:] if stream else aux
     _, acts = _plain_forward(xs, aux_s, alpha, layers, out, espec,
                              skip_before, skip_source, precision)
-    g_out = gout[first:].float()
-    h_last = acts[-1][1]
-    dout = (g_out.T @ h_last, g_out.sum(0))
-    g = g_out @ out[0].float()
     off, sw = _skip_slice(espec, skip_source)
-    dlayers: List = [None] * len(layers)
-    gskip = None
-    for i in reversed(range(len(layers))):
-        a_in, h_out = acts[i]
-        g = g * (h_out > 0)
-        gc = rnd(g)
-        dlayers[i] = (gc.T @ a_in, g.sum(0))
-        g = gc @ rnd(layers[i][0].float())
-        if i == skip_before:
-            if skip_source == "full_input":
-                gskip, g = g[:, :sw], g[:, sw:]
-            else:
-                gskip, g = g[:, g.shape[1] - sw:], g[:, :g.shape[1] - sw]
-    d_full = g
+    d_full, gskip, dlayers, dout = _trunk_backprop(
+        acts, layers, out, gout[first:].float(), skip_before, sw,
+        skip_source == "full_input", rnd)
     if gskip is not None:
         d_full = d_full.clone()
         d_full[:, off:off + sw] += gskip
@@ -250,27 +275,56 @@ def _packed_weights(layers, plan, hid, k_major: bool, dt):
     return torch.cat([b.reshape(-1) for b in blocks]).to(dt).contiguous()
 
 
-def _pack(layers, out, espec: EmbedSpec, skip_before, skip_source,
-          precision: str, aux_stride: int):
-    """Host-side layout for the forward kernel: the meta int32 array, the
-    packed weights and biases (`_layer_plan` gives the layout). bf16
-    weights are stored [HID, K] (the mma B operand), f32 weights [K, HID]."""
-    plan, hid, xw, exp_w = _layer_plan(layers, espec, skip_before,
-                                       skip_source)
+def _pack_meta(layers, out, plan, hid, head, precision: str,
+               skip_off: int = 0):
+    """The meta int32 array (csrc/trunk_common.cuh `parse_meta`: L, hid,
+    out_dim, then `head` = [xw, exp_w, ex_w, kind, F, A, aux_stride]; per
+    layer its two segments, K and weight offset; last the skip slice's
+    offset in x, read by the raw-input kind) and the packed weights and
+    biases. bf16 weights are stored [HID, K] (the mma B operand), f32
+    weights [K, HID]."""
     dt = torch.bfloat16 if precision == "bf16" else torch.float32
-    meta = [len(layers), hid, int(out[0].shape[0]), xw, exp_w,
-            espec.ex_width, 0 if espec.kind == "fourier" else 1,
-            espec.multires, espec.aux_width, aux_stride]
+    meta = [len(layers), hid, int(out[0].shape[0])] + list(head)
     w_off = 0
     for segs, K, _ in plan:
         for s in segs + [(0, 0, 0)] * (2 - len(segs)):
             meta += list(s)
         meta += [K, w_off]
         w_off += hid * K
+    meta.append(skip_off)
     w_all = _packed_weights(layers, plan, hid, precision != "bf16", dt)
     b_all = torch.stack([b.float() for _, b in layers]).to(dt).contiguous()
     return (np.asarray(meta, np.int32), w_all, b_all,
             out[0].float().contiguous(), out[1].float().contiguous())
+
+
+def _pack(layers, out, espec: EmbedSpec, skip_before, skip_source,
+          precision: str, aux_stride: int):
+    """Host-side layout for the embed trunk kernels (`_layer_plan` gives
+    the layout, `_pack_meta` the arrays)."""
+    plan, hid, xw, exp_w = _layer_plan(layers, espec, skip_before,
+                                       skip_source)
+    head = [xw, exp_w, espec.ex_width, 0 if espec.kind == "fourier" else 1,
+            espec.multires, espec.aux_width, aux_stride]
+    return _pack_meta(layers, out, plan, hid, head, precision)
+
+
+def _check_weights(layers, out, dev) -> int:
+    """Raise on trunk widths, depths or heads the kernels do not take;
+    returns the hidden width."""
+    hid = int(layers[0][0].shape[0])
+    if hid not in KERNEL_WIDTHS or len(layers) > MAX_LAYERS:
+        raise ValueError(f"kernel takes widths {KERNEL_WIDTHS} and at most "
+                         f"{MAX_LAYERS} layers, got {hid} x {len(layers)}")
+    for w, b in layers:
+        if w.device != dev or b.device != dev or w.shape[0] != hid:
+            raise ValueError("every trunk layer must be [hid, din] on the "
+                             "device of x")
+    if out[0].device != dev or out[0].shape[1] != hid or \
+            out[0].shape[0] > MAX_OUT:
+        raise ValueError(f"head weight must be [out_dim <= {MAX_OUT}, hid] "
+                         "on the device")
+    return hid
 
 
 def _check_kernel_args(x, aux, layers, out, espec: EmbedSpec,
@@ -295,18 +349,7 @@ def _check_kernel_args(x, aux, layers, out, espec: EmbedSpec,
             raise ValueError("stream aux must be [N, A] with rows of stride "
                              "A (or 0 for one expanded row)")
         aux_stride = aux.stride(0)
-    hid = int(layers[0][0].shape[0])
-    if hid not in KERNEL_WIDTHS or len(layers) > MAX_LAYERS:
-        raise ValueError(f"kernel takes widths {KERNEL_WIDTHS} and at most "
-                         f"{MAX_LAYERS} layers, got {hid} x {len(layers)}")
-    for w, b in layers:
-        if w.device != dev or b.device != dev or w.shape[0] != hid:
-            raise ValueError("every trunk layer must be [hid, din] on the "
-                             "device of x")
-    if out[0].device != dev or out[0].shape[1] != hid or \
-            out[0].shape[0] > MAX_OUT:
-        raise ValueError(f"head weight must be [out_dim <= {MAX_OUT}, hid] "
-                         "on the device")
+    _check_weights(layers, out, dev)
     return aux_stride
 
 
@@ -510,6 +553,260 @@ def fused_embed_trunk_bwd(x, aux, alpha, layers, out, gout, *, kind: str,
 
 
 fused_embed_trunk_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# row 8: the trunk-only fused MLP (raw input rows, no embedding)
+# ---------------------------------------------------------------------------
+
+class TrunkSpec:
+    """Static architecture of a trunk-only MLP (the JAX `TrunkSpec`,
+    mlp.py:81-104): input width din; the `skip_before` layer (or None)
+    re-concatenates the input slice [skip_off, skip_off + skip_width)
+    before ('input_first') or after ('h_first') the hidden state."""
+
+    def __init__(self, din: int, skip_before: Optional[int], skip_order: str,
+                 skip_off: int, skip_width: int):
+        if skip_order not in ("input_first", "h_first"):
+            raise ValueError(f"unknown skip_order {skip_order!r}")
+        if skip_before is not None and not (
+                0 <= skip_off and skip_width > 0
+                and skip_off + skip_width <= din):
+            raise ValueError(f"skip slice [{skip_off}, {skip_off} + "
+                             f"{skip_width}) outside the input ({din})")
+        self.din = din
+        self.skip_before = skip_before
+        self.skip_order = skip_order
+        self.skip_off = skip_off
+        self.skip_width = skip_width
+
+
+def _raw_trunk(x, layers, spec: TrunkSpec, rnd):
+    xc = rnd(x.float())
+    src = xc[:, spec.skip_off:spec.skip_off + spec.skip_width]
+    return _trunk_pass(xc, layers, spec.skip_before, src,
+                       spec.skip_order == "input_first", rnd)
+
+
+def fused_trunk_plain(x, layers, out, *, spec: TrunkSpec,
+                      precision: str = "bf16") -> torch.Tensor:
+    """Plain version of the trunk-only MLP (`_forward_tile`,
+    mlp.py:107-132): the input row rounded to bf16, each layer the f32
+    product of bf16 operands rounded to bf16, plus the bf16 bias in bf16,
+    ReLU; the head f32 on the bf16 hidden state ("highest": f32
+    throughout). Returns [N, out_dim]."""
+    h, _ = _raw_trunk(x, layers, spec, _rounder(precision))
+    return h @ out[0].float().T + out[1].float()
+
+
+def fused_trunk_bwd_plain(x, layers, out, gout, *, spec: TrunkSpec,
+                          precision: str = "bf16"):
+    """Plain version of the trunk-only backward (`_trunk_bwd_tile`,
+    mlp.py:145-192): recompute, then `_trunk_backprop`; the skip slice's
+    gradient is added into its input columns. Returns (dx [N, din],
+    [(dW [dout, din], db [dout])], (dWout, dbout)): every bias gradient
+    has its bias's shape."""
+    rnd = _rounder(precision)
+    _, acts = _raw_trunk(x, layers, spec, rnd)
+    dx, gskip, dlayers, dout = _trunk_backprop(
+        acts, layers, out, gout.float(), spec.skip_before, spec.skip_width,
+        spec.skip_order == "input_first", rnd)
+    if gskip is not None:
+        dx = dx.clone()
+        dx[:, spec.skip_off:spec.skip_off + spec.skip_width] += gskip
+    return dx, dlayers, dout
+
+
+def _trunk_plan(layers, spec: TrunkSpec):
+    """Xs holds [x | pad] and, unless the skip slice already ends the
+    16-aligned input from a 16-aligned offset, a copy of the slice [src |
+    pad] after it (the kernels' aux columns, read from x itself at row
+    stride din). Returns (plan as `_layer_plan`'s, hid, xw, exp_w, A = the
+    copy's width or 0)."""
+    hid = int(layers[0][0].shape[0])
+    din, sw = spec.din, spec.skip_width
+    exp_w, sw16 = _round16(din), _round16(sw)
+    in_place = spec.skip_off % 16 == 0 and spec.skip_off + sw == din
+    A = 0 if spec.skip_before is None or in_place else sw
+    src = (0, spec.skip_off, sw16) if in_place else (0, exp_w, sw16)
+    plan = []
+    for i, (w, _) in enumerate(layers):
+        if i == 0:
+            segs, cols = [(0, 0, exp_w)], list(range(din))
+        elif i == spec.skip_before and spec.skip_order == "input_first":
+            segs = [src, (1, 0, hid)]
+            cols = list(range(sw)) + [sw16 + j for j in range(hid)]
+        elif i == spec.skip_before:
+            segs = [(1, 0, hid), src]
+            cols = list(range(hid)) + [hid + j for j in range(sw)]
+        else:
+            segs, cols = [(1, 0, hid)], list(range(hid))
+        if tuple(w.shape) != (hid, len(cols)):
+            raise ValueError(f"layer {i} weight {tuple(w.shape)} does not "
+                             f"match the spec ({hid}, {len(cols)})")
+        plan.append((segs, sum(sg[2] for sg in segs),
+                     torch.tensor(cols, device=w.device)))
+    return plan, hid, exp_w + _round16(A), exp_w, A
+
+
+def _trunk_args(x, layers, out, spec: TrunkSpec, precision: str):
+    """Check what the kernels take; returns (plan, hid, meta, w_all,
+    b_all, wout, bout, A)."""
+    if precision not in ("bf16", "highest"):
+        raise ValueError(f"unknown precision {precision!r}")
+    n = x.shape[0]
+    if x.shape != (n, spec.din) or x.dtype != torch.float32 or \
+            not x.is_contiguous():
+        raise ValueError(f"x must be contiguous float32 [N, {spec.din}]")
+    if spec.skip_before == 0:
+        raise ValueError("the kernels take no skip before layer 0")
+    _check_weights(layers, out, x.device)
+    plan, hid, xw, exp_w, A = _trunk_plan(layers, spec)
+    head = [xw, exp_w, spec.din, 2, 0, A, spec.din]
+    return (plan, hid, *_pack_meta(layers, out, plan, hid, head, precision,
+                                   spec.skip_off), A)
+
+
+def trunk_fwd(x, layers, out, *, spec: TrunkSpec,
+              precision: str = "bf16") -> torch.Tensor:
+    """Row 8 forward, [N, out_dim]. A CPU tensor runs `fused_trunk_plain`;
+    a CUDA tensor the trunk kernel of csrc/embed_trunk.cu with the raw
+    input stage of trunk_common.cuh (or raises)."""
+    if x.device.type == "cpu":
+        return fused_trunk_plain(x, layers, out, spec=spec,
+                                 precision=precision)
+    if not x.is_cuda:
+        raise ValueError(f"unsupported device {x.device}")
+    dev = x.device
+    _, _, meta, w_all, b_all, wout, bout, _ = _trunk_args(
+        x, layers, out, spec, precision)
+    zero_f, zero_i = torch.zeros(1, device=dev), _k0_tensor(None, dev)
+    n = x.shape[0]
+    res = torch.empty(n, int(wout.shape[0]), device=dev, dtype=torch.float32)
+    lib = _lib()
+    rc = lib.hosnerf_embed_trunk(
+        meta.ctypes.data, int(precision == "bf16"), x.data_ptr(),
+        x.data_ptr() + 4 * spec.skip_off, zero_f.data_ptr(),
+        zero_i.data_ptr(), w_all.data_ptr(), b_all.data_ptr(),
+        wout.data_ptr(), bout.data_ptr(), res.data_ptr(), n,
+        torch.cuda.current_stream(dev).cuda_stream)
+    fused_trunk.launches += 1
+    _build.check(rc, lib, "fused_trunk")
+    return res
+
+
+def trunk_bwd(x, layers, out, gout, *, spec: TrunkSpec,
+              precision: str = "bf16"):
+    """Row 8 backward, as `fused_trunk_bwd_plain` returns it. A CPU tensor
+    runs that plain version; a CUDA tensor the kernels of
+    csrc/embed_trunk_bwd.cu (forward recompute with activation store, row
+    tiles in reverse, dW products; one call) or raises. The sums over rows
+    (dW, db) use atomics, so their summation order varies from run to
+    run."""
+    if x.device.type == "cpu":
+        return fused_trunk_bwd_plain(x, layers, out, gout, spec=spec,
+                                     precision=precision)
+    if not x.is_cuda:
+        raise ValueError(f"unsupported device {x.device}")
+    dev = x.device
+    plan, hid, meta, w_all, b_all, wout, bout, _ = _trunk_args(
+        x, layers, out, spec, precision)
+    bf16 = precision == "bf16"
+    dt = torch.bfloat16 if bf16 else torch.float32
+    wt_all = _packed_weights(layers, plan, hid, bf16, dt)
+    n, L = x.shape[0], len(layers)
+    out_dim = int(wout.shape[0])
+    gout = gout.float().contiguous()
+    if gout.shape != (n, out_dim) or gout.device != dev:
+        raise ValueError(f"gout must be [N, {out_dim}] on the device of x")
+
+    def f32(*shape):
+        return torch.zeros(*shape, device=dev, dtype=torch.float32)
+
+    xw = int(meta[3])
+    act_x = torch.empty(n, xw, device=dev, dtype=dt)
+    act_h = torch.empty(L, n, hid, device=dev, dtype=dt)
+    gc = torch.empty(L, n, hid, device=dev, dtype=dt)
+    dx = torch.empty(n, spec.din, device=dev, dtype=torch.float32)
+    db, dwout, dbout = f32(L, hid), f32(out_dim, hid), f32(out_dim)
+    dw, unused = f32(w_all.numel()), f32(1)
+    zero_i = _k0_tensor(None, dev)
+    splits = max(1, min(16, n // 16384))
+    lib = _bwd_lib()
+    rc = lib.hosnerf_embed_trunk_bwd(
+        meta.ctypes.data, int(bf16), 0, x.data_ptr(),
+        x.data_ptr() + 4 * spec.skip_off, unused.data_ptr(),
+        zero_i.data_ptr(), w_all.data_ptr(), b_all.data_ptr(),
+        wt_all.data_ptr(), wout.data_ptr(), gout.data_ptr(),
+        act_x.data_ptr(), act_h.data_ptr(), gc.data_ptr(), dx.data_ptr(),
+        unused.data_ptr(), db.data_ptr(), dwout.data_ptr(), dbout.data_ptr(),
+        dw.data_ptr(), n, splits, torch.cuda.current_stream(dev).cuda_stream)
+    fused_trunk_bwd.launches += 1
+    _build.check(rc, lib, "fused_trunk_bwd")
+    dlayers, w_off = [], 0
+    for i, (_, K, cols) in enumerate(plan):
+        dwp = dw[w_off:w_off + hid * K].reshape(hid, K)
+        dlayers.append((dwp[:, cols], db[i]))
+        w_off += hid * K
+    return dx, dlayers, (dwout, dbout)
+
+
+class _Trunk(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, spec, precision, *params):
+        ctx.spec, ctx.precision = spec, precision
+        ctx.save_for_backward(x, *params)
+        L = (len(params) - 2) // 2
+        layers = [(params[2 * i], params[2 * i + 1]) for i in range(L)]
+        return trunk_fwd(x, layers, params[-2:], spec=spec,
+                         precision=precision)
+
+    @staticmethod
+    def backward(ctx, gout):
+        x, *params = ctx.saved_tensors
+        L = (len(params) - 2) // 2
+        layers = [(params[2 * i], params[2 * i + 1]) for i in range(L)]
+        dx, dlayers, dout = trunk_bwd(x, layers, params[-2:], gout,
+                                      spec=ctx.spec,
+                                      precision=ctx.precision)
+        flat = [t for pair in dlayers for t in pair] + list(dout)
+        return (dx, None, None, *flat)
+
+
+def fused_trunk(x, layer_params: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                out_params: Tuple[torch.Tensor, torch.Tensor], *,
+                skip_before: Optional[int] = None,
+                skip_order: str = "input_first", skip_off: int = 0,
+                skip_width: int = 0, precision: str = "bf16") -> torch.Tensor:
+    """Fused MLP trunk + f32 head (the JAX `fused_trunk`, mlp.py:738-760):
+    x [N, Din] -> [N, out_dim], differentiable in x and every weight
+    (forward and backward kernels, plain versions for CPU tensors).
+    layer_params: [(W_i [dout, din_i], b_i [dout])] in `nn.Linear`
+    orientation, din of the `skip_before` layer including the concat
+    width; out_params: (W_out [out_dim, hid], b_out), applied in f32."""
+    spec = TrunkSpec(int(x.shape[-1]), skip_before, skip_order, skip_off,
+                     skip_width)
+    params = [t for pair in layer_params for t in pair] + list(out_params)
+    return _Trunk.apply(x.float().contiguous(), spec, precision, *params)
+
+
+fused_trunk.launches = 0
+
+
+def fused_trunk_bwd(x, layer_params, out_params, gout, *,
+                    skip_before: Optional[int] = None,
+                    skip_order: str = "input_first", skip_off: int = 0,
+                    skip_width: int = 0, precision: str = "bf16"):
+    """The backward with the keyword interface of `fused_trunk` (the row-8
+    kernels on CUDA tensors, the plain version on CPU tensors)."""
+    spec = TrunkSpec(int(x.shape[-1]), skip_before, skip_order, skip_off,
+                     skip_width)
+    return trunk_bwd(x, layer_params, out_params, gout, spec=spec,
+                     precision=precision)
+
+
+fused_trunk_bwd.launches = 0
 
 
 def _lib() -> ctypes.CDLL:

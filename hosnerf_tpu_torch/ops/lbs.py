@@ -2,10 +2,10 @@
 volume, gather form (counterpart of the gather pieces of
 `hosnerf_tpu/ops/lbs.py`).
 
-This is the dense path: every sample through every bone with 8 corner
-gathers. The sorted-domain path with the hand-written Hopper kernels
-lives in `ops/cuda/lbs.py`; `inverse_warp` and `forward_warp_multi`
-dispatch between them.
+The gather forms take every sample through every bone with 8 corner
+gathers. The hand-written Hopper kernels live in `ops/cuda/lbs.py`;
+`inverse_warp`, `bone_weights` and `forward_warp_multi` dispatch between
+the two by `impl` as the JAX package's `ops/lbs.py:283-374` does.
 """
 
 from __future__ import annotations
@@ -66,9 +66,10 @@ def inverse_lbs_gather(pts: torch.Tensor, motion_scale_Rs: torch.Tensor,
 
 def resolve_impl(impl: str, motion_weights_vol: torch.Tensor,
                  pts: torch.Tensor) -> str:
-    """'auto' -> 'pallas' (the sorted-domain hand-written kernel, the name
-    kept from the JAX package) for points on a CUDA device and a cubic
-    power-of-two volume; 'gather' otherwise."""
+    """'auto' -> 'pallas' (the hand-written kernels, the name kept from the
+    JAX package) for points on a CUDA device and a cubic power-of-two
+    volume; 'gather' otherwise (where the JAX package takes its XLA one-hot
+    form on a TPU, which the port does not have)."""
     if impl != "auto":
         return impl
     D, H, W = motion_weights_vol.shape[1:]
@@ -78,16 +79,20 @@ def resolve_impl(impl: str, motion_weights_vol: torch.Tensor,
 
 
 def inverse_warp(pts, motion_scale_Rs, motion_Ts, motion_weights_vol,
-                 cnl_bbox_min_xyz, cnl_bbox_scale_xyz, impl: str = "auto"):
+                 cnl_bbox_min_xyz, cnl_bbox_scale_xyz, impl: str = "auto",
+                 pg_impl: str = "quad"):
     """Inverse LBS returning (x_skel [N, 3], fg_likelihood_mask [N, 1]).
-    impl: 'gather', 'pallas' (liveness sort + the inverse-LBS kernel in
-    bf16, then unsort) or 'auto'."""
+    impl: 'pallas' (the pair-grid core named by pg_impl: 'quad', 'win' or
+    'bp'), 'pallas_dense' (the dense core), both with bf16 taps through
+    the inverse-LBS kernels of ops/cuda/lbs.py; 'gather'; or 'auto'."""
     impl = resolve_impl(impl, motion_weights_vol, pts)
-    if impl == "pallas":
+    if impl in ("pallas", "pallas_dense"):
         from hosnerf_tpu_torch.ops.cuda import lbs as cuda_lbs
         return cuda_lbs.inverse_lbs(pts, motion_scale_Rs, motion_Ts,
                                     motion_weights_vol, cnl_bbox_min_xyz,
-                                    cnl_bbox_scale_xyz)
+                                    cnl_bbox_scale_xyz,
+                                    pair_grid=impl == "pallas",
+                                    pg_impl=pg_impl)
     if impl != "gather":
         raise ValueError(f"unknown inverse-LBS impl {impl!r}")
     x_skel, fg, _ = inverse_lbs_gather(pts, motion_scale_Rs, motion_Ts,
@@ -97,10 +102,16 @@ def inverse_warp(pts, motion_scale_Rs, motion_Ts, motion_weights_vol,
 
 
 def bone_weights(pts, motion_weights_vol, cnl_bbox_min_xyz,
-                 cnl_bbox_scale_xyz) -> torch.Tensor:
+                 cnl_bbox_scale_xyz, impl: str = "auto") -> torch.Tensor:
     """All-bone trilinear weights at shared points -> [N, B] (the
-    forward-LBS sampling pattern: every channel at the same point), gather
-    form."""
+    forward-LBS sampling pattern: every channel at the same point).
+    impl 'pallas' runs the all-bone weights kernels of ops/cuda/lbs.py in
+    bf16; every other impl the gather form."""
+    impl = resolve_impl(impl, motion_weights_vol, pts)
+    if impl == "pallas":
+        from hosnerf_tpu_torch.ops.cuda import lbs as cuda_lbs
+        return cuda_lbs.bone_weights(pts, motion_weights_vol,
+                                     cnl_bbox_min_xyz, cnl_bbox_scale_xyz)
     B = motion_weights_vol.shape[0] - 1
     D, H, W = motion_weights_vol.shape[1:]
     vol_flat = motion_weights_vol.reshape(B + 1, -1)
@@ -126,19 +137,19 @@ def forward_warp_multi(pts, motion_scale_Rs_fwd, motion_Ts_fwd,
                        motion_weights_vol, cnl_bbox_min_xyz,
                        cnl_bbox_scale_xyz, impl: str = "auto"):
     """Forward LBS for K transform sets at shared canonical points:
-    (x_deform [K, N, 3], wsum [N, 1]). impl: 'gather' (bone_weights +
-    apply_forward_lbs_multi), 'pallas' (the fused forward-LBS kernel of
-    ops/cuda/lbs.py in bf16, or its plain version for CPU tensors) or
-    'auto'."""
+    (x_deform [K, N, 3], wsum [N, 1]). impl: 'pallas' (the fused
+    forward-LBS kernel of ops/cuda/lbs.py in bf16, or its plain version
+    for CPU tensors); otherwise `bone_weights(impl=impl)` +
+    `apply_forward_lbs_multi`, as the JAX package dispatches (its
+    'pallas_dense' takes the gather weights here); 'auto' resolves
+    first."""
     impl = resolve_impl(impl, motion_weights_vol, pts)
     if impl == "pallas":
         from hosnerf_tpu_torch.ops.cuda import lbs as cuda_lbs
         return cuda_lbs.forward_lbs_multi(
             pts, motion_scale_Rs_fwd, motion_Ts_fwd, motion_weights_vol,
             cnl_bbox_min_xyz, cnl_bbox_scale_xyz)
-    if impl != "gather":
-        raise ValueError(f"unknown forward-LBS impl {impl!r}")
     w = bone_weights(pts, motion_weights_vol, cnl_bbox_min_xyz,
-                     cnl_bbox_scale_xyz)
+                     cnl_bbox_scale_xyz, impl=impl)
     return apply_forward_lbs_multi(w, pts, motion_scale_Rs_fwd,
                                    motion_Ts_fwd)

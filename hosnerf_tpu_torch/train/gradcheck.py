@@ -2,9 +2,12 @@
 path through the kernels' plain versions on the CPU, parameter by
 parameter.
 
-Both runs take the sorted path (`lbs_impl='pallas'`, `mlp_impl='fused'`)
-with bf16 LBS taps and f32 trunks, start from the same weights (built from
-one seed) and see the same synthetic batch, with no sample jitter. On CUDA
+Both runs take the sorted path (`lbs_impl='pallas'`, `mlp_impl='fused'`),
+or with `--dense` the dense per-sample path (`sparse=False`: the
+inverse-LBS kernel in Morton row order, the fused MLP and forward-LBS
+kernels on every sample), with bf16 LBS taps and f32 trunks, start from
+the same weights (built from one seed) and see the same synthetic batch,
+with no sample jitter. On CUDA
 tensors the path launches the hand-written kernels, on CPU tensors their
 plain versions, so the two runs differ only where a kernel differs from
 its plain version: the order of its sums, and the bf16 roundings that
@@ -12,7 +15,7 @@ order moves across a rounding boundary. (How the bf16 taps move the
 gradients away from the dense f32 path is `tests/test_torch_train.py`'s
 concern.) `chip_smoke.py` holds the result to its tolerance; alone:
 
-    python -m hosnerf_tpu_torch.train.gradcheck
+    python -m hosnerf_tpu_torch.train.gradcheck [--dense]
 
 prints the table for the training batch (2 patches of 32 x 32 rays).
 `--device cpu` runs both sides on the plain versions: every difference is
@@ -53,17 +56,18 @@ def step_grads(cfg: stage2.Stage2Config, nb, device, state_dict
 
 
 def compare_step_grads(device=None, n_patches: int = 2, patch_size: int = 32,
-                       seed: int = 0) -> Dict:
+                       seed: int = 0, dense: bool = False) -> Dict:
     """Full-width stage-2 model from `seed`; loss and gradients on the
     kernel path (on `device`, the card unless named) and on the plain path
-    (CPU) for one synthetic batch. Returns {'loss': (kernel, plain),
+    (CPU) for one synthetic batch, both sorted or both dense. Returns
+    {'loss': (kernel, plain),
     'params': {name: (rel_l2, cosine)}} over the parameters whose plain
     gradient is nonzero, and 'missing': the parameters with a gradient on
     one side only."""
     device = resolve_device(device)
     cfg = stage2.Stage2Config(n_patches=n_patches, patch_size=patch_size,
                               perturb=0.0, lbs_impl="pallas",
-                              mlp_impl="fused")
+                              mlp_impl="fused", sparse=not dense)
     nb = synthetic.human_batch(n_patches, patch_size, seed=seed,
                                grid_size=cfg.mweight_volume_size)
     sd = stage2.make_model(cfg, seed=seed, device="cpu").state_dict()
@@ -106,8 +110,11 @@ def main() -> None:
                     help="kernel path's device (default: the card)")
     ap.add_argument("--n-patches", type=int, default=2)
     ap.add_argument("--patch-size", type=int, default=32)
+    ap.add_argument("--dense", action="store_true",
+                    help="the dense per-sample path (sparse=False)")
     args = ap.parse_args()
-    report(compare_step_grads(args.device, args.n_patches, args.patch_size))
+    report(compare_step_grads(args.device, args.n_patches, args.patch_size,
+                              dense=args.dense))
 
 
 if __name__ == "__main__":

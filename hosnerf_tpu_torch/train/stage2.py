@@ -8,14 +8,16 @@ label; each group's learning rate follows the same exponential decay,
 set from the count of updates made so far before each update (optax
 evaluates its schedule at the pre-increment count).
 
-Not ported yet: the JAX config's `mlp_chunk` and `remat`, which only
-reshape the dense flax MLP path (ROADMAP queue A).
+`sparse=False` trains on the dense per-sample path (the JAX package's
+HOSNERF_SPARSE=0), `pg_impl` picks its inverse-LBS row order (the JAX
+package's HOSNERF_PG_IMPL), and `mlp_chunk` / `remat` reshape its module
+MLPs (`models/human.py::_module_mlp`) as the JAX config's keys do.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Union
 
 import torch
 
@@ -50,6 +52,10 @@ class Stage2Config:
     lbs_impl: str = "auto"
     mlp_impl: str = "auto"
     compute_dtype: Optional[str] = None
+    mlp_chunk: Optional[int] = None
+    remat: Union[bool, str] = False
+    sparse: bool = True
+    pg_impl: str = "quad"
 
 
 def make_model(cfg: Stage2Config, *, seed: int = 0,
@@ -60,8 +66,9 @@ def make_model(cfg: Stage2Config, *, seed: int = 0,
         num_states=cfg.num_states, cnl_mlp_width=cfg.cnl_mlp_width,
         nr_mlp_width=cfg.nr_mlp_width,
         mweight_volume_size=cfg.mweight_volume_size, lbs_impl=cfg.lbs_impl,
-        mlp_impl=cfg.mlp_impl, compute_dtype=cfg.compute_dtype, seed=seed,
-        device=device)
+        mlp_impl=cfg.mlp_impl, compute_dtype=cfg.compute_dtype,
+        sparse=cfg.sparse, pg_impl=cfg.pg_impl, remat=cfg.remat,
+        mlp_chunk=cfg.mlp_chunk, seed=seed, device=device)
 
 
 # --------------------------------------------------------------------------

@@ -307,3 +307,164 @@ def test_autograd_routes_through_kernels(dev):
     assert [a - b for a, b in zip(counts(), before)] == [1] * 6
     for t in (rg, tg, vol, tl[0][0]):
         assert t.grad is not None and torch.isfinite(t.grad).all()
+
+
+# ---------------------------------------------------------------------------
+# the dense slice: the four inverse-LBS entries, rows 7, 8 and 12
+# ---------------------------------------------------------------------------
+
+INVERSE_ENTRIES = ("inverse_core", "inverse_core_pg", "inverse_core_pgw",
+                   "inverse_core_bp")
+
+
+@pytest.mark.parametrize("prec", ["bf16", "highest"])
+def test_inverse_entries_match_plain(lbs_inputs, prec):
+    """The four inverse cores on the unsorted points (rows as given,
+    Morton, signature + Morton, signature order), each one B1 launch
+    through its own count: bit-identical to each other (one per-sample
+    computation) and within 1e-6 of the scale of the plain version (B1's
+    tolerance), on NaN-poisoned outputs; the backward (B4) to 1e-4 of
+    each gradient's scale (atomic sums over samples)."""
+    pts_s, rg, tg, vol_qz, dom = lbs_inputs
+    pts = dom.unsort(pts_s).contiguous()
+    ref = clbs.inverse_core_plain(pts, rg, tg, vol_qz, prec)
+    gacc = torch.randn(pts.shape[0], 4, device=pts.device,
+                       generator=torch.Generator(pts.device).manual_seed(8))
+    dref = clbs.inverse_core_bwd_plain(pts, rg, tg, vol_qz, gacc, prec)
+    first = None
+    for name in INVERSE_ENTRIES:
+        entry = getattr(clbs, name)
+        _poison(64 << 20, pts.device)
+        n0 = entry.launches
+        args = [t.clone().requires_grad_() for t in (pts, rg, tg, vol_qz)]
+        got = entry(*args, prec)
+        torch.cuda.synchronize()
+        assert entry.launches == n0 + 1, name
+        first = got.detach() if first is None else first
+        assert torch.equal(got, first), name
+        _close(got.detach(), ref, 1e-6, name)
+        got.backward(gacc)
+        for what, a, b in zip(("dpts", "drg", "dtg", "dvol"), args, dref):
+            _close(a.grad, b, 1e-4, f"{name} {what}")
+
+
+@pytest.mark.parametrize("prec", ["bf16", "highest"])
+def test_shared_core_kernels_match_plain(lbs_inputs, prec):
+    """Row 7 forward (one thread per (sample, bone)) to 1e-6 of the scale
+    (the plain version's order; nothing sums across samples) and
+    backward to 1e-4 (dvol in atomic order), NaN-poisoned outputs."""
+    pts_s, rg, tg, vol_qz, _ = lbs_inputs
+    dev = pts_s.device
+    G, B = 32, 26
+    vol_all = vol_qz.reshape(B, G, G, G).permute(2, 1, 0, 3).reshape(
+        G * G, B * G).contiguous()
+    pts_g = (pts_s @ rg[5].reshape(3, 3).T + tg[5]).contiguous()
+    ref = clbs.shared_core_plain(pts_g, vol_all, prec)
+    _poison(64 << 20, dev)
+    got = clbs.shared_core_fwd(pts_g, vol_all, prec)
+    torch.cuda.synchronize()
+    _close(got, ref, 1e-6, "fwd")
+    assert float(ref.max()) > 0.1
+    gw = torch.randn(ref.shape, device=dev,
+                     generator=torch.Generator(dev).manual_seed(9))
+    dref = clbs.shared_core_bwd_plain(pts_g, vol_all, gw, prec)
+    _poison(64 << 20, dev)
+    n0 = clbs.shared_core_bwd.launches
+    dgot = clbs.shared_core_bwd(pts_g, vol_all, gw, prec)
+    torch.cuda.synchronize()
+    assert clbs.shared_core_bwd.launches == n0 + 1
+    for what, a, b in zip(("dpts", "dvol"), dgot, dref):
+        _close(a, b, 1e-4, what)
+
+
+TRUNK_SPECS = {
+    "canonical": (127, 256, 8, dict(skip_before=5, skip_order="input_first",
+                                    skip_off=0, skip_width=127), 4),
+    "nonrigid": (111, 128, 6, dict(skip_before=4, skip_order="h_first",
+                                   skip_off=75, skip_width=36), 3),
+}
+
+
+def _trunk_weights(name, dev, seed=0):
+    din, width, depth, kw, dout = TRUNK_SPECS[name]
+    gen = torch.Generator().manual_seed(seed)
+    layers, prev = [], din
+    for i in range(depth):
+        k = prev + (kw["skip_width"] if i == kw["skip_before"] else 0)
+        layers.append(((torch.randn(width, k, generator=gen) / k ** 0.5).to(dev),
+                       (torch.randn(width, generator=gen) * 0.1).to(dev)))
+        prev = width
+    out = ((torch.randn(dout, width, generator=gen) * 0.05).to(dev),
+           (torch.randn(dout, generator=gen) * 0.01).to(dev))
+    return din, layers, out, kw
+
+
+@pytest.mark.parametrize("prec", ["bf16", "highest"])
+@pytest.mark.parametrize("name", sorted(TRUNK_SPECS))
+def test_fused_trunk_kernels_match_plain(dev, name, prec):
+    """Row 8 (the trunk kernels on raw input rows) forward as B2 (bf16
+    1e-2 of the scale and 5% of entries beyond 1e-3; f32 1e-5) and
+    backward as B3 (relative L2 2e-2 / 2e-3, max 1e-1 / 1e-2 of the
+    scale), dx the full input row including the skip slice, 3,000 rows
+    (a ragged last tile), NaN-poisoned outputs."""
+    n = 3000
+    din, layers, out, kw = _trunk_weights(name, dev)
+    x = torch.randn(n, din, device=dev,
+                    generator=torch.Generator(dev).manual_seed(10))
+    spec = cmlp.TrunkSpec(din, **kw)
+    cpu = lambda ts: [t.cpu() for t in ts]  # noqa: E731
+    ref = cmlp.fused_trunk_plain(x.cpu(), [cpu(p) for p in layers], cpu(out),
+                                 spec=spec, precision=prec)
+    _poison(64 << 20, dev)
+    n0 = cmlp.fused_trunk.launches
+    got = cmlp.fused_trunk(x, layers, out, precision=prec, **kw)
+    torch.cuda.synchronize()
+    assert cmlp.fused_trunk.launches == n0 + 1
+    got = got.cpu()
+    scale = float(ref.abs().max())
+    err = (got - ref).abs()
+    assert torch.isfinite(got).all()
+    assert float(err.max()) <= (1e-2 if prec == "bf16" else 1e-5) * scale
+    assert float((err > 1e-3 * scale).float().mean()) <= 0.05
+    gout = torch.randn(n, out[0].shape[0], device=dev,
+                       generator=torch.Generator(dev).manual_seed(11))
+    dref = cmlp.fused_trunk_bwd_plain(x.cpu(), [cpu(p) for p in layers],
+                                      cpu(out), gout.cpu(), spec=spec,
+                                      precision=prec)
+    _poison(256 << 20, dev)
+    dgot = cmlp.fused_trunk_bwd(x, layers, out, gout, precision=prec, **kw)
+    torch.cuda.synchronize()
+    tol, max_tol = (2e-2, 1e-1) if prec == "bf16" else (2e-3, 1e-2)
+    flat_g = [dgot[0]] + [t for p in dgot[1] for t in p] + list(dgot[2])
+    flat_r = [dref[0]] + [t for p in dref[1] for t in p] + list(dref[2])
+    for i, (a, b) in enumerate(zip(flat_g, flat_r)):
+        assert a.shape == b.shape, i
+        _close(a.cpu(), b, tol, f"output {i}", max_tol)
+
+
+def test_proto_pairgrid_kernel(dev):
+    """Row 12 against its plain version and the numpy reference of the
+    JAX script, full length and cut to 2 steps (the count a device
+    tensor): out to 1e-5 of the scale, dvol exactly; rows of tiles that
+    no counted step visits stay NaN (unwritten poisoned memory)."""
+    from hosnerf_tpu_torch.tools import proto_pairgrid as pp
+    pts, vol, ptile, pbone = pp.case()
+    args = [torch.from_numpy(a).to(dev) for a in (ptile, pbone, pts, vol)]
+    for n_pairs, written in ((7, pp.N_TILES), (2, 1)):
+        ref, ref_dvol = pp.reference(pts, vol, n_pairs)
+        # the output is small: poison blocks of its size (the caching
+        # allocator serves blocks under 1 MB from a pool of their own)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        blocks = [torch.full((pp.N_TILES * pp.T * pp.G,), float("nan"),
+                             device=dev) for _ in range(4)]
+        del blocks
+        n0 = pp.run.launches
+        out, dvol = pp.run(torch.tensor([n_pairs], device=dev), *args,
+                           pp.N_TILES)
+        torch.cuda.synchronize()
+        assert pp.run.launches == n0 + 1
+        rows = written * pp.T
+        _close(out[:rows].cpu(), torch.from_numpy(ref[:rows]), 1e-5, "out")
+        assert torch.isnan(out[rows:]).all()
+        assert torch.equal(dvol.cpu(), torch.from_numpy(ref_dvol))

@@ -228,7 +228,9 @@ def test_package_imports_without_jax_or_triton():
             "hosnerf_tpu_torch.models.human, hosnerf_tpu_torch.eval."
             "renderers, hosnerf_tpu_torch.models.lpips, "
             "hosnerf_tpu_torch.train.stage2, "
-            "hosnerf_tpu_torch.train.schedules\n"
+            "hosnerf_tpu_torch.train.schedules, "
+            "hosnerf_tpu_torch.train.gradcheck, "
+            "hosnerf_tpu_torch.tools.proto_pairgrid\n"
             "from hosnerf_tpu_torch.ops.cuda import _build\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'triton', 'hosnerf_tpu')]\n"
