@@ -5,7 +5,8 @@
 
 Phases, each of which fails the run:
   build     every CUDA source under hosnerf_tpu_torch/csrc, one nvcc each,
-            all started together;
+            all started together; ptxas's report per kernel (registers,
+            stack, spills, serialised-wgmma notes) printed;
   kernels   each hand-written kernel against its plain PyTorch version on
             the card, both precisions, outputs NaN-poisoned first: the
             render kernels (inverse LBS B1, embed+trunk B2) at the render
@@ -14,7 +15,9 @@ Phases, each of which fails the run:
             forward LBS B5 forward and backward) at the training step's
             (262,144 samples: 2 patches of 32 x 32 rays, 128 samples each),
             the block-skipping kernels at k0 = 0, at the batch's own live
-            k0 and at the all-dead clamp; the four inverse-LBS cores
+            k0 and at the all-dead clamp; B2, B3 and row 8 also report
+            TFLOP/s and their share of the bound, and B3's three launches
+            (recompute, rows, dW) are timed apart under torch.profiler; the four inverse-LBS cores
             (rows 6, 9, 10, 11: B1/B4 on the training points in each core's
             row order), the all-bone weights (row 7) on the training step's
             canonical points, the trunk-only MLP (row 8) at
@@ -200,6 +203,17 @@ def bound(nbytes: float, f32_ops: float = 0.0, bf16_ops: float = 0.0):
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = (f32_ops / F32_FLOPS + bf16_ops / BF16_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rate(res, flops: float) -> str:
+    """Adds the achieved rate (TFLOP/s, from the algorithm's matmul
+    operations over the kernel time) and the share of the bound
+    (bound_ms / ms) to a kernel's result; returns them for its line."""
+    res["flops"] = flops
+    res["tflops"] = flops / res["ms"] / 1e9
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    return (f" tflops={res['tflops']:.1f} "
+            f"bound_share={res['bound_share']:.3f}")
 
 
 def nbytes(*ts) -> int:
@@ -454,7 +468,7 @@ def check_mlp(torch, model, si, dom, x_skel_s, results, iters):
                             **({"bf16_ops": flops} if prec == "bf16"
                                else {"f32_ops": flops}))
                         line += (f" bound_ms={res['bound_ms']:.5f} "
-                                 f"({res['bound_by']})")
+                                 f"({res['bound_by']})") + rate(res, flops)
                         results[(name, prec)] = res
                 print(line, flush=True)
                 del got, g, r, e
@@ -696,7 +710,7 @@ def check_mlp_bwd(torch, model, ti, results, iters):
                         io, **({"bf16_ops": flops} if prec == "bf16"
                                else {"f32_ops": flops}))
                     line += (f" bound_ms={res['bound_ms']:.5f} "
-                             f"({res['bound_by']})")
+                             f"({res['bound_by']})") + rate(res, flops)
                     if prec == "bf16":
                         res["library_ms"] = library_trunk_bwd_ms(
                             torch, model, name, x, aux, alpha, gout, iters)
@@ -705,6 +719,51 @@ def check_mlp_bwd(torch, model, ti, results, iters):
                 print(line, flush=True)
                 del got, flat_g, flat_r
         del gout
+
+
+B3_LAUNCHES = (("recompute", "embed_trunk_bf16"), ("rows", "rows_bwd_bf16"),
+               ("dw", "dw_bf16"))
+
+
+def b3_launch_split(torch, ti, results, reps=3):
+    """B3's three launches timed apart at the training shapes (bf16, k0 =
+    0): one C call launches them back to back, so their device times are
+    read from torch.profiler (CUPTI kernel records), mean of `reps` calls
+    after the timed ones above."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+    from hosnerf_tpu_torch.ops.cuda import mlp as cmlp
+    xs = {"nonrigid": ti["x_skel_s"], "canonical": ti["cnl_pts_s"]}
+    for name, (kw, aux, alpha, layers, out) in ti["specs"].items():
+        x = xs[name]
+        gout = torch.randn(x.shape[0], out[0].shape[0], device=x.device,
+                           generator=torch.Generator(x.device).manual_seed(7))
+
+        def call():
+            return cmlp.fused_embed_trunk_bwd(x, aux, alpha, layers, out,
+                                              gout, k0_blocks=0, **kw)
+        call()
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        split = {part: 0.0 for part, _ in B3_LAUNCHES}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            for part, kernel in B3_LAUNCHES:
+                if kernel in e.key:
+                    split[part] += e.self_device_time_total / 1e3 / reps
+        check(all(v > 0 for v in split.values()),
+              f"trunk bwd {name}: the profiler saw no B3 launch ({split})")
+        res = results[(name + "_bwd", "bf16")]
+        res["launch_ms"] = split
+        print(f"kernel fused_embed_trunk_bwd {name} bf16 launches: "
+              + " ".join(f"{k}_ms={v:.4f}" for k, v in split.items())
+              + f" (sum {sum(split.values()):.4f}; events {res['ms']:.4f})",
+              flush=True)
 
 
 def library_trunk_bwd_ms(torch, model, name, x, aux, alpha, gout,
@@ -1017,13 +1076,15 @@ def check_trunk(torch, model, results, iters):
                          bound_ms=bf[0], bound_by=bf[1])
             res_b = dict(err=err_b, rel=rel_b, ms=ms_b, plain_ms=pb,
                          bound_ms=bb[0], bound_by=bb[1])
+            rates = (" fwd" + rate(res_f, flops) + " bwd"
+                     + rate(res_b, 3 * flops))
             line = (f"kernel fused_trunk {name} {prec}: rows={BENCH_ROWS} "
                     f"fwd max_abs_err={err_f:.3e} (over scale "
                     f"{err_f / scale:.3e}, beyond_1e-3={frac:.4f}) bwd "
                     f"max_abs_err={err_b:.3e} (over scale {rel_b:.3e}) fwd "
                     f"ms={ms_f:.4f} bwd ms={ms_b:.4f} fwd plain_ms={pf:.4f} "
                     f"bwd plain_ms={pb:.4f} fwd bound_ms={bf[0]:.5f} "
-                    f"({bf[1]}) bwd bound_ms={bb[0]:.5f} ({bb[1]})")
+                    f"({bf[1]}) bwd bound_ms={bb[0]:.5f} ({bb[1]})" + rates)
             if prec == "bf16":
                 res_f["library_ms"], res_b["library_ms"] = \
                     library_trunk_ms(torch, model, name, x, gout, iters)
@@ -1354,6 +1415,45 @@ def gradcheck_phase(torch, device, n_patches=2, patch_size=32, dense=False):
 
 # ---------------------------------------------------------------------------
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's innermost name and integer template arguments from its
+    mangled name (enough to tell the trunk kernels apart)."""
+    import re
+    rest, names = re.sub(r"^_ZN?", "", mangled), []
+    while rest[:1].isdigit():
+        d = re.match(r"\d+", rest).group(0)
+        names.append(rest[len(d):len(d) + int(d)])
+        rest = rest[len(d) + int(d):]
+    args = re.match(r"I((?:L[ib]\d+E)+)E", rest)
+    tmpl = ""
+    if args:
+        tmpl = "<" + ",".join(re.findall(r"L[ib](\d+)E", args.group(1))) + ">"
+    return (names[-1] if names else mangled[:60]) + tmpl
+
+
+def ptxas_report(log: str):
+    """One line per kernel from nvcc's -Xptxas -v output: its name with
+    template arguments, registers, stack and spills; then each note that
+    ptxas serialised wgmma products (C7520) or ignored setmaxnreg, with
+    the kernel it names."""
+    import re
+    lines, name, frame = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        f = re.search(r"function '(\w+)'", ln)
+        if m:
+            name = kernel_name(m.group(1))
+        elif "stack frame" in ln:
+            frame = ln.strip()
+        elif "Used" in ln and name:
+            lines.append(f"{name}: {ln.split(':', 1)[-1].strip()}; {frame}")
+        elif "C7520" in ln or "C7508" in ln or "setmaxnreg" in ln:
+            lines.append(re.sub(r"function '\w+'", "function "
+                                + (kernel_name(f.group(1)) if f else "?"),
+                                ln.split(":", 1)[-1].strip()))
+    return lines
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1391,9 +1491,8 @@ def run(torch, np) -> int:
     print(f"phase build: {time.time() - t0:.1f} s "
           f"({', '.join(reports) or 'cached'})", flush=True)
     for name, log in reports.items():
-        for ln in log.splitlines():
-            if "Used" in ln or "spill" in ln:
-                print(f"  ptxas {name}: {ln.strip()}")
+        for ln in ptxas_report(log):
+            print(f"  ptxas {name}: {ln}")
 
     G = 32
     model = HumanObjectField(mweight_volume_size=G, compute_dtype="bf16",
@@ -1411,6 +1510,7 @@ def run(torch, np) -> int:
         check_inverse_bwd(torch, model, ti, results, ITERS)
         check_blend(torch, ti, results, ITERS)
         check_mlp_bwd(torch, model, ti, results, ITERS)
+        b3_launch_split(torch, ti, results)
         check_inverse_cores(torch, model, ti, results, ITERS)
         check_shared_core(torch, ti, results, ITERS)
         check_trunk(torch, model, results, ITERS)
@@ -1506,7 +1606,23 @@ def run(torch, np) -> int:
                 "bound_ms": sum(results[p]["bound_ms"] for p in parts),
                 "bound_by": max((results[p]["bound_ms"], results[p]["bound_by"])
                                 for p in parts)[1],
-                "library_ms": None if None in lib else sum(lib)}
+                "library_ms": None if None in lib else sum(lib),
+                **rates(parts)}
+
+    def rates(parts):
+        """The B2/B3/row 8 entries: TFLOP/s and bound share over the
+        parts, and B3's time per launch (recompute, rows, dW)."""
+        if any("flops" not in results[p] for p in parts):
+            return {}
+        ms = sum(results[p]["ms"] for p in parts)
+        out = {"tflops": sum(results[p]["flops"] for p in parts) / ms / 1e9,
+               "bound_share": sum(results[p]["bound_ms"] for p in parts)
+               / ms}
+        split = {p[0]: results[p]["launch_ms"] for p in parts
+                 if "launch_ms" in results[p]}
+        if split:
+            out["launch_ms"] = split
+        return out
 
     trunks = [("nonrigid", "bf16"), ("canonical", "bf16")]
     kernels = [

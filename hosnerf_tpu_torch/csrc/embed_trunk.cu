@@ -16,27 +16,33 @@
 // Design. The TPU kernel keeps every layer's weights resident in a 100 MB
 // VMEM budget and streams row tiles through. An SM has 227 KB, and the
 // canonical trunk's bf16 weights are ~1 MB (its skip layer alone is
-// 383 x 256 x 2 = 196 KB), so this kernel inverts that: a CTA keeps its
+// 384 x 256 x 2 = 196 KB), so this kernel inverts that: a CTA keeps its
 // row tile's activations on chip for the whole trunk (the PE/aux input in
 // Xs, the hidden state in Hs, updated in place) and streams each layer's
-// weights through a double-buffered shared-memory ring in K-chunks with
-// cp.async. Nothing but x, aux and the output touches device memory per
-// row; the weights (< 1.1 MB) are re-read by every CTA from L2.
-//   bf16: 128-row tiles, 8 warps, each warp owns 16 rows and all HID
-//         output columns as m16n8k16 mma.sync accumulators (f32).
+// weights through a shared-memory ring. Nothing but x, aux and the output
+// touches device memory per row; the weights are re-read by every tile
+// from L2.
+//   bf16: persistent CTAs of two consumer warpgroups (64 rows each of a
+//         128-row tile) and one producer warp that bulk-copies 64-column
+//         weight chunks, pre-swizzled on the host, through a 3-4 stage
+//         mbarrier ring; each layer is wgmma.m64nHIDk16 over 16-column
+//         K-steps, A from the 128-byte-swizzled Xs/Hs images and B from
+//         the ring (trunk_common.cuh).
 //   f32:  64-row tiles, 256 threads, 4x(HID/16) FMA register tiles.
 // The layer inputs are up to two segments of Xs/Hs, each a multiple of 16
-// columns; the host scatters the weight columns to match (csrc layout
-// documented in hosnerf_tpu_torch/ops/cuda/mlp.py::_pack). The kernels
-// themselves live in trunk_common.cuh, which the backward
-// (embed_trunk_bwd.cu) shares for its recomputation.
+// columns; the host scatters the weight columns to match and, for bf16,
+// starts every segment at a 64-column chunk (csrc layout documented in
+// hosnerf_tpu_torch/ops/cuda/mlp.py::_layer_plan). The kernels themselves
+// live in trunk_common.cuh, which the backward (embed_trunk_bwd.cu) shares
+// for its recomputation.
 //
 // Bound. Canonical: ~1.05 MFLOP per row against ~0.3 KB of row traffic,
-// so the kernel is bound by the tensor cores' issue rate (bf16) or FP32
-// FMA throughput (f32), and by the shared-memory bandwidth that feeds
-// them: with mma.sync the B fragments come from shared memory once per
-// 16x8x16 product. A wgmma version would lift that; this one is the
-// simple, correct first kernel.
+// so the kernel is bound by the tensor cores' issue rate (bf16: 1.11 ms
+// at 989 TFLOP/s for the render shapes' 528,384 rows) or FP32 FMA
+// throughput (f32). The mma.sync kernel it replaces fed the tensor cores
+// from shared memory with 32-bit loads (116 TFLOP/s); wgmma reads both
+// operands from shared memory itself, and the producer warp keeps the
+// weight copies off the consumers' instruction stream.
 //
 // Numerics (bf16) reproduce mlp.py::_forward_tile: the whole input row is
 // rounded to bf16, each layer accumulates bf16 x bf16 products in f32,
@@ -44,8 +50,9 @@
 // ReLU. The head reads the bf16 hidden state as f32 and runs in f32.
 //
 // Live suffix: k0 (a device int, in 1024-row blocks) is clamped to
-// [0, n_blocks - 1]; CTAs whose rows lie below k0 * 1024 exit at once and
-// leave those output rows unwritten, as the TPU kernel does.
+// [0, n_blocks - 1]; rows below k0 * 1024 are left unwritten, as the TPU
+// kernel does (bf16 CTAs start at the first live tile, f32 CTAs below it
+// exit at once).
 
 #include "trunk_common.cuh"
 

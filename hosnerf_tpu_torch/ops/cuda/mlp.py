@@ -229,16 +229,77 @@ def fused_embed_trunk_bwd_plain(x, aux, alpha, layers, out, gout, *,
 # host-side layout for the kernels
 # ---------------------------------------------------------------------------
 
+def _round_up(v: int, align: int) -> int:
+    return -(-v // align) * align
+
+
 def _round16(v: int) -> int:
-    return -(-v // 16) * 16
+    return _round_up(v, 16)
 
 
-def _layer_plan(layers, espec: EmbedSpec, skip_before, skip_source):
-    """Per layer: (segments [(buf, off, width)], K, cols). Shared memory Xs
-    holds [PE | pad | aux | pad] with each part padded to 16 columns; a
-    layer input is one or two 16-aligned segments of Xs (buf 0) / Hs
-    (buf 1), K columns in all; cols[j] is the packed column of original
-    input column j (pad columns hold zeros)."""
+PANEL = 64          # columns of a 128-byte-swizzled bf16 panel
+PANEL_BYTES = 8192  # one [64 rows][64 cols] bf16 panel
+MAX_STEPS = 320     # csrc/trunk_common.cuh kMaxSteps
+MAX_XW = 256        # bf16 Xs columns (4 panels)
+
+
+def _align(precision: str) -> int:
+    """Packed-column alignment of a layer's input segments: bf16 starts
+    each at a 64-column weight chunk (csrc/embed_trunk_bwd.cu routes the
+    input gradients chunk by chunk); f32 packs them back to back."""
+    return PANEL if precision == "bf16" else 16
+
+
+# Layer plans and swizzle indices by their static key: building them
+# copies index lists to the card, which would stall the stream per call.
+_PLANS: dict = {}
+
+
+def _memo(key, build):
+    if key not in _PLANS:
+        _PLANS[key] = build()
+    return _PLANS[key]
+
+
+def _shapes(layers):
+    return tuple(tuple(w.shape) for w, _ in layers)
+
+
+def _place(seg_cols, hid, w, i, align: int):
+    """Lay one layer's input segments out in packed weight columns.
+    seg_cols: [((buf, off, width), [segment column of each original input
+    column of that segment])] in input order. Each segment starts at a
+    multiple of `align`; K is the padded total. Returns (segments [(buf,
+    off, width, kpos)], K, cols: packed column of each original input
+    column)."""
+    segs, cols, k = [], [], 0
+    for (buf, off, width), local in seg_cols:
+        k = _round_up(k, align)
+        segs.append((buf, off, width, k))
+        cols += [k + j for j in local]
+        k += width
+    if tuple(w.shape) != (hid, len(cols)):
+        raise ValueError(f"layer {i} weight {tuple(w.shape)} does not "
+                         f"match the spec ({hid}, {len(cols)})")
+    return segs, _round_up(k, align), torch.tensor(cols, device=w.device)
+
+
+def _layer_plan(layers, espec: EmbedSpec, skip_before, skip_source,
+                align: int = 16):
+    """Per layer: (segments [(buf, off, width, kpos)], K, cols). Shared
+    memory Xs holds [PE | pad | aux | pad] with each part padded to 16
+    columns; a layer input is one or two 16-aligned segments of Xs (buf 0)
+    / Hs (buf 1), placed from packed weight column kpos (a multiple of
+    `align`), K packed columns in all; cols[j] is the packed column of
+    original input column j (pad columns hold zeros)."""
+    key = ("embed", _shapes(layers), espec.kind, espec.multires,
+           espec.aux_width, espec.aux_first, skip_before, skip_source, align,
+           layers[0][0].device)
+    return _memo(key, lambda: _build_layer_plan(layers, espec, skip_before,
+                                                skip_source, align))
+
+
+def _build_layer_plan(layers, espec, skip_before, skip_source, align):
     hid = int(layers[0][0].shape[0])
     A, ex_w = espec.aux_width, espec.ex_width
     exp_w = _round16(ex_w)
@@ -249,50 +310,93 @@ def _layer_plan(layers, espec: EmbedSpec, skip_before, skip_source):
     plan = []
     for i, (w, _) in enumerate(layers):
         if i == 0:
-            segs, cols = [(0, 0, xw)], x_cols
+            seg_cols = [((0, 0, xw), x_cols)]
         elif i == skip_before and skip_source == "full_input":
-            segs = [(0, 0, xw), (1, 0, hid)]
-            cols = x_cols + [xw + j for j in range(hid)]
+            seg_cols = [((0, 0, xw), x_cols), ((1, 0, hid), range(hid))]
         elif i == skip_before:
-            segs = [(1, 0, hid), (0, 0, exp_w)]
-            cols = list(range(hid)) + [hid + j for j in range(ex_w)]
+            seg_cols = [((1, 0, hid), range(hid)), ((0, 0, exp_w), ex_cols)]
         else:
-            segs, cols = [(1, 0, hid)], list(range(hid))
-        if tuple(w.shape) != (hid, len(cols)):
-            raise ValueError(f"layer {i} weight {tuple(w.shape)} does not "
-                             f"match the spec ({hid}, {len(cols)})")
-        plan.append((segs, sum(s[2] for s in segs),
-                     torch.tensor(cols, device=w.device)))
+            seg_cols = [((1, 0, hid), range(hid))]
+        plan.append(_place(seg_cols, hid, w, i, align))
     return plan, hid, xw, exp_w
 
 
-def _packed_weights(layers, plan, hid, k_major: bool, dt):
+def _swizzle128(wp: torch.Tensor) -> torch.Tensor:
+    """[R, K] (K a multiple of 64) -> the flat image of K / 64 chunks
+    [R][64] in wgmma's 128-byte swizzle: in row r, the 8-column group j is
+    stored at group j ^ (r % 8) (csrc/trunk_common.cuh `swz`)."""
+    R, K = wp.shape
+    t = wp.reshape(R, K // PANEL, 8, 8).permute(1, 0, 2, 3)
+
+    def index():
+        r = torch.arange(R, device=wp.device)
+        return r[:, None], torch.arange(8, device=wp.device)[None, :] ^ \
+            (r % 8)[:, None]
+    r, src = _memo(("swizzle", R, wp.device), index)
+    return t[:, r, src, :].reshape(-1)
+
+
+def _packed_weights(layers, plan, hid, layout: str, dt):
+    """Every layer's weights scattered into its packed columns, flat:
+    'swizzled' (bf16 chunk images), 'k_major' ([K, HID], the f32
+    forward) or 'rows' ([HID, K], the f32 backward)."""
     blocks = []
     for (w, _), (_, K, cols) in zip(layers, plan):
         wp = torch.zeros(hid, K, device=w.device)
         wp[:, cols] = w.float()
-        blocks.append(wp.T if k_major else wp)
-    return torch.cat([b.reshape(-1) for b in blocks]).to(dt).contiguous()
+        if layout == "swizzled":
+            blocks.append(_swizzle128(wp))
+        else:
+            blocks.append((wp.T if layout == "k_major" else wp).reshape(-1))
+    return torch.cat(blocks).to(dt).contiguous()
+
+
+def _ksteps(segs):
+    """The bf16 forward's K-steps of one layer (csrc/trunk_common.cuh
+    `Meta::step`): per 16 packed columns of each segment, the byte offset
+    of its A slice in the warpgroup's Xs/Hs image (column panel * 8 KB +
+    2 bytes per column inside the panel; the swizzle is applied by the
+    hardware from the address), the buffer, the step inside its weight
+    chunk and the chunk."""
+    steps = []
+    for buf, off, width, kpos in segs:
+        for j in range(0, width, 16):
+            col, kg = off + j, kpos + j
+            byte = (col // PANEL) * PANEL_BYTES + (col % PANEL) * 2
+            steps.append(byte | buf << 16 | (kg % PANEL // 16) << 17
+                         | (kg // PANEL) << 20)
+    return steps
 
 
 def _pack_meta(layers, out, plan, hid, head, precision: str,
                skip_off: int = 0):
     """The meta int32 array (csrc/trunk_common.cuh `parse_meta`: L, hid,
     out_dim, then `head` = [xw, exp_w, ex_w, kind, F, A, aux_stride]; per
-    layer its two segments, K and weight offset; last the skip slice's
-    offset in x, read by the raw-input kind) and the packed weights and
-    biases. bf16 weights are stored [HID, K] (the mma B operand), f32
-    weights [K, HID]."""
-    dt = torch.bfloat16 if precision == "bf16" else torch.float32
+    layer its two segments (buf, off, width, kpos), K, weight offset and
+    its K-steps' first index and count; the skip slice's offset in x, read
+    by the raw-input kind; last the K-steps) and the packed weights and
+    biases. bf16 weights are the swizzled chunk images of [HID, K] (the
+    wgmma B operand), f32 weights [K, HID]."""
+    bf16 = precision == "bf16"
+    if bf16 and head[0] > MAX_XW:
+        raise ValueError(f"bf16 kernels take at most {MAX_XW} input "
+                         f"columns, got {head[0]}")
+    dt = torch.bfloat16 if bf16 else torch.float32
     meta = [len(layers), hid, int(out[0].shape[0])] + list(head)
-    w_off = 0
+    steps, w_off = [], 0
     for segs, K, _ in plan:
-        for s in segs + [(0, 0, 0)] * (2 - len(segs)):
-            meta += list(s)
-        meta += [K, w_off]
+        for sg in segs + [(0, 0, 0, 0)] * (2 - len(segs)):
+            meta += list(sg)
+        own = _ksteps(segs) if bf16 else []
+        meta += [K, w_off, len(steps), len(own)]
+        steps += own
         w_off += hid * K
-    meta.append(skip_off)
-    w_all = _packed_weights(layers, plan, hid, precision != "bf16", dt)
+    if len(steps) > MAX_STEPS:
+        raise ValueError(f"{len(steps)} K-steps, the kernels take "
+                         f"{MAX_STEPS}")
+    meta += [skip_off, len(steps)] + steps
+    w_all = _packed_weights(layers, plan, hid,
+                            "swizzled" if bf16 else "k_major", dt)
     b_all = torch.stack([b.float() for _, b in layers]).to(dt).contiguous()
     return (np.asarray(meta, np.int32), w_all, b_all,
             out[0].float().contiguous(), out[1].float().contiguous())
@@ -303,10 +407,26 @@ def _pack(layers, out, espec: EmbedSpec, skip_before, skip_source,
     """Host-side layout for the embed trunk kernels (`_layer_plan` gives
     the layout, `_pack_meta` the arrays)."""
     plan, hid, xw, exp_w = _layer_plan(layers, espec, skip_before,
-                                       skip_source)
+                                       skip_source, _align(precision))
     head = [xw, exp_w, espec.ex_width, 0 if espec.kind == "fourier" else 1,
             espec.multires, espec.aux_width, aux_stride]
     return _pack_meta(layers, out, plan, hid, head, precision)
+
+
+def _act_buffers(n, L, hid, xw, precision, dev):
+    """The backward's scratch (act_x, act_h, gc). bf16: 64-row tiles of
+    swizzled [64][64] panels (2 tiles per 128-row CTA tile, every tile
+    written); f32: [n, xw] and [L, n, HID] row-major."""
+    if precision != "bf16":
+        f = dict(device=dev, dtype=torch.float32)
+        return (torch.empty(n, xw, **f), torch.empty(L, n, hid, **f),
+                torch.empty(L, n, hid, **f))
+    t64 = 2 * -(-n // 128)
+    xpn, hpn = -(-xw // PANEL), max(1, hid // PANEL)
+    f = dict(device=dev, dtype=torch.bfloat16)
+    return (torch.empty(t64 * xpn * PANEL * PANEL, **f),
+            torch.empty(L * t64 * hpn * PANEL * PANEL, **f),
+            torch.empty(L * t64 * hpn * PANEL * PANEL, **f))
 
 
 def _check_weights(layers, out, dev) -> int:
@@ -423,10 +543,11 @@ def embed_trunk_bwd(x, aux, alpha, layers, out, gout, *, espec: EmbedSpec,
     aux_stride = _check_kernel_args(x, aux, layers, out, espec, precision)
     meta, w_all, b_all, wout, bout = _pack(
         layers, out, espec, skip_before, skip_source, precision, aux_stride)
-    plan, hid, xw, _ = _layer_plan(layers, espec, skip_before, skip_source)
+    plan, hid, xw, _ = _layer_plan(layers, espec, skip_before, skip_source,
+                                   _align(precision))
     bf16 = precision == "bf16"
-    dt = torch.bfloat16 if bf16 else torch.float32
-    wt_all = _packed_weights(layers, plan, hid, bf16, dt)
+    wt_all = None if bf16 else _packed_weights(layers, plan, hid, "rows",
+                                               torch.float32)
     n, L, A = x.shape[0], len(layers), espec.aux_width
     out_dim = int(wout.shape[0])
     gout = gout.float().contiguous()
@@ -440,9 +561,7 @@ def embed_trunk_bwd(x, aux, alpha, layers, out, gout, *, espec: EmbedSpec,
         return (torch.zeros if zero else torch.empty)(
             *shape, device=dev, dtype=torch.float32)
 
-    act_x = torch.empty(n, xw, device=dev, dtype=dt)
-    act_h = torch.empty(L, n, hid, device=dev, dtype=dt)
-    gc = torch.empty(L, n, hid, device=dev, dtype=dt)
+    act_x, act_h, gc = _act_buffers(n, L, hid, xw, precision, dev)
     dx = f32(n, 3, zero=False)
     daux = f32(n, A, zero=False) if stream else f32(A)
     db, dwout, dbout = f32(L, hid), f32(out_dim, hid), f32(out_dim)
@@ -452,7 +571,7 @@ def embed_trunk_bwd(x, aux, alpha, layers, out, gout, *, espec: EmbedSpec,
     rc = lib.hosnerf_embed_trunk_bwd(
         meta.ctypes.data, int(bf16), int(stream), x.data_ptr(),
         aux.data_ptr(), alpha_t.data_ptr(), k0.data_ptr(), w_all.data_ptr(),
-        b_all.data_ptr(), wt_all.data_ptr(), wout.data_ptr(),
+        b_all.data_ptr(), 0 if bf16 else wt_all.data_ptr(), wout.data_ptr(),
         gout.data_ptr(), act_x.data_ptr(), act_h.data_ptr(), gc.data_ptr(),
         dx.data_ptr(), daux.data_ptr(), db.data_ptr(), dwout.data_ptr(),
         dbout.data_ptr(), dw.data_ptr(), n, splits,
@@ -617,35 +736,38 @@ def fused_trunk_bwd_plain(x, layers, out, gout, *, spec: TrunkSpec,
     return dx, dlayers, dout
 
 
-def _trunk_plan(layers, spec: TrunkSpec):
+def _trunk_plan(layers, spec: TrunkSpec, align: int = 16):
     """Xs holds [x | pad] and, unless the skip slice already ends the
     16-aligned input from a 16-aligned offset, a copy of the slice [src |
     pad] after it (the kernels' aux columns, read from x itself at row
     stride din). Returns (plan as `_layer_plan`'s, hid, xw, exp_w, A = the
     copy's width or 0)."""
+    key = ("trunk", _shapes(layers), spec.din, spec.skip_before,
+           spec.skip_order, spec.skip_off, spec.skip_width, align,
+           layers[0][0].device)
+    return _memo(key, lambda: _build_trunk_plan(layers, spec, align))
+
+
+def _build_trunk_plan(layers, spec: TrunkSpec, align: int):
     hid = int(layers[0][0].shape[0])
     din, sw = spec.din, spec.skip_width
     exp_w, sw16 = _round16(din), _round16(sw)
     in_place = spec.skip_off % 16 == 0 and spec.skip_off + sw == din
     A = 0 if spec.skip_before is None or in_place else sw
-    src = (0, spec.skip_off, sw16) if in_place else (0, exp_w, sw16)
+    src = ((0, spec.skip_off, sw16) if in_place else (0, exp_w, sw16),
+           range(sw))
+    hs = ((1, 0, hid), range(hid))
     plan = []
     for i, (w, _) in enumerate(layers):
         if i == 0:
-            segs, cols = [(0, 0, exp_w)], list(range(din))
+            seg_cols = [((0, 0, exp_w), range(din))]
         elif i == spec.skip_before and spec.skip_order == "input_first":
-            segs = [src, (1, 0, hid)]
-            cols = list(range(sw)) + [sw16 + j for j in range(hid)]
+            seg_cols = [src, hs]
         elif i == spec.skip_before:
-            segs = [(1, 0, hid), src]
-            cols = list(range(hid)) + [hid + j for j in range(sw)]
+            seg_cols = [hs, src]
         else:
-            segs, cols = [(1, 0, hid)], list(range(hid))
-        if tuple(w.shape) != (hid, len(cols)):
-            raise ValueError(f"layer {i} weight {tuple(w.shape)} does not "
-                             f"match the spec ({hid}, {len(cols)})")
-        plan.append((segs, sum(sg[2] for sg in segs),
-                     torch.tensor(cols, device=w.device)))
+            seg_cols = [hs]
+        plan.append(_place(seg_cols, hid, w, i, align))
     return plan, hid, exp_w + _round16(A), exp_w, A
 
 
@@ -661,7 +783,7 @@ def _trunk_args(x, layers, out, spec: TrunkSpec, precision: str):
     if spec.skip_before == 0:
         raise ValueError("the kernels take no skip before layer 0")
     _check_weights(layers, out, x.device)
-    plan, hid, xw, exp_w, A = _trunk_plan(layers, spec)
+    plan, hid, xw, exp_w, A = _trunk_plan(layers, spec, _align(precision))
     head = [xw, exp_w, spec.din, 2, 0, A, spec.din]
     return (plan, hid, *_pack_meta(layers, out, plan, hid, head, precision,
                                    spec.skip_off), A)
@@ -712,8 +834,8 @@ def trunk_bwd(x, layers, out, gout, *, spec: TrunkSpec,
     plan, hid, meta, w_all, b_all, wout, bout, _ = _trunk_args(
         x, layers, out, spec, precision)
     bf16 = precision == "bf16"
-    dt = torch.bfloat16 if bf16 else torch.float32
-    wt_all = _packed_weights(layers, plan, hid, bf16, dt)
+    wt_all = None if bf16 else _packed_weights(layers, plan, hid, "rows",
+                                               torch.float32)
     n, L = x.shape[0], len(layers)
     out_dim = int(wout.shape[0])
     gout = gout.float().contiguous()
@@ -723,10 +845,7 @@ def trunk_bwd(x, layers, out, gout, *, spec: TrunkSpec,
     def f32(*shape):
         return torch.zeros(*shape, device=dev, dtype=torch.float32)
 
-    xw = int(meta[3])
-    act_x = torch.empty(n, xw, device=dev, dtype=dt)
-    act_h = torch.empty(L, n, hid, device=dev, dtype=dt)
-    gc = torch.empty(L, n, hid, device=dev, dtype=dt)
+    act_x, act_h, gc = _act_buffers(n, L, hid, int(meta[3]), precision, dev)
     dx = torch.empty(n, spec.din, device=dev, dtype=torch.float32)
     db, dwout, dbout = f32(L, hid), f32(out_dim, hid), f32(out_dim)
     dw, unused = f32(w_all.numel()), f32(1)
@@ -737,7 +856,7 @@ def trunk_bwd(x, layers, out, gout, *, spec: TrunkSpec,
         meta.ctypes.data, int(bf16), 0, x.data_ptr(),
         x.data_ptr() + 4 * spec.skip_off, unused.data_ptr(),
         zero_i.data_ptr(), w_all.data_ptr(), b_all.data_ptr(),
-        wt_all.data_ptr(), wout.data_ptr(), gout.data_ptr(),
+        0 if bf16 else wt_all.data_ptr(), wout.data_ptr(), gout.data_ptr(),
         act_x.data_ptr(), act_h.data_ptr(), gc.data_ptr(), dx.data_ptr(),
         unused.data_ptr(), db.data_ptr(), dwout.data_ptr(), dbout.data_ptr(),
         dw.data_ptr(), n, splits, torch.cuda.current_stream(dev).cuda_stream)

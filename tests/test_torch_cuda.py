@@ -274,6 +274,63 @@ def test_embed_trunk_bwd_kernel_matches_plain(dev, name, width, prec, k0):
         assert float(got[1][:first].abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("k0", [0, 7, 10 ** 6])
+@pytest.mark.parametrize("n", [1000, 262143])
+@pytest.mark.parametrize("name,width", [("nonrigid", 32),
+                                        ("nonrigid", 256),
+                                        ("canonical", 128)])
+def test_trunk_bf16_kernels_ragged(dev, name, width, n, k0):
+    """The wgmma kernels (B2 forward, B3 backward) against the plain
+    versions run on the card, at ragged row counts (1,000 rows: one
+    partial tile; 262,143: the training shapes less one row), k0 at 0, at
+    a live block (7, clamped to 0 for 1,000 rows) and at the all-dead
+    clamp, on NaN-poisoned outputs, with the tolerances of the tests
+    above for the forward (1e-2 of the scale) and chip_smoke.py's for B3
+    at these row counts: relative L2 2e-2, and at most 0.1% of entries
+    beyond 1e-1 of the scale (one flipped bf16 rounding of gc moves a
+    whole row of dx or daux; 262,143 x 75 entries hold a few such rows)."""
+    x, aux, alpha, layers, out, kw = mlp_case(name, seed=5, n=n, width=width)
+    tl, to = torch_args(layers, out)
+    tl = [(w.to(dev), b.to(dev)) for w, b in tl]
+    to = (to[0].to(dev), to[1].to(dev))
+    xt, at = torch.from_numpy(x).to(dev), torch.from_numpy(aux).to(dev)
+    espec = cmlp.EmbedSpec(kw["kind"], kw["multires"], aux.shape[-1],
+                           kw["aux_mode"], kw["aux_first"])
+    first = min(k0, math.ceil(n / 1024) - 1) * 1024
+    ref = cmlp.fused_embed_trunk_plain(
+        xt, at, alpha, tl, to, espec=espec, skip_before=kw["skip_before"],
+        skip_source=kw["skip_source"])
+    _poison(512 << 20, dev)
+    got = cmlp.fused_embed_trunk(xt, at, alpha, tl, to, k0_blocks=k0, **kw)
+    torch.cuda.synchronize()
+    g, r = got[first:], ref[first:]
+    assert torch.isfinite(g).all()
+    scale = float(r.abs().max())
+    err = (g - r).abs()
+    assert float(err.max()) <= 1e-2 * scale
+    assert float((err > 1e-3 * scale).float().mean()) <= 0.05
+    gout = torch.randn(n, to[0].shape[0], device=dev,
+                       generator=torch.Generator(dev).manual_seed(6))
+    dref = cmlp.fused_embed_trunk_bwd_plain(
+        xt, at, alpha, tl, to, gout, espec=espec,
+        skip_before=kw["skip_before"], skip_source=kw["skip_source"],
+        k0_blocks=k0)
+    _poison(1 << 30, dev)
+    dgot = cmlp.fused_embed_trunk_bwd(xt, at, alpha, tl, to, gout,
+                                      k0_blocks=k0, **kw)
+    torch.cuda.synchronize()
+    flat_g = [dgot[0], dgot[1]] + [t for p in dgot[2] for t in p] + \
+        list(dgot[3])
+    flat_r = [dref[0], dref[1]] + [t for p in dref[2] for t in p] + \
+        list(dref[3])
+    for i, (a, b) in enumerate(zip(flat_g, flat_r)):
+        assert torch.isfinite(a).all(), i
+        scale = float(b.abs().max()) + 1e-30
+        l2 = float(torch.linalg.norm(a - b) / (torch.linalg.norm(b) + 1e-30))
+        beyond = float(((a - b).abs() > 1e-1 * scale).float().mean())
+        assert l2 <= 2e-2 and beyond <= 1e-3, (i, l2, beyond)
+
+
 def test_autograd_routes_through_kernels(dev):
     """A backward through the differentiable entries launches B1+B4, B2+B3
     and B5 fwd+bwd, and no plain version."""

@@ -348,6 +348,18 @@ class _Ref:
         self.value = self.value.at[idx].set(v)
 
 
+def _unswizzle(img, rows, K):
+    """[rows, K] from the bf16 kernels' weight image: K / 64 chunks of
+    [rows][64], where row r keeps its 8-column group j at group j ^ (r % 8)
+    (wgmma's 128-byte swizzle)."""
+    t = img.reshape(K // 64, rows, 8, 8)
+    out = torch.empty(rows, K // 64, 8, 8)
+    for r in range(rows):
+        for pg in range(8):
+            out[r, :, pg ^ (r % 8)] = t[:, r, pg]
+    return out.reshape(rows, K)
+
+
 @pytest.mark.parametrize("prec", ["highest", "bf16"])
 @pytest.mark.parametrize("name", sorted(TRUNKS))
 def test_trunk_kernel_layout(name, prec):
@@ -365,7 +377,8 @@ def test_trunk_kernel_layout(name, prec):
     _, hid, meta, w_all, b_all, wout, bout, A = cmlp._trunk_args(
         xt, tl, to, spec, prec)
     L, _, _, xw, exp_w, ex_w, kind = (int(v) for v in meta[:7])
-    assert kind == 2 and ex_w == x.shape[1] and int(meta[-1]) == kw["skip_off"]
+    assert kind == 2 and ex_w == x.shape[1]
+    assert int(meta[10 + 12 * L]) == kw["skip_off"]
     assert A == (0 if name == "canonical" else kw["skip_width"])
     bf16 = prec == "bf16"
 
@@ -377,14 +390,15 @@ def test_trunk_kernel_layout(name, prec):
     xs[:, exp_w:exp_w + A] = xt[:, kw["skip_off"]:kw["skip_off"] + A]
     xs, hs, p = rnd(xs), torch.zeros(x.shape[0], hid), 10
     for i in range(L):
-        segs = [tuple(int(v) for v in meta[p + 3 * s:p + 3 + 3 * s])
+        segs = [tuple(int(v) for v in meta[p + 4 * s:p + 4 + 4 * s])
                 for s in range(2)]
-        K, w_off = int(meta[p + 6]), int(meta[p + 7])
-        p += 8
-        inp = torch.cat([(xs if buf == 0 else hs)[:, off:off + w]
-                         for buf, off, w in segs], dim=1)
+        K, w_off = int(meta[p + 8]), int(meta[p + 9])
+        p += 12
+        inp = torch.zeros(x.shape[0], K)
+        for buf, off, w, kpos in segs:
+            inp[:, kpos:kpos + w] = (xs if buf == 0 else hs)[:, off:off + w]
         blk = w_all[w_off:w_off + hid * K].float()
-        z = rnd(inp @ (blk.reshape(hid, K).T if bf16
+        z = rnd(inp @ (_unswizzle(blk, hid, K).T if bf16
                        else blk.reshape(K, hid)))
         hs = torch.relu(rnd(z + b_all[i].float()))
     got = hs @ wout.T + bout

@@ -174,6 +174,18 @@ def test_embed_trunk_plain_matches_pallas(name, prec, k0):
         assert np.mean(err > 1e-3 * scale) <= 0.05
 
 
+def _unswizzle(img, rows, K):
+    """[rows, K] from the bf16 kernels' weight image: K / 64 chunks of
+    [rows][64], where row r keeps its 8-column group j at group j ^ (r % 8)
+    (wgmma's 128-byte swizzle)."""
+    t = img.reshape(K // 64, rows, 8, 8)
+    out = torch.empty(rows, K // 64, 8, 8)
+    for r in range(rows):
+        for pg in range(8):
+            out[r, :, pg ^ (r % 8)] = t[:, r, pg]
+    return out.reshape(rows, K)
+
+
 def _packed_reference(x, aux, alpha, layers, out, kw, prec):
     """Run the trunk the way csrc/embed_trunk.cu does, from `_pack`'s meta
     and packed weights: the input row laid out in Xs order, each layer a
@@ -202,14 +214,15 @@ def _packed_reference(x, aux, alpha, layers, out, kw, prec):
     hs = torch.zeros(n, hid)
     p = 10
     for i in range(L):
-        segs = [tuple(int(v) for v in meta[p + 3 * s:p + 3 + 3 * s])
+        segs = [tuple(int(v) for v in meta[p + 4 * s:p + 4 + 4 * s])
                 for s in range(2)]
-        K, w_off = int(meta[p + 6]), int(meta[p + 7])
-        p += 8
-        inp = torch.cat([(xs if buf == 0 else hs)[:, off:off + w]
-                         for buf, off, w in segs], dim=1)
+        K, w_off = int(meta[p + 8]), int(meta[p + 9])
+        p += 12
+        inp = torch.zeros(n, K)
+        for buf, off, w, kpos in segs:
+            inp[:, kpos:kpos + w] = (xs if buf == 0 else hs)[:, off:off + w]
         blk = w_all[w_off:w_off + hid * K].float()
-        wmat = blk.reshape(hid, K).T if bf16 else blk.reshape(K, hid)
+        wmat = _unswizzle(blk, hid, K).T if bf16 else blk.reshape(K, hid)
         z = rnd(inp @ wmat)
         hs = torch.relu(rnd(z + b_all[i].float()))
     return hs @ wout.T + bout
