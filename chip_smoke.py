@@ -15,7 +15,9 @@ Phases, each of which fails the run:
             forward LBS B5 forward and backward) at the training step's
             (262,144 samples: 2 patches of 32 x 32 rays, 128 samples each),
             the block-skipping kernels at k0 = 0, at the batch's own live
-            k0 and at the all-dead clamp; B2, B3 and row 8 also report
+            k0 and at the all-dead clamp; B5 and row 7 beside a library
+            route (grid_sample f32, for B5 followed by the K-set blend),
+            held to the f32 plain version first; B2, B3 and row 8 also report
             TFLOP/s and their share of the bound, and B3's three launches
             (recompute, rows, dW) are timed apart under torch.profiler; the four inverse-LBS cores
             (rows 6, 9, 10, 11: B1/B4 on the training points in each core's
@@ -41,7 +43,9 @@ Phases, each of which fails the run:
             warm-up step, then TRAIN_STEPS timed steps with all six kernels'
             launch counts read around them; the loss finite at every step
             and lower afterwards than at the first step;
-  profile   one more training step under torch.profiler;
+  profile   one more training step under torch.profiler; then one
+            more step with B5's backward inputs captured, and that
+            backward timed on the step's own gradient beside a random one;
   dense     the same training step on the dense per-sample path
             (`sparse=False`: the Morton-order inverse core, the trunks and
             the forward LBS on every sample): one warm-up and DENSE_STEPS
@@ -148,6 +152,8 @@ TOL_RENDER_MAX, TOL_RENDER_MEAN, MIN_ALPHA = 5e-2, 2e-3, 1e-2
 TOL_GRAD = 1e-2
 TOL_GRAD_LOSS = 1e-4
 ITERS = 10                 # timed launches per kernel measurement
+# B5 backward on one training step's own inputs (capture_blend_bwd)
+STEP_KEYS = ("step_grad_ms", "step_random_grad_ms", "step_rows")
 
 # H100 SXM peaks (NVIDIA data sheet), for the bounds: HBM bytes/s, dense
 # bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
@@ -160,11 +166,12 @@ HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 # dw 2 x 12K, dvol/U 32, dfz 6).
 OPS_B1_PAIR, OPS_B4_PAIR = 75, 250
 OPS_B5F_BONE, OPS_B5B_BONE = 68, 166
-# per (sample, bone) of the all-bone weights (row 7): the forward's thread
-# rebuilds its sample's taps and xy weights (28), then z columns 16 and the
-# weight 4; the backward adds the bone's gradient rounding 2, dvol/U 32 and
-# dfz 6, with the sample's taps (28) and dfx/dfy (16) shared by its bones
-OPS_W_FWD, OPS_W_BWD = 48, 42
+# the all-bone weights (row 7): per sample its taps and xy weights (28);
+# per (sample, bone) z columns 16 and the weight 4; the backward adds per
+# (sample, bone) the gradient rounding 2, dvol/U 32 and dfz 6, and per
+# sample dfx/dfy (16)
+OPS_W_SAMPLE, OPS_W_FWD = 28, 20
+OPS_W_SAMPLE_BWD, OPS_W_BWD = 16, 40
 
 
 class SmokeFailure(Exception):
@@ -624,8 +631,95 @@ def check_blend(torch, ti, results, iters):
                     results[("blend_bwd", prec)] = dict(
                         err=err_b, rel=rel_b, ms=ms_b, plain_ms=pb,
                         bound_ms=bb[0], bound_by=bb[1])
+                    if prec == "bf16":
+                        lib_err, lf, lb = time_library_blend(
+                            torch, pts_g, vol_all, rmat, gout, iters)
+                        results[("blend_fwd", prec)]["library_ms"] = lf
+                        results[("blend_bwd", prec)]["library_ms"] = lb
+                        line += (f" library (grid_sample f32 + blend, max "
+                                 f"err vs plain f32 {lib_err:.3e}) fwd ms="
+                                 f"{lf:.4f} bwd ms={lb:.4f}")
             print(line, flush=True)
             del got, got_b, ref_b
+
+
+def library_blend(torch, pts_g, vol_all, rmat):
+    """B5's function on PyTorch calls (its library yardstick): the all-bone
+    weights by grid_sample as in `library_weights`, then A = w rmat and the
+    K-set blend of the grid point. Returns (fn(pts_g, vol5, rmat) ->
+    [N, 3K + 1], vol5)."""
+    _, _, vol5 = library_weights(torch, pts_g, vol_all)
+    G = vol5.shape[-1]
+    K = rmat.shape[1] // 12
+
+    def fn(p, v, rm):
+        grid = (p / (G - 1) * 2.0 - 1.0)[None, None, None]
+        w = torch.nn.functional.grid_sample(
+            v, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True)[0, :, 0, 0].T
+        A = (w @ rm).reshape(-1, K, 3, 4)
+        acc = (A[..., :3] * p[:, None, None, :]).sum(-1) + A[..., 3]
+        return torch.cat([acc.reshape(-1, 3 * K), w.sum(1, keepdim=True)],
+                         1)
+
+    return fn, vol5
+
+
+def time_library_blend(torch, pts_g, vol_all, rmat, gout, iters):
+    """The library route of B5 held to the f32 plain version, then timed
+    forward and through its autograd backward on gout: (max error, fwd ms,
+    bwd ms)."""
+    from hosnerf_tpu_torch.ops.cuda import lbs as clbs
+    fn, vol5 = library_blend(torch, pts_g, vol_all, rmat)
+    err, _ = close(torch, fn(pts_g, vol5, rmat), clbs.shared_blend_plain(
+        pts_g, vol_all, rmat, "highest"), TOL_BWD["blend_fwd"],
+        "grid_sample + blend vs B5 plain f32")
+    fwd = time_ms(torch, lambda: fn(pts_g, vol5, rmat), iters)
+    with torch.enable_grad():
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (pts_g, vol5, rmat)]
+        y = fn(*leaves)
+        bwd = time_ms(torch, lambda: torch.autograd.grad(
+            y, leaves, gout, retain_graph=True), iters)
+    return err, fwd, bwd
+
+
+def capture_blend_bwd(torch, one_step, results, iters):
+    """One more training step with B5's backward inputs captured (the
+    autograd backward's call of `ops/cuda/lbs.py::_blend_bwd`), then that
+    backward timed on the step's own gradient and on a random gradient of
+    the same shape at the same k0."""
+    from hosnerf_tpu_torch.ops.cuda import lbs as clbs
+    orig, seen = clbs._blend_bwd, []
+
+    def record(*args):
+        seen.append(args)
+        return orig(*args)
+
+    clbs._blend_bwd = record
+    try:
+        one_step()
+    finally:
+        clbs._blend_bwd = orig
+    torch.cuda.synchronize()
+    check(len(seen) == 1, f"train step: {len(seen)} B5 backward calls "
+          "captured, expected 1")
+    pts_g, img, rmat, k0_t, gout, B, G, K, prec = seen[0]
+    n = pts_g.shape[0]
+    first = clbs.first_live_row(int(k0_t), n, clbs.TILE_SH)
+    zero = int((gout[first:] == 0).all(1).sum())
+    rnd = torch.randn(gout.shape, device=gout.device,
+                      generator=torch.Generator(gout.device).manual_seed(7))
+    ms_step = time_ms(torch, lambda: orig(*seen[0]), iters)
+    ms_rnd = time_ms(torch, lambda: orig(pts_g, img, rmat, k0_t, rnd, B, G,
+                                         K, prec), iters)
+    print(f"kernel shared_blend_bwd on one training step's inputs ({prec}): "
+          f"n={n} k0={int(k0_t)} rows={n - first} zero gradient rows={zero}"
+          f" ms={ms_step:.4f}; random gradient at the same k0 ms="
+          f"{ms_rnd:.4f}", flush=True)
+    results[("blend_bwd", "bf16")].update(
+        step_grad_ms=ms_step, step_random_grad_ms=ms_rnd,
+        step_rows=n - first)
 
 
 def check_mlp_bwd(torch, model, ti, results, iters):
@@ -944,9 +1038,11 @@ def check_shared_core(torch, ti, results, iters):
         pb = time_ms(torch, lambda: clbs.shared_core_bwd_plain(
             pts_g, vol_all, gw, prec), 1)
         vol_b = vol_all.numel() * (2 if prec == "bf16" else 4)
-        bf = bound(nbytes(pts_g, got) + vol_b, f32_ops=OPS_W_FWD * B * n)
+        bf = bound(nbytes(pts_g, got) + vol_b,
+                   f32_ops=(OPS_W_SAMPLE + OPS_W_FWD * B) * n)
         bb = bound(nbytes(pts_g, gw, *dgot) + vol_b,
-                   f32_ops=OPS_W_BWD * B * n)
+                   f32_ops=(OPS_W_SAMPLE + OPS_W_SAMPLE_BWD
+                            + (OPS_W_FWD + OPS_W_BWD) * B) * n)
         res_f = dict(err=err_f, rel=rel_f, ms=ms_f, plain_ms=pf,
                      bound_ms=bf[0], bound_by=bf[1])
         res_b = dict(err=err_b, rel=rel_b, ms=ms_b, plain_ms=pb,
@@ -1273,10 +1369,19 @@ def check_render_chunk(torch, model, batch):
               f"render chunk {name} disagrees with the dense plain path")
 
 
+LBS_PROFILE_PARTS = (
+    ("image", ("build_image_kernel",)),
+    ("blend_fwd", ("shared_blend_fwd_kernel",)),
+    ("tap_bwd", ("bin_count_kernel", "bin_scan_kernel", "bin_scatter_kernel",
+                 "tap_bwd_kernel")),
+)
+
+
 def profile(torch, what: str, fn, ref_ms: float):
-    """fn under torch.profiler: device and host time by operator, and the
-    device's idle share, of the profiled wall time and of `ref_ms`, the
-    same work's unprofiled time."""
+    """fn under torch.profiler: device and host time by operator, the
+    shared-tap LBS kernels' device time, and the device's idle share, of
+    the profiled wall time and of `ref_ms`, the same work's unprofiled
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
@@ -1296,6 +1401,15 @@ def profile(torch, what: str, fn, ref_ms: float):
     for key in ("self_device_time_total", "self_cpu_time_total"):
         print(events.table(sort_by=key, row_limit=14,
                            max_name_column_width=60))
+    # the shared-tap LBS kernels (csrc/lbs_forward.cu), often below the
+    # tables' rows: B5's backward is its binning passes plus tap_bwd_kernel
+    lbs_ms = {part: sum(e.self_device_time_total for e in events
+                        if e.device_type == DeviceType.CUDA
+                        and any(k in e.key for k in kernels)) / 1e3
+              for part, kernels in LBS_PROFILE_PARTS}
+    print(f"phase profile: {what}, shared-tap LBS device ms: "
+          + " ".join(f"{part} {ms:.4f}" for part, ms in lbs_ms.items()),
+          flush=True)
     print(f"phase profile: {what}, device busy {busy_ms:.2f} ms; idle share "
           f"{1 - busy_ms / wall_ms:.3f} of {wall_ms:.2f} ms profiled wall, "
           f"{1 - busy_ms / ref_ms:.3f} of {ref_ms:.2f} ms unprofiled",
@@ -1574,6 +1688,7 @@ def run(torch, np) -> int:
     lp = lpips.load_weights(lpips.LPIPS(device=device)).requires_grad_(False)
     train_launches, step_ms, one_step = train_phase(torch, device, kind, lp)
     profile(torch, "one training step", one_step, step_ms)
+    capture_blend_bwd(torch, one_step, results, ITERS)
     del one_step
     torch.cuda.empty_cache()
 
@@ -1607,6 +1722,8 @@ def run(torch, np) -> int:
                 "bound_by": max((results[p]["bound_ms"], results[p]["bound_by"])
                                 for p in parts)[1],
                 "library_ms": None if None in lib else sum(lib),
+                **{k: results[parts[0]][k] for k in STEP_KEYS
+                   if k in results[parts[0]]},
                 **rates(parts)}
 
     def rates(parts):

@@ -118,13 +118,18 @@ class HumanObjectField(nn.Module):
     # ------------------------------------------------------------------
     def _refine_pose(self, dst_Rs, dst_Ts, dst_posevec, iter_val):
         """Pose-decoder residuals on all non-root bones, from
-        pose_kick_in_iter on."""
-        if iter_val < self.pose_kick_in_iter:
-            return dst_Rs, dst_Ts
+        pose_kick_in_iter on. Before it the decoder still runs and its
+        output is selected away (the JAX package's `jnp.where`), so its
+        parameters get zero gradients, not none, and Adam counts the step
+        as optax does."""
         out = self.pose_decoder(dst_posevec)
         new_Rs = torch.cat([dst_Rs[:1], torch.matmul(dst_Rs[1:], out["Rs"])])
         new_Ts = torch.cat([dst_Ts[:1], dst_Ts[1:] + out["Ts"]])
-        return new_Rs, new_Ts
+        if iter_val >= self.pose_kick_in_iter:
+            return new_Rs, new_Ts
+        off = torch.zeros((), dtype=torch.bool, device=dst_Rs.device)
+        return torch.where(off, new_Rs, dst_Rs), torch.where(off, new_Ts,
+                                                             dst_Ts)
 
     def _use_fused_mlp(self, pts) -> bool:
         if self.mlp_impl == "flax":

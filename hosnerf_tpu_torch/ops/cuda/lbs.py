@@ -35,6 +35,7 @@ kernels' matmuls do.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -672,6 +673,74 @@ def shared_core_bwd_plain(pts_g, vol_all, gw, precision: str = "bf16"):
     return torch.stack(df, 1), dvol
 
 
+# ---------------------------------------------------------------------------
+# the kernels' volume image and their backward schedule (row 7 and B5)
+# ---------------------------------------------------------------------------
+
+IMAGE_SLOTS = MAX_BONES   # bone slots per voxel row of the image (csrc kSlots)
+
+
+def shared_image_plain(vol_all, precision: str = "bf16"):
+    """The kernels' copy of the volume, [G*G, G, IMAGE_SLOTS]: img[q, z, b]
+    = vol_all[q, b*G + z] in the precision's type (bf16 rounds to
+    nearest), zero for b >= B."""
+    G, B = _shared_dims(vol_all)
+    vol = _vol_for(vol_all, precision).reshape(G * G, B, G).transpose(1, 2)
+    img = vol.new_zeros(G * G, G, IMAGE_SLOTS)
+    img[:, :, :B] = vol
+    return img
+
+
+def shared_image(vol_all, precision: str = "bf16"):
+    """The image of `shared_image_plain`, flat [G*G*G*IMAGE_SLOTS]. A CPU
+    tensor runs `shared_image_plain`; a CUDA tensor one launch of
+    csrc/lbs_forward.cu (cast, relayout and pad), or raises. Forward
+    entries build it per call and the autograd functions keep it for the
+    backward."""
+    if vol_all.device.type == "cpu":
+        return shared_image_plain(vol_all, precision).reshape(-1)
+    if not vol_all.is_cuda:
+        raise ValueError(f"unsupported device {vol_all.device}")
+    G, B = _shared_dims(vol_all)
+    _rounder(precision)  # raises on an unknown precision
+    src = (vol_all if vol_all.dtype in (torch.float32, torch.bfloat16)
+           else vol_all.float()).contiguous()
+    img = torch.empty(G * G * G * IMAGE_SLOTS, device=vol_all.device,
+                      dtype=torch.bfloat16 if precision == "bf16"
+                      else torch.float32)
+    lib = _blend_lib()
+    rc = lib.hosnerf_lbs_image(
+        src.data_ptr(), int(src.dtype == torch.bfloat16), img.data_ptr(),
+        int(precision == "bf16"), B, G,
+        torch.cuda.current_stream(vol_all.device).cuda_stream)
+    _build.check(rc, lib, "shared_image")
+    return img
+
+
+def _tap_bwd(entry, pts_g, img, grad, rmat, k0_t, B: int, G: int, K: int,
+             precision: str):
+    """The backward kernels of row 7 (K = 0, grad = gw) and B5 (grad =
+    gout): binning passes and the per-brick kernel; counts one launch of
+    `entry`. Returns (dpts, dvol [G*G, B*G], drmat or None)."""
+    n, dev = pts_g.shape[0], pts_g.device
+    lib = _blend_lib()
+    scratch = torch.empty(lib.hosnerf_shared_tap_scratch(n, G), device=dev,
+                          dtype=torch.int32)  # the binning's
+    dpts = torch.empty(n, 3, device=dev, dtype=torch.float32)
+    dvol = torch.zeros(G * G, B * G, device=dev, dtype=torch.float32)
+    drmat = (torch.zeros(B, 12 * K, device=dev, dtype=torch.float32)
+             if K else None)
+    rc = lib.hosnerf_shared_tap_bwd(
+        pts_g.data_ptr(), img.data_ptr(), grad.data_ptr(),
+        rmat.data_ptr() if K else None, k0_t.data_ptr() if K else None,
+        scratch.data_ptr(), dpts.data_ptr(), dvol.data_ptr(),
+        drmat.data_ptr() if K else None, n, B, G, K,
+        int(precision == "bf16"), torch.cuda.current_stream(dev).cuda_stream)
+    entry.launches += 1
+    _build.check(rc, lib, entry.__name__)
+    return dpts, dvol, drmat
+
+
 def _check_shared(pts_g, vol_all):
     G, B = _shared_dims(vol_all)
     n = pts_g.shape[0]
@@ -685,27 +754,39 @@ def _check_shared(pts_g, vol_all):
     return G, B, n
 
 
-def shared_core_fwd(pts_g, vol_all, precision: str = "bf16"):
-    """Row 7 forward: w [N, B]. A CPU tensor runs `shared_core_plain`; a
-    CUDA tensor the kernel of csrc/lbs_forward.cu (or raises): one thread
-    per (sample, bone), over the volume relaid with the bones innermost."""
-    if pts_g.device.type == "cpu":
-        return shared_core_plain(pts_g, vol_all, precision)
-    if not pts_g.is_cuda:
-        raise ValueError(f"unsupported device {pts_g.device}")
-    G, B, n = _check_shared(pts_g, vol_all)
-    dev = pts_g.device
-    # [G*G, B*G] -> [G*G, G, B]: the bones of one tap are adjacent
-    vol_r = _vol_for(vol_all, precision).reshape(G * G, B, G).transpose(
-        1, 2).contiguous()
+def _weights_fwd(pts_g, img, B: int, G: int, precision: str):
+    n, dev = pts_g.shape[0], pts_g.device
     w = torch.empty(n, B, device=dev, dtype=torch.float32)
     lib = _blend_lib()
     rc = lib.hosnerf_shared_weights_fwd(
-        pts_g.data_ptr(), vol_r.data_ptr(), w.data_ptr(), n, B, G,
+        pts_g.data_ptr(), img.data_ptr(), w.data_ptr(), n, B, G,
         int(precision == "bf16"), torch.cuda.current_stream(dev).cuda_stream)
     shared_core_fwd.launches += 1
     _build.check(rc, lib, "shared_core_fwd")
     return w
+
+
+def _weights_bwd(pts_g, img, gw, B: int, G: int, precision: str):
+    n = pts_g.shape[0]
+    gw = gw.float().contiguous()
+    if gw.shape != (n, B) or gw.device != pts_g.device:
+        raise ValueError(f"gw must be [n, {B}] on the device of pts_g")
+    dpts, dvol, _ = _tap_bwd(shared_core_bwd, pts_g, img, gw, None, None, B,
+                             G, 0, precision)
+    return dpts, dvol
+
+
+def shared_core_fwd(pts_g, vol_all, precision: str = "bf16"):
+    """Row 7 forward: w [N, B]. A CPU tensor runs `shared_core_plain`; a
+    CUDA tensor the kernel of csrc/lbs_forward.cu (or raises): one thread
+    per sample over the volume's image (`shared_image`)."""
+    if pts_g.device.type == "cpu":
+        return shared_core_plain(pts_g, vol_all, precision)
+    if not pts_g.is_cuda:
+        raise ValueError(f"unsupported device {pts_g.device}")
+    G, B, _ = _check_shared(pts_g, vol_all)
+    return _weights_fwd(pts_g, shared_image(vol_all, precision), B, G,
+                        precision)
 
 
 shared_core_fwd.launches = 0
@@ -713,29 +794,16 @@ shared_core_fwd.launches = 0
 
 def shared_core_bwd(pts_g, vol_all, gw, precision: str = "bf16"):
     """Row 7 backward: (dpts [N, 3], dvol [G*G, B*G]). A CPU tensor runs
-    `shared_core_bwd_plain`; a CUDA tensor the kernel of
-    csrc/lbs_forward.cu (or raises). dvol sums over all samples with
-    atomics, so its summation order varies from run to run."""
+    `shared_core_bwd_plain`; a CUDA tensor the binned kernels of
+    csrc/lbs_forward.cu (or raises). dvol sums per brick in shared memory,
+    then with atomics, so its summation order varies from run to run."""
     if pts_g.device.type == "cpu":
         return shared_core_bwd_plain(pts_g, vol_all, gw, precision)
     if not pts_g.is_cuda:
         raise ValueError(f"unsupported device {pts_g.device}")
-    G, B, n = _check_shared(pts_g, vol_all)
-    dev = pts_g.device
-    gw = gw.float().contiguous()
-    if gw.shape != (n, B) or gw.device != dev:
-        raise ValueError(f"gw must be [n, {B}] on the device of pts_g")
-    vol = _vol_for(vol_all, precision).contiguous()
-    dpts = torch.empty(n, 3, device=dev, dtype=torch.float32)
-    dvol = torch.zeros(G * G, B * G, device=dev, dtype=torch.float32)
-    lib = _blend_lib()
-    rc = lib.hosnerf_shared_weights_bwd(
-        pts_g.data_ptr(), vol.data_ptr(), gw.data_ptr(), dpts.data_ptr(),
-        dvol.data_ptr(), n, B, G, int(precision == "bf16"),
-        torch.cuda.current_stream(dev).cuda_stream)
-    shared_core_bwd.launches += 1
-    _build.check(rc, lib, "shared_core_bwd")
-    return dpts, dvol
+    G, B, _ = _check_shared(pts_g, vol_all)
+    return _weights_bwd(pts_g, shared_image(vol_all, precision), gw, B, G,
+                        precision)
 
 
 shared_core_bwd.launches = 0
@@ -746,13 +814,22 @@ class _SharedCore(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pts_g, vol_all, precision):
         ctx.precision = precision
-        ctx.save_for_backward(pts_g, vol_all)
-        return shared_core_fwd(pts_g, vol_all, precision)
+        if pts_g.device.type == "cpu":
+            ctx.save_for_backward(pts_g, vol_all, None)
+            return shared_core_fwd(pts_g, vol_all, precision)
+        G, B, _ = _check_shared(pts_g, vol_all)
+        img = shared_image(vol_all, precision)
+        ctx.save_for_backward(pts_g, vol_all, img)
+        return _weights_fwd(pts_g, img, B, G, precision)
 
     @staticmethod
     def backward(ctx, gw):
-        pts_g, vol_all = ctx.saved_tensors
-        dpts, dvol = shared_core_bwd(pts_g, vol_all, gw, ctx.precision)
+        pts_g, vol_all, img = ctx.saved_tensors
+        if img is None:
+            dpts, dvol = shared_core_bwd(pts_g, vol_all, gw, ctx.precision)
+        else:
+            G, B = _shared_dims(vol_all)
+            dpts, dvol = _weights_bwd(pts_g, img, gw, B, G, ctx.precision)
         return dpts.to(pts_g.dtype), dvol.to(vol_all.dtype), None
 
 
@@ -861,6 +938,30 @@ def _check_blend(pts_g, vol_all, rmat):
     return G, B, K, n
 
 
+def _blend_fwd(pts_g, img, rmat, k0_t, B: int, G: int, K: int,
+               precision: str):
+    n, dev = pts_g.shape[0], pts_g.device
+    out = torch.empty(n, 3 * K + 1, device=dev, dtype=torch.float32)
+    lib = _blend_lib()
+    rc = lib.hosnerf_shared_blend_fwd(
+        pts_g.data_ptr(), img.data_ptr(), rmat.data_ptr(), k0_t.data_ptr(),
+        out.data_ptr(), n, B, G, K, int(precision == "bf16"),
+        torch.cuda.current_stream(dev).cuda_stream)
+    shared_blend_fwd.launches += 1
+    _build.check(rc, lib, "shared_blend_fwd")
+    return out
+
+
+def _blend_bwd(pts_g, img, rmat, k0_t, gout, B: int, G: int, K: int,
+               precision: str):
+    n = pts_g.shape[0]
+    gout = gout.float().contiguous()
+    if gout.shape != (n, 3 * K + 1) or gout.device != pts_g.device:
+        raise ValueError("gout must be [n, 3K + 1] on the device of pts_g")
+    return _tap_bwd(shared_blend_bwd, pts_g, img, gout, rmat, k0_t, B, G, K,
+                    precision)
+
+
 def shared_blend_fwd(pts_g, vol_all, rmat, k0=None, precision: str = "bf16"):
     """B5 forward: [N, 3K + 1]. Rows below the clamped k0 * 512 are
     unspecified (the kernel leaves them unwritten). A CPU tensor runs
@@ -870,19 +971,9 @@ def shared_blend_fwd(pts_g, vol_all, rmat, k0=None, precision: str = "bf16"):
         return shared_blend_plain(pts_g, vol_all, rmat, precision)
     if not pts_g.is_cuda:
         raise ValueError(f"unsupported device {pts_g.device}")
-    G, B, K, n = _check_blend(pts_g, vol_all, rmat)
-    dev = pts_g.device
-    vol = _vol_for(vol_all, precision).contiguous()
-    k0_t = _k0_tensor(k0, dev)
-    out = torch.empty(n, 3 * K + 1, device=dev, dtype=torch.float32)
-    lib = _blend_lib()
-    rc = lib.hosnerf_shared_blend_fwd(
-        pts_g.data_ptr(), vol.data_ptr(), rmat.data_ptr(), k0_t.data_ptr(),
-        out.data_ptr(), n, B, G, K, int(precision == "bf16"),
-        torch.cuda.current_stream(dev).cuda_stream)
-    shared_blend_fwd.launches += 1
-    _build.check(rc, lib, "shared_blend_fwd")
-    return out
+    G, B, K, _ = _check_blend(pts_g, vol_all, rmat)
+    return _blend_fwd(pts_g, shared_image(vol_all, precision), rmat,
+                      _k0_tensor(k0, pts_g.device), B, G, K, precision)
 
 
 shared_blend_fwd.launches = 0
@@ -892,34 +983,19 @@ def shared_blend_bwd(pts_g, vol_all, rmat, k0, gout,
                      precision: str = "bf16"):
     """B5 backward: (dpts [N, 3], dvol [G*G, B*G], drmat [B, 12K]) over
     rows from the clamped k0 * 512 on; dpts rows below it are 0. A CPU
-    tensor runs `shared_blend_bwd_plain`; a CUDA tensor the kernel of
-    csrc/lbs_forward.cu (or raises). dvol/drmat sum over all samples with
-    atomics, so their summation order varies from run to run."""
+    tensor runs `shared_blend_bwd_plain`; a CUDA tensor the binned kernels
+    of csrc/lbs_forward.cu (or raises). dvol and drmat sum per CTA in
+    shared memory, then with atomics, so their summation order varies from
+    run to run."""
     if pts_g.device.type == "cpu":
         return shared_blend_bwd_plain(pts_g, vol_all, rmat, k0, gout,
                                       precision)
     if not pts_g.is_cuda:
         raise ValueError(f"unsupported device {pts_g.device}")
-    G, B, K, n = _check_blend(pts_g, vol_all, rmat)
-    dev = pts_g.device
-    gout = gout.float().contiguous()
-    if gout.shape != (n, 3 * K + 1) or gout.device != dev:
-        raise ValueError("gout must be [n, 3K + 1] on the device of pts_g")
-    vol = _vol_for(vol_all, precision).contiguous()
-    k0_t = _k0_tensor(k0, dev)
-    dpts = torch.empty(n, 3, device=dev, dtype=torch.float32)
-    dvol = torch.zeros(G * G, B * G, device=dev, dtype=torch.float32)
-    drmat = torch.zeros(B, 12 * K, device=dev, dtype=torch.float32)
-    lib = _blend_lib()
-    rc = lib.hosnerf_shared_blend_bwd(
-        pts_g.data_ptr(), vol.data_ptr(), rmat.data_ptr(), k0_t.data_ptr(),
-        gout.data_ptr(), dpts.data_ptr(), dvol.data_ptr(), drmat.data_ptr(),
-        n, B, G, K, int(precision == "bf16"),
-        torch.cuda.current_stream(dev).cuda_stream)
-    shared_blend_bwd.launches += 1
-    _build.check(rc, lib, "shared_blend_bwd")
-    dpts.masked_fill_(~live_rows_mask(k0_t, n, TILE_SH, dev), 0.0)
-    return dpts, dvol, drmat
+    G, B, K, _ = _check_blend(pts_g, vol_all, rmat)
+    return _blend_bwd(pts_g, shared_image(vol_all, precision), rmat,
+                      _k0_tensor(k0, pts_g.device), gout, B, G, K,
+                      precision)
 
 
 shared_blend_bwd.launches = 0
@@ -930,14 +1006,24 @@ class _SharedBlend(torch.autograd.Function):
     @staticmethod
     def forward(ctx, pts_g, vol_all, rmat, k0, precision):
         ctx.precision = precision
-        ctx.save_for_backward(pts_g, vol_all, rmat, k0)
-        return shared_blend_fwd(pts_g, vol_all, rmat, k0, precision)
+        if pts_g.device.type == "cpu":
+            ctx.save_for_backward(pts_g, vol_all, rmat, k0, None)
+            return shared_blend_fwd(pts_g, vol_all, rmat, k0, precision)
+        G, B, K, _ = _check_blend(pts_g, vol_all, rmat)
+        img = shared_image(vol_all, precision)
+        ctx.save_for_backward(pts_g, vol_all, rmat, k0, img)
+        return _blend_fwd(pts_g, img, rmat, k0, B, G, K, precision)
 
     @staticmethod
     def backward(ctx, gout):
-        pts_g, vol_all, rmat, k0 = ctx.saved_tensors
-        dpts, dvol, drmat = shared_blend_bwd(pts_g, vol_all, rmat, k0, gout,
-                                             ctx.precision)
+        pts_g, vol_all, rmat, k0, img = ctx.saved_tensors
+        if img is None:
+            dpts, dvol, drmat = shared_blend_bwd(pts_g, vol_all, rmat, k0,
+                                                 gout, ctx.precision)
+        else:
+            G, B, K = _blend_dims(vol_all, rmat)
+            dpts, dvol, drmat = _blend_bwd(pts_g, img, rmat, k0, gout, B, G,
+                                           K, ctx.precision)
         return (dpts.to(pts_g.dtype), dvol.to(vol_all.dtype),
                 drmat.to(rmat.dtype), None, None)
 
@@ -954,18 +1040,19 @@ def shared_blend_core(pts_g, vol_all, rmat, k0=None,
     return _SharedBlend.apply(pts_g, vol_all, rmat, k0_t, precision)
 
 
+@functools.cache
 def _blend_lib() -> ctypes.CDLL:
     lib = _build.load("lbs_forward")
     p = ctypes.c_void_p
     i = ctypes.c_int
+    _build.declare(lib, "hosnerf_lbs_image", [p, i, p, i, i, i, p])
     _build.declare(lib, "hosnerf_shared_blend_fwd",
                    [p, p, p, p, p, i, i, i, i, i, p])
-    _build.declare(lib, "hosnerf_shared_blend_bwd",
-                   [p, p, p, p, p, p, p, p, i, i, i, i, i, p])
     _build.declare(lib, "hosnerf_shared_weights_fwd",
                    [p, p, p, i, i, i, i, p])
-    _build.declare(lib, "hosnerf_shared_weights_bwd",
-                   [p, p, p, p, p, i, i, i, i, p])
+    _build.declare(lib, "hosnerf_shared_tap_scratch", [i, i])
+    _build.declare(lib, "hosnerf_shared_tap_bwd",
+                   [p, p, p, p, p, p, p, p, p, i, i, i, i, i, p])
     return lib
 
 

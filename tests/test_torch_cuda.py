@@ -434,6 +434,118 @@ def test_shared_core_kernels_match_plain(lbs_inputs, prec):
         _close(a, b, 1e-4, what)
 
 
+# Edge cases of the shared-tap kernels (rows 5 and 7): (n, B, K, where the
+# samples lie, k0[, G = 32]). "mixed": in, partly off and off the grid;
+# "hot": every sample in one voxel (one brick split over many CTAs); "off":
+# every sample off the grid; "faces": coordinates on the grid's faces (0 and
+# G - 1). G = 96 has more bricks than the binning's shared histogram holds.
+TAP_CASES = {
+    "n1": (1, 26, 2, "mixed", 0),
+    "n511": (511, 26, 2, "mixed", 0),
+    "n513_live": (513, 26, 2, "mixed", 1),
+    "n513_clamped": (513, 26, 2, "mixed", 10 ** 6),
+    "n262143": (262_143, 26, 2, "mixed", 0),
+    "n262143_live": (262_143, 26, 2, "mixed", 100),
+    "hot": (20_000, 26, 2, "hot", 0),
+    "off": (4_000, 26, 2, "off", 0),
+    "faces": (4_000, 26, 2, "faces", 0),
+    "B1_K1": (3_000, 1, 1, "mixed", 0),
+    "B32_K1": (3_000, 32, 1, "mixed", 1),
+    "B32_K2": (3_000, 32, 2, "mixed", 0),
+    "G96": (2_000, 2, 2, "mixed", 0, 96),
+}
+
+
+def _tap_case(dev, n, B, K, kind, G=32, seed=0):
+    gen = torch.Generator(dev).manual_seed(seed)
+    vol_all = torch.rand(G * G, B * G, device=dev, generator=gen)
+    u = torch.rand(n, 3, device=dev, generator=gen)
+    if kind == "hot":
+        pts = 13.25 + 0.5 * u
+    elif kind == "off":
+        pts = -3.0 - 40.0 * u
+        pts[::2] += G + 44.0
+    else:
+        pts = -1.5 + (G + 2.0) * u
+        if kind == "faces":
+            pts[0::3, 0] = G - 1
+            pts[1::3, 1] = 0.0
+            pts[2::3, 2] = G - 1
+            pts[::5] = G - 1
+    rmat = torch.randn(B, 12 * K, device=dev, generator=gen) * 0.1
+    gout = torch.randn(n, 3 * K + 1, device=dev, generator=gen)
+    gw = torch.randn(n, B, device=dev, generator=gen)
+    gout[::3] = 0.0                        # gradient rows that are zero
+    gw[::3] = 0.0
+    return pts.contiguous(), vol_all, rmat, gout, gw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("prec", ["bf16", "highest"])
+def test_shared_image_matches_plain(dev, prec, dtype):
+    """The kernels' volume image, built in one launch, equals
+    `shared_image_plain` bit for bit (a cast rounds to nearest, as
+    `.to(torch.bfloat16)` does), bone slots past B zero."""
+    G, B = 32, 26
+    vol_all = torch.randn(G * G, B * G, device=dev,
+                          generator=torch.Generator(dev).manual_seed(8))
+    vol_all = vol_all.to(dtype)
+    got = clbs.shared_image(vol_all, prec)
+    ref = clbs.shared_image_plain(vol_all, prec).reshape(-1)
+    assert got.dtype == ref.dtype and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("prec", ["bf16", "highest"])
+@pytest.mark.parametrize("case", sorted(TAP_CASES))
+def test_shared_tap_kernels_edge_cases(dev, case, prec):
+    """Rows 5 and 7 (forward and the binned backwards) vs their plain
+    versions on edge cases, at chip_smoke.py's tolerances: row 7 forward
+    1e-6 of the scale (the plain version's order), B5 forward 1e-5;
+    backwards relative L2 1e-4 and max 1e-4 (highest) or 1e-2 (bf16) of
+    the scale (sums over bones and samples in another order; in bf16 a
+    gradient factor rounded apart by one ulp, see chip_smoke.TOL_BWD).
+    One launch count per entry call; dpts rows below the clamped k0 * 512
+    exactly 0."""
+    n, B, K, kind, k0, *G = TAP_CASES[case]
+    pts, vol_all, rmat, gout, gw = _tap_case(dev, n, B, K, kind, *G)
+    first = clbs.first_live_row(k0, n, clbs.TILE_SH)
+    k0_t = torch.tensor([k0], device=dev, dtype=torch.int32)
+    bwd_tol = 1e-2 if prec == "bf16" else 1e-4
+    counts = lambda: [f.launches for f in (  # noqa: E731
+        clbs.shared_core_fwd, clbs.shared_core_bwd, clbs.shared_blend_fwd,
+        clbs.shared_blend_bwd)]
+    before = counts()
+
+    ref = clbs.shared_core_plain(pts, vol_all, prec)
+    _poison(64 << 20, dev)
+    got = clbs.shared_core_fwd(pts, vol_all, prec)
+    torch.cuda.synchronize()
+    _close(got, ref, 1e-6, "weights fwd")
+    dref = clbs.shared_core_bwd_plain(pts, vol_all, gw, prec)
+    _poison(64 << 20, dev)
+    dgot = clbs.shared_core_bwd(pts, vol_all, gw, prec)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("dpts", "dvol"), dgot, dref):
+        _close(a, b, 1e-4, f"weights bwd {what}", bwd_tol)
+
+    ref = clbs.shared_blend_plain(pts, vol_all, rmat, prec)
+    _poison(64 << 20, dev)
+    got = clbs.shared_blend_fwd(pts, vol_all, rmat, k0_t, prec)
+    torch.cuda.synchronize()
+    if first < n:
+        _close(got[first:], ref[first:], 1e-5, "blend fwd")
+    dref = clbs.shared_blend_bwd_plain(pts, vol_all, rmat, k0_t, gout, prec)
+    _poison(64 << 20, dev)
+    dgot = clbs.shared_blend_bwd(pts, vol_all, rmat, k0_t, gout, prec)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("dpts", "dvol", "drmat"), dgot, dref):
+        _close(a, b, 1e-4, f"blend bwd {what}", bwd_tol)
+    assert first == 0 or float(dgot[0][:first].abs().max()) == 0.0
+    assert [a - b for a, b in zip(counts(), before)] == [1, 1, 1, 1]
+    if kind == "off":
+        assert not dgot[1].any()
+
+
 TRUNK_SPECS = {
     "canonical": (127, 256, 8, dict(skip_before=5, skip_order="input_first",
                                     skip_off=0, skip_width=127), 4),

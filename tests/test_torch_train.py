@@ -409,6 +409,86 @@ def test_optimizer_matches_optax(start):
                                                            rel=1e-6)
 
 
+POSE_KICK_IN = 2
+
+
+def test_pose_kick_in_steps_match_jax():
+    """Three stage-2 steps (iter 0, 1, 2) with pose_kick_in_iter = 2,
+    port dense (gather LBS, module MLPs, f32) vs JAX dense from the same
+    params. Each step every port parameter gets a gradient, exactly 0
+    where JAX's is (the pose decoder's before the kick-in) and else within
+    2e-2 relative L2 of JAX's (the decoder's from the kick-in on). That is
+    looser than the dense loss test's 1e-4: this batch at iters 0-2 is
+    more sensitive to f32 op order (at JAX's own params the worst leaf
+    reaches 1e-3 at iter 2, and with the params of two Adam steps, equal
+    to 1e-6, 1e-2 on a bias whose gradient nearly cancels). A hook then
+    hands Adam the JAX step's gradients in place of the port's, so that the
+    parameters after each step, the pose decoder's included, meet optax's
+    at the tolerances of `test_optimizer_matches_optax`. (From its own
+    gradients Adam's first step, about lr * g / |g|, moves entries with
+    |g| near its eps by up to 1e-6; the hook holds the gradients
+    themselves.) A parameter that gets
+    no gradient, as the decoder's did when the port skipped it before the
+    kick-in, has no hook call: Adam skips it and starts its bias
+    correction late, and at iter 2 its parameters part from optax's."""
+    from hosnerf_tpu.models.state import state_index as jstate_index
+    nb = synthetic.human_batch(1, 16, grid_size=32)
+    batch = {k: jnp.asarray(v) for k, v in nb.items()}
+    tbatch = {k: torch.from_numpy(np.array(v)) for k, v in nb.items()}
+    jcfg = jstage2.Stage2Config(lbs_impl="gather", **CFG)
+    params, jstate, jmodel, jopt = jstage2.init_state(
+        jcfg, jax.random.key(0), batch)
+    loss_fn = jstage2.make_loss_fn(
+        jcfg, jmodel.clone(pose_kick_in_iter=POSE_KICK_IN))
+
+    @jax.jit
+    def jstep(p, st, it):
+        grads = jax.grad(lambda q: loss_fn(
+            q, None, batch, it, jstate_index(batch["time"], None),
+            jax.random.key(1))[0])(p)
+        upd, st = jopt.update(grads, st, p)
+        return optax.apply_updates(p, upd), st, grads
+
+    tcfg = tstage2.Stage2Config(lbs_impl="gather", mlp_impl="flax", **CFG)
+    model = tstage2.make_model(tcfg, device="cpu")
+    model.load_state_dict(convert.human_state_dict(
+        jax.tree.map(np.asarray, params)), strict=True)
+    model.pose_kick_in_iter = POSE_KICK_IN
+    opt = tstage2.make_optimizer(tcfg, model)
+    tstep = tstage2.make_train_step(tcfg, model, opt)
+    ref_g, hooked = {}, set()
+
+    def take_jax_grad(name):
+        def hook(p):
+            ref, got = ref_g[name], p.grad.numpy()
+            if np.any(ref):
+                assert _rel(got, ref)[1] <= 2e-2, (name, _rel(got, ref))
+            else:
+                assert not np.any(got), name
+            p.grad.copy_(torch.tensor(ref))
+            hooked.add(name)
+        return hook
+
+    for name, p in model.named_parameters():
+        p.register_post_accumulate_grad_hook(take_jax_grad(name))
+    for it in range(3):
+        params, jstate, grads = jstep(params, jstate, it)
+        ref_g.update(convert.human_params_to_numpy(
+            jax.tree.map(np.asarray, grads)))
+        hooked.clear()
+        tstep(tbatch, it)
+        ref = convert.human_params_to_numpy(jax.tree.map(np.asarray, params))
+        got = model.state_dict()
+        assert sorted(got) == sorted(ref)
+        for k, v in ref.items():
+            np.testing.assert_allclose(got[k].numpy(), v, rtol=1e-6,
+                                       atol=3e-8, err_msg=f"iter {it} {k}")
+        assert hooked == set(ref), (it, sorted(set(ref) - hooked))
+        dec = [k for k in ref_g if k.startswith("pose_decoder")]
+        assert dec and any(np.any(ref_g[k]) for k in dec) == (
+            it >= POSE_KICK_IN), it
+
+
 # ---------------------------------------------------------------------------
 # LPIPS
 # ---------------------------------------------------------------------------
