@@ -14,10 +14,13 @@ Phases, each of which fails the run:
             training kernels (trunk backward B3, inverse-LBS backward B4,
             forward LBS B5 forward and backward) at the training step's
             (262,144 samples: 2 patches of 32 x 32 rays, 128 samples each),
-            the block-skipping kernels at k0 = 0, at the batch's own live
-            k0 and at the all-dead clamp; B5 and row 7 beside a library
-            route (grid_sample f32, for B5 followed by the K-set blend),
-            held to the f32 plain version first; B2, B3 and row 8 also report
+            the block-skipping kernels (B1-B5) at k0 = 0, at the batch's
+            own live k0 and at the all-dead clamp; B1 also at the training
+            inputs; B1/B4 report their entry time, their kernels' device
+            time (profiler) and the corner image's; B1/B4, B5 and row 7
+            beside a library route (bmm + grid_sample f32 + blend for the
+            inverse LBS, grid_sample f32 for row 7, for B5 followed by the
+            K-set blend), held to the f32 plain version first; B2, B3 and row 8 also report
             TFLOP/s and their share of the bound, and B3's three launches
             (recompute, rows, dW) are timed apart under torch.profiler; the four inverse-LBS cores
             (rows 6, 9, 10, 11: B1/B4 on the training points in each core's
@@ -36,7 +39,8 @@ Phases, each of which fails the run:
             the image checked, and one chunk held against the dense plain
             path;
   profile   one more frame under torch.profiler: device and host time by
-            operator, and the device's idle share;
+            operator, the LBS kernels' device time, and the device's idle
+            share;
   train     the stage-2 training step (`train/stage2.py`: init_state +
             make_train_step, LPIPS on the patches with the random backbone)
             at full width on one fixed synthetic batch at iter 60,000: one
@@ -152,8 +156,11 @@ TOL_RENDER_MAX, TOL_RENDER_MEAN, MIN_ALPHA = 5e-2, 2e-3, 1e-2
 TOL_GRAD = 1e-2
 TOL_GRAD_LOSS = 1e-4
 ITERS = 10                 # timed launches per kernel measurement
-# B5 backward on one training step's own inputs (capture_blend_bwd)
-STEP_KEYS = ("step_grad_ms", "step_random_grad_ms", "step_rows")
+# B5 backward on one training step's own inputs (capture_blend_bwd); B1
+# and B4: kernel device time (profiler), the corner image's, the entry at
+# k0 = 0, the live pairs and the k0 timed
+EXTRA_KEYS = ("step_grad_ms", "step_random_grad_ms", "step_rows",
+              "device_ms", "image_ms", "k0_zero_ms", "live_pairs", "k0")
 
 # H100 SXM peaks (NVIDIA data sheet), for the bounds: HBM bytes/s, dense
 # bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
@@ -354,40 +361,148 @@ def trunk_flops(layers, out, rows: int) -> float:
 # kernels phase: render shapes (B1, B2)
 # ---------------------------------------------------------------------------
 
-def check_lbs(torch, model, batch, results, iters):
+INV_PARTS = (("image", ("inv_image_kernel",)), ("fwd", ("inv_fwd_kernel",)),
+             ("bwd", ("inv_bwd_kernel", "inv_fold_kernel")),
+             ("memset", ("Memset",)))
+
+
+def device_ms(torch, fn, parts, reps=5):
+    """{part: device ms per call of fn} from torch.profiler's kernel
+    records (mean of `reps` calls after one warm-up); `parts` maps each
+    part to substrings of its kernels' names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {part: sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and any(k in e.key for k in kernels)) / 1e3 / reps
+            for part, kernels in parts}
+
+
+def inverse_k0_cases(dom, n: int):
+    """(k0, first computed row) for the inverse kernels: 0, the sorted
+    domain's own k0 and the all-dead clamp."""
     from hosnerf_tpu_torch.ops.cuda import lbs as clbs
-    si, dom, pts_s, rg, tg, vol_qz, s_, o_ = sorted_inputs(torch, model,
-                                                           batch)
+    return [(k0, clbs.first_live_row(k0, n, clbs.INV_TILE))
+            for k0 in (0, int(dom.k0_for(clbs.INV_TILE)), 10 ** 6)]
+
+
+def check_inverse_fwd(torch, pts_s, rg, tg, vol_qz, dom, results, key,
+                      iters, what):
+    """B1 vs its plain version at k0 = 0, the domain's own k0 and the
+    all-dead clamp, both precisions, on NaN-poisoned outputs: every row at
+    or after the clamped k0 * INV_TILE equal to the plain version (TOL_LBS
+    of the scale; in practice bit for bit), the rows below it exactly 0.
+    Timed at the domain's k0 (what the sorted path runs) and at 0: the
+    entry by CUDA events, its kernels by the profiler; the bf16 line also
+    times the library route (held to the f32 plain version within the
+    render tolerances first)."""
+    from hosnerf_tpu_torch.ops.cuda import lbs as clbs
+    n, dev = pts_s.shape[0], pts_s.device
+    G = vol_qz.shape[-1]
     dead = int(dom.n_dead_groups) * clbs.SORT_GROUP
-    pairs = live_pairs(pts_s, rg, tg, model.mweight_volume_size)
+    pairs = live_pairs(pts_s, rg, tg, G)
+    cases = inverse_k0_cases(dom, n)
+    live_k0, first = cases[1]
     for prec in ("bf16", "highest"):
         ref = clbs.inverse_core_plain(pts_s, rg, tg, vol_qz, prec)
-        ranges = poison(torch, pts_s.device, ref.numel() * 4)
-        got = clbs.inverse_core_pg_s(pts_s, rg, tg, vol_qz, prec)
-        torch.cuda.synchronize()
-        check(landed(got, ranges), "inverse LBS output missed the poison")
-        check(bool(torch.isfinite(got).all()),
-              f"inverse LBS {prec}: non-finite output (unwritten rows?)")
-        err = float((got - ref).abs().max())
         scale = float(ref.abs().max())
-        check(err <= TOL_LBS * scale,
-              f"inverse LBS {prec}: max err {err} > {TOL_LBS} x {scale}")
-        check(dead == 0 or float(got[:dead].abs().max()) == 0.0,
-              f"inverse LBS {prec}: dead rows not exactly 0")
+        err = 0.0
+        for k0, lo in cases:
+            k0_t = torch.tensor([k0], dtype=torch.int32, device=dev)
+            ranges = poison(torch, dev, ref.numel() * 4)
+            got = clbs.inverse_core_pg_s(pts_s, rg, tg, vol_qz, prec,
+                                         k0_blocks=k0_t)
+            torch.cuda.synchronize()
+            check(landed(got, ranges), f"inverse LBS {what} {prec} k0={k0}: "
+                  "output missed the poison")
+            check(bool(torch.isfinite(got).all()), f"inverse LBS {what} "
+                  f"{prec} k0={k0}: non-finite output (unwritten rows?)")
+            check(lo == 0 or not bool(got[:lo].any()), f"inverse LBS {what} "
+                  f"{prec} k0={k0}: rows below k0 not exactly 0")
+            e = float((got[lo:] - ref[lo:]).abs().max())
+            check(e <= TOL_LBS * scale, f"inverse LBS {what} {prec} k0={k0}:"
+                  f" max err {e} > {TOL_LBS} x {scale}")
+            check(lo > dead or bool(torch.equal(got[:lo], ref[:lo])),
+                  f"inverse LBS {what} {prec} k0={k0}: dead rows differ")
+            err = max(err, e)
+            del got
+        k0_t = torch.tensor([live_k0], dtype=torch.int32, device=dev)
         ms = time_ms(torch, lambda: clbs.inverse_core_pg_s(
+            pts_s, rg, tg, vol_qz, prec, k0_blocks=k0_t), iters)
+        ms0 = time_ms(torch, lambda: clbs.inverse_core_pg_s(
             pts_s, rg, tg, vol_qz, prec), iters)
+        parts = device_ms(torch, lambda: clbs.inverse_core_pg_s(
+            pts_s, rg, tg, vol_qz, prec, k0_blocks=k0_t), INV_PARTS)
         plain_ms = time_ms(torch, lambda: clbs.inverse_core_plain(
             pts_s, rg, tg, vol_qz, prec), max(1, iters // 5))
         vol_b = vol_qz.numel() * (2 if prec == "bf16" else 4)
-        bms, by = bound(nbytes(pts_s, rg, tg, got) + vol_b,
+        bms, by = bound(nbytes(pts_s[first:], rg, tg, ref) + vol_b,
                         f32_ops=OPS_B1_PAIR * pairs)
-        print(f"kernel inverse_core_pg_s {prec}: n={pts_s.shape[0]} "
-              f"dead_rows={dead} live_pairs={pairs} max_abs_err={err:.3e} "
-              f"scale={scale:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={bms:.5f} ({by})", flush=True)
-        results[("lbs", prec)] = dict(err=err, rel=err / scale, ms=ms,
-                                      plain_ms=plain_ms, bound_ms=bms,
-                                      bound_by=by)
+        res = dict(err=err, rel=err / scale, ms=ms, k0_zero_ms=ms0,
+                   device_ms=parts["fwd"], image_ms=parts["image"],
+                   plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   live_pairs=pairs, k0=live_k0)
+        line = (f"kernel inverse_core_pg_s {prec} ({what}): n={n} "
+                f"dead_rows={dead} k0={live_k0} live_pairs={pairs} "
+                f"max_abs_err={err:.3e} scale={scale:.3e} entry ms={ms:.4f} "
+                f"(k0=0 {ms0:.4f}) device ms={parts['fwd']:.4f} image "
+                f"ms={parts['image']:.4f} plain_ms={plain_ms:.4f} "
+                f"bound_ms={bms:.5f} ({by}) share {bms / ms:.3f} of the "
+                f"entry, {bms / parts['fwd']:.3f} of the kernel")
+        print(line, flush=True)
+        results[(key, prec)] = res
+        del ref
+    # last: its temporaries would otherwise share segments with the
+    # outputs that `poison` has to reach
+    lib_ms, _ = time_library_inverse(torch, pts_s, rg, tg, vol_qz, None,
+                                     iters)
+    results[(key, "bf16")]["library_ms"] = lib_ms
+    print(f"kernel inverse_core_pg_s ({what}): library route (bmm + "
+          f"grid_sample f32 + blend) ms={lib_ms:.4f}", flush=True)
+
+
+def time_library_inverse(torch, pts, rg, tg, vol_qz, gacc, iters):
+    """The library route (`library_inverse`) held to the f32 plain version
+    within the render tolerances (max and mean error over the scale), then
+    timed forward and, given gacc, through its autograd backward: (fwd ms,
+    bwd ms or None)."""
+    from hosnerf_tpu_torch.ops.cuda import lbs as clbs
+    fn, vol5 = library_inverse(torch, vol_qz)
+    ref = clbs.inverse_core_plain(pts, rg, tg, vol_qz, "highest")
+    diff = (fn(pts, rg, tg) - ref).abs()
+    scale = float(ref.abs().max())
+    check(float(diff.max()) <= TOL_RENDER_MAX * scale
+          and float(diff.mean()) <= TOL_RENDER_MEAN * scale,
+          f"library inverse LBS vs plain f32: max {float(diff.max()):.3e}, "
+          f"mean {float(diff.mean()):.3e} of scale {scale:.3e}")
+    del diff, ref
+    fwd = time_ms(torch, lambda: fn(pts, rg, tg), iters)
+    if gacc is None:
+        return fwd, None
+    with torch.enable_grad():
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (pts, rg, tg, vol5)]
+        y = fn(*leaves)
+        bwd = time_ms(torch, lambda: torch.autograd.grad(
+            y, leaves, gacc, retain_graph=True), iters)
+    return fwd, bwd
+
+
+def check_lbs(torch, model, batch, results, iters):
+    """B1 at the render shapes (one 8192-ray chunk, sorted); returns the
+    sorted inputs and the skeleton points for the trunk checks."""
+    from hosnerf_tpu_torch.ops.cuda import lbs as clbs
+    si, dom, pts_s, rg, tg, vol_qz, s_, o_ = sorted_inputs(torch, model,
+                                                           batch)
+    check_inverse_fwd(torch, pts_s, rg, tg, vol_qz, dom, results, "lbs",
+                      iters, "render chunk")
     acc = clbs.inverse_core_pg_s(pts_s, rg, tg, vol_qz, "bf16")
     x_skel_s, _ = clbs.world_from_grid(acc, s_, o_)
     return si, dom, x_skel_s.contiguous()
@@ -521,43 +636,83 @@ def train_kernel_inputs(torch, model, batch):
 
 
 def check_inverse_bwd(torch, model, ti, results, iters):
-    """B4 vs its plain version: NaN-poisoned dpts, dead rows exactly 0."""
+    """B1 at the training inputs (`check_inverse_fwd`), then B4 vs its
+    plain version at k0 = 0, the domain's own k0 and the all-dead clamp,
+    both precisions: NaN-poisoned dpts, its rows below the clamped k0 *
+    INV_TILE exactly 0, every output within TOL_BWD of the plain version
+    on the rows from there on. Timed as B1, with the library route's
+    autograd backward."""
     from hosnerf_tpu_torch.ops.cuda import lbs as clbs
     pts_s, rg, tg, vol_qz = ti["pts_s"], ti["rg"], ti["tg"], ti["vol_qz"]
-    dev = pts_s.device
-    dead = int(ti["dom"].n_dead_groups) * clbs.SORT_GROUP
-    gacc = torch.randn(pts_s.shape[0], 4, device=dev,
+    dom = ti["dom"]
+    check_inverse_fwd(torch, pts_s, rg, tg, vol_qz, dom, results,
+                      "lbs_train", iters, "training inputs")
+    n, dev = pts_s.shape[0], pts_s.device
+    dead = int(dom.n_dead_groups) * clbs.SORT_GROUP
+    gacc = torch.randn(n, 4, device=dev,
                        generator=torch.Generator(dev).manual_seed(5))
     pairs = live_pairs(pts_s, rg, tg, model.mweight_volume_size)
+    cases = inverse_k0_cases(dom, n)
+    live_k0, first = cases[1]
     for prec in ("bf16", "highest"):
-        ref = clbs.inverse_core_bwd_plain(pts_s, rg, tg, vol_qz, gacc, prec)
-        ranges = poison(torch, dev, ref[0].numel() * 4)
-        got = clbs.inverse_core_bwd(pts_s, rg, tg, vol_qz, gacc, prec)
-        torch.cuda.synchronize()
-        check(landed(got[0], ranges), "inverse LBS bwd: dpts missed the "
-              "poison")
-        err, rel = worst(close(torch, a, b, TOL_BWD[f"lbs_{prec}"],
-                               f"inverse LBS bwd {prec} {name}")
-                         for name, a, b in zip(("dpts", "drg", "dtg", "dvol"),
-                                               got, ref))
-        check(dead == 0 or float(got[0][:dead].abs().max()) == 0.0,
-              f"inverse LBS bwd {prec}: dead rows of dpts not exactly 0")
+        err, rel = 0.0, 0.0
+        for k0, lo in cases:
+            k0_t = torch.tensor([k0], dtype=torch.int32, device=dev)
+            ref = clbs.inverse_core_bwd_plain(pts_s[lo:], rg, tg, vol_qz,
+                                              gacc[lo:], prec)
+            ranges = poison(torch, dev, n * 12)
+            got = clbs.inverse_core_bwd(pts_s, rg, tg, vol_qz, gacc, prec,
+                                        k0=k0_t)
+            torch.cuda.synchronize()
+            check(landed(got[0], ranges), f"inverse LBS bwd {prec} k0={k0}: "
+                  "dpts missed the poison")
+            check(lo == 0 or not bool(got[0][:lo].any()), f"inverse LBS bwd "
+                  f"{prec} k0={k0}: dpts rows below k0 not exactly 0")
+            check(dead == 0 or not bool(got[0][:dead].any()), f"inverse LBS "
+                  f"bwd {prec} k0={k0}: dead rows of dpts not exactly 0")
+            e, r = worst(close(torch, a, b, TOL_BWD[f"lbs_{prec}"],
+                               f"inverse LBS bwd {prec} k0={k0} {name}")
+                         for name, a, b in zip(
+                             ("dpts", "drg", "dtg", "dvol"),
+                             (got[0][lo:],) + tuple(got[1:]), ref))
+            err, rel = max(err, e), max(rel, r)
+            del got, ref
+        k0_t = torch.tensor([live_k0], dtype=torch.int32, device=dev)
         ms = time_ms(torch, lambda: clbs.inverse_core_bwd(
+            pts_s, rg, tg, vol_qz, gacc, prec, k0=k0_t), iters)
+        ms0 = time_ms(torch, lambda: clbs.inverse_core_bwd(
             pts_s, rg, tg, vol_qz, gacc, prec), iters)
+        parts = device_ms(torch, lambda: clbs.inverse_core_bwd(
+            pts_s, rg, tg, vol_qz, gacc, prec, k0=k0_t), INV_PARTS)
         plain_ms = time_ms(torch, lambda: clbs.inverse_core_bwd_plain(
             pts_s, rg, tg, vol_qz, gacc, prec), 1)
+        got = clbs.inverse_core_bwd(pts_s, rg, tg, vol_qz, gacc, prec,
+                                    k0=k0_t)
         vol_b = vol_qz.numel() * (2 if prec == "bf16" else 4)
-        bms, by = bound(nbytes(pts_s, rg, tg, gacc, *got) + vol_b,
-                        f32_ops=OPS_B4_PAIR * pairs)
-        print(f"kernel inverse_core_bwd {prec}: n={pts_s.shape[0]} "
-              f"dead_rows={dead} live_pairs={pairs} max_abs_err={err:.3e} "
-              f"max_err_over_scale={rel:.3e} ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} bound_ms={bms:.5f} ({by})",
-              flush=True)
-        results[("lbs_bwd", prec)] = dict(err=err, rel=rel, ms=ms,
-                                          plain_ms=plain_ms, bound_ms=bms,
-                                          bound_by=by)
-        del got, ref
+        bms, by = bound(nbytes(pts_s[first:], rg, tg, gacc[first:], *got)
+                        + vol_b, f32_ops=OPS_B4_PAIR * pairs)
+        kernel_ms = parts["bwd"] + parts["memset"]
+        res = dict(err=err, rel=rel, ms=ms, k0_zero_ms=ms0,
+                   device_ms=kernel_ms, image_ms=parts["image"],
+                   plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   live_pairs=pairs, k0=live_k0)
+        line = (f"kernel inverse_core_bwd {prec}: n={n} dead_rows={dead} "
+                f"k0={live_k0} live_pairs={pairs} max_abs_err={err:.3e} "
+                f"max_err_over_scale={rel:.3e} entry ms={ms:.4f} (k0=0 "
+                f"{ms0:.4f}) device ms={kernel_ms:.4f} (kernel and fold "
+                f"{parts['bwd']:.4f}, memset {parts['memset']:.4f}; image "
+                f"{parts['image']:.4f} when not kept from the forward) "
+                f"plain_ms={plain_ms:.4f} bound_ms={bms:.5f} ({by}) share "
+                f"{bms / ms:.3f} of the entry, {bms / kernel_ms:.3f} of the "
+                "kernels")
+        print(line, flush=True)
+        results[("lbs_bwd", prec)] = res
+        del got
+    _, lib_ms = time_library_inverse(torch, pts_s, rg, tg, vol_qz, gacc,
+                                     iters)
+    results[("lbs_bwd", "bf16")]["library_ms"] = lib_ms
+    print(f"kernel inverse_core_bwd: library route (autograd of bmm + "
+          f"grid_sample f32 + blend) ms={lib_ms:.4f}", flush=True)
 
 
 def check_blend(torch, ti, results, iters):
@@ -824,32 +979,15 @@ def b3_launch_split(torch, ti, results, reps=3):
     0): one C call launches them back to back, so their device times are
     read from torch.profiler (CUPTI kernel records), mean of `reps` calls
     after the timed ones above."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as tprofile
     from hosnerf_tpu_torch.ops.cuda import mlp as cmlp
     xs = {"nonrigid": ti["x_skel_s"], "canonical": ti["cnl_pts_s"]}
     for name, (kw, aux, alpha, layers, out) in ti["specs"].items():
         x = xs[name]
         gout = torch.randn(x.shape[0], out[0].shape[0], device=x.device,
                            generator=torch.Generator(x.device).manual_seed(7))
-
-        def call():
-            return cmlp.fused_embed_trunk_bwd(x, aux, alpha, layers, out,
-                                              gout, k0_blocks=0, **kw)
-        call()
-        torch.cuda.synchronize()
-        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                call()
-            torch.cuda.synchronize()
-        split = {part: 0.0 for part, _ in B3_LAUNCHES}
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            for part, kernel in B3_LAUNCHES:
-                if kernel in e.key:
-                    split[part] += e.self_device_time_total / 1e3 / reps
+        split = device_ms(torch, lambda: cmlp.fused_embed_trunk_bwd(
+            x, aux, alpha, layers, out, gout, k0_blocks=0, **kw),
+            [(part, (kernel,)) for part, kernel in B3_LAUNCHES], reps)
         check(all(v > 0 for v in split.values()),
               f"trunk bwd {name}: the profiler saw no B3 launch ({split})")
         res = results[(name + "_bwd", "bf16")]
@@ -897,7 +1035,8 @@ def check_inverse_cores(torch, model, ti, results, iters):
     Forward: bit-identical across the orders (one per-sample computation)
     and within TOL_LBS of the plain version; backward within B4's
     tolerances of the plain backward; outputs NaN-poisoned. Each core is
-    timed whole (sort, B1, unsort) and its kernels alone on its order."""
+    timed whole (sort, B1, unsort) and its kernels alone on its order
+    (k0 = 0, as the dense path runs them), beside the library route."""
     from hosnerf_tpu_torch.ops.cuda import lbs as clbs
     rg, tg, vol_qz = ti["rg"], ti["tg"], ti["vol_qz"]
     pts = ti["si"]["pts_flat"].float().contiguous()
@@ -976,6 +1115,37 @@ def check_inverse_cores(torch, model, ti, results, iters):
                 bound_ms=bb[0], bound_by=bb[1])
             del got, dgot, x, g
         del ref, dref, ray_order
+    # the library route computes the same function in any row order
+    lib_f, lib_b = time_library_inverse(torch, pts_p, rg, tg, vol_qz, gacc,
+                                        iters)
+    for name in orders:
+        results[(name, "bf16")]["library_ms"] = lib_f
+        results[(name + "_bwd", "bf16")]["library_ms"] = lib_b
+    print(f"inverse cores: library route fwd ms={lib_f:.4f} bwd "
+          f"ms={lib_b:.4f}", flush=True)
+
+
+def library_inverse(torch, vol_qz):
+    """The inverse LBS on PyTorch calls (the library yardstick of rows 1,
+    4, 6 and 9-11): the bone affines as one bmm, grid_sample over the
+    volume as a batch of B one-channel f32 volumes ([B, 1, G, G, G] with
+    vol[b, x, y, z], so the grid's coordinates are (z, y, x), mapped to
+    [-1, 1] with align_corners=True, zeros padding), then the blend.
+    Returns (fn(pts, rg, tg, vol5) -> acc [n, 4], vol5); its autograd
+    backward is B4's library route."""
+    B, _, G = vol_qz.shape
+    vol5 = vol_qz.float().reshape(B, 1, G, G, G).contiguous()
+
+    def fn(pts, rg, tg, v=vol5):
+        f = torch.baddbmm(tg[:, :, None], rg.reshape(B, 3, 3),
+                          pts.T.expand(B, 3, -1))            # [B, 3, n]
+        grid = (f.flip(1) / (G - 1) * 2.0 - 1.0).transpose(1, 2)
+        w = torch.nn.functional.grid_sample(
+            v, grid[:, None, None], mode="bilinear", padding_mode="zeros",
+            align_corners=True)[:, 0, 0, 0]                   # [B, n]
+        return torch.cat([(w[:, None] * f).sum(0).T, w.sum(0)[:, None]], 1)
+
+    return fn, vol5
 
 
 def library_weights(torch, pts_g, vol_all):
@@ -1369,17 +1539,21 @@ def check_render_chunk(torch, model, batch):
               f"render chunk {name} disagrees with the dense plain path")
 
 
-LBS_PROFILE_PARTS = (
-    ("image", ("build_image_kernel",)),
-    ("blend_fwd", ("shared_blend_fwd_kernel",)),
-    ("tap_bwd", ("bin_count_kernel", "bin_scan_kernel", "bin_scatter_kernel",
-                 "tap_bwd_kernel")),
-)
+LBS_PROFILE_PARTS = {
+    "shared-tap LBS": (
+        ("image", ("build_image_kernel",)),
+        ("blend_fwd", ("shared_blend_fwd_kernel",)),
+        ("tap_bwd", ("bin_count_kernel", "bin_scan_kernel",
+                     "bin_scatter_kernel", "tap_bwd_kernel"))),
+    # B1 and B4 (csrc/lbs_inverse.cu); B4's memset is not told apart from
+    # the step's others
+    "inverse LBS": INV_PARTS[:3],
+}
 
 
 def profile(torch, what: str, fn, ref_ms: float):
     """fn under torch.profiler: device and host time by operator, the
-    shared-tap LBS kernels' device time, and the device's idle share, of
+    LBS kernels' device time, and the device's idle share, of
     the profiled wall time and of `ref_ms`, the same work's unprofiled
     time."""
     from torch.autograd import DeviceType
@@ -1401,15 +1575,16 @@ def profile(torch, what: str, fn, ref_ms: float):
     for key in ("self_device_time_total", "self_cpu_time_total"):
         print(events.table(sort_by=key, row_limit=14,
                            max_name_column_width=60))
-    # the shared-tap LBS kernels (csrc/lbs_forward.cu), often below the
-    # tables' rows: B5's backward is its binning passes plus tap_bwd_kernel
-    lbs_ms = {part: sum(e.self_device_time_total for e in events
-                        if e.device_type == DeviceType.CUDA
-                        and any(k in e.key for k in kernels)) / 1e3
-              for part, kernels in LBS_PROFILE_PARTS}
-    print(f"phase profile: {what}, shared-tap LBS device ms: "
-          + " ".join(f"{part} {ms:.4f}" for part, ms in lbs_ms.items()),
-          flush=True)
+    # the LBS kernels, often below the tables' rows: B5's backward is its
+    # binning passes plus tap_bwd_kernel, B4 its kernel and fold
+    for group, parts in LBS_PROFILE_PARTS.items():
+        lbs_ms = {part: sum(e.self_device_time_total for e in events
+                            if e.device_type == DeviceType.CUDA
+                            and any(k in e.key for k in kernels)) / 1e3
+                  for part, kernels in parts}
+        print(f"phase profile: {what}, {group} device ms: "
+              + " ".join(f"{part} {ms:.4f}" for part, ms in lbs_ms.items()),
+              flush=True)
     print(f"phase profile: {what}, device busy {busy_ms:.2f} ms; idle share "
           f"{1 - busy_ms / wall_ms:.3f} of {wall_ms:.2f} ms profiled wall, "
           f"{1 - busy_ms / ref_ms:.3f} of {ref_ms:.2f} ms unprofiled",
@@ -1722,7 +1897,7 @@ def run(torch, np) -> int:
                 "bound_by": max((results[p]["bound_ms"], results[p]["bound_by"])
                                 for p in parts)[1],
                 "library_ms": None if None in lib else sum(lib),
-                **{k: results[parts[0]][k] for k in STEP_KEYS
+                **{k: results[parts[0]][k] for k in EXTRA_KEYS
                    if k in results[parts[0]]},
                 **rates(parts)}
 

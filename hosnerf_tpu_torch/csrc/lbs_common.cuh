@@ -27,6 +27,21 @@ __device__ __forceinline__ float load_vol(const __nv_bfloat16* v, int i) {
   return __bfloat162float(v[i]);
 }
 
+// A volume element as f32, and an f32 as an image element (bf16 rounds to
+// nearest even, as torch's cast).
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
 // bf16 rounding of a tap product when the volume is bf16 (the TPU kernels'
 // bf16 matmul operand cast); identity in f32.
 __device__ __forceinline__ float round_tap(float w, const float*) {
@@ -35,13 +50,6 @@ __device__ __forceinline__ float round_tap(float w, const float*) {
 
 __device__ __forceinline__ float round_tap(float w, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(w));
-}
-
-// f_c = ((x r0 + y r1) + z r2) + t, without contraction.
-__device__ __forceinline__ float affine(float x, float y, float z,
-                                        const float* r, float t) {
-  return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(x, r[0]), __fmul_rn(y, r[1])),
-                             __fmul_rn(z, r[2])), t);
 }
 
 struct Taps {

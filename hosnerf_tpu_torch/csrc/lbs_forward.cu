@@ -104,19 +104,6 @@ constexpr int kScanThreads = 1024;
 // the 48 KB a CTA gets without an opt-in
 constexpr int kMaxSmemBins = 6144;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 // 8 bone slots of an image row, as f32.
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
   const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));

@@ -10,41 +10,69 @@
 // where w_b is the trilinear sample of bone b's G^3 weight volume at grid
 // coordinate f_b (zeros padding, align_corners), all in grid coordinates.
 //
-// Design. The TPU kernels build one-hot tap rows and contract them on the
-// MXU, pack 128/G bones on the vector lanes and walk a compacted
-// (tile, bone-quad) pair table so dead pairs cost nothing. None of that
-// feeds Hopper: here one thread owns one sample, the B affines sit in
-// shared memory, and for each bone the thread tests the support
-// f in (-1-eps, G+eps)^3 and skips the bone when it fails (the per-(sample,
-// bone) early-out that takes the place of the pair table; the liveness sort
-// keeps neighbouring threads on the same bones, so warps diverge little).
-// A live bone costs one 8-tap gather. Dead samples skip every bone: the
-// forward writes exact zeros, the backward adds nothing (as the skipped
-// TPU pairs, whose gradients are exactly zero).
+// The TPU kernels build one-hot tap rows and contract them on the MXU, pack
+// 128/G bones on the vector lanes and walk a compacted (tile, bone-quad)
+// pair table so dead pairs cost nothing. On Hopper a tap is a gather, and a
+// (sample, bone) pair's work (~75 flops forward, ~250 backward) is little
+// for the card: the bounds at the model's shapes are the bytes of the
+// per-sample rows (forward) and the f32 operations (backward), a few
+// microseconds each. Both kernels are bound by instruction issue and
+// latency instead. The first design of this file (one thread per sample
+// over every bone) also ran B affines and support tests for every
+// row of the dead prefix, paid up to 8 dependent 2-byte gathers per live
+// pair, and in the backward up to 8 device atomics per pair and 60
+// shuffles per bone, with a few thousand warps holding live rows.
 //
-// Backward. The per-sample outputs (dpts) are plain stores. The sums over
-// samples go two ways: dvol [B, G*G, G] (3.4 MB f32) is far too large for
-// shared memory and its taps scatter, so each nonzero tap contribution is
-// one atomicAdd into device memory (L2-resident); dRg/dTg (B x 12 values,
-// hit by every live sample) are reduced first across the warp with
-// shuffles (a warp skips a bone no lane supports), then per CTA in shared
-// memory, and land with one atomicAdd per CTA and entry.
+// The corner image. Both kernels read the volume from one relaid copy,
+// [B, P, P, P, 8] with P = G + 1: entry (b, cx, cy, cz) holds the 8 corners
+// of grid cell floor(f) = (cx, cy, cz) - 1, corner k = 4 dx + 2 dy + dz at
+// voxel (cx - 1 + dx, cy - 1 + dy, cz - 1 + dz), zero where a corner lies
+// off the grid. A live pair costs one 16-byte load (bf16; two in f32).
+// `inv_image_kernel` builds it in one launch (cast and zero padding; the
+// autograd forward keeps it for the backward): 15.0 MB in bf16 at B = 26,
+// G = 32, resident in the 50 MB L2. A pair is live when floor(f) lies in
+// [-1, G-1] on every axis; any other pair has every corner off the grid,
+// so its weight, its shares of dvol and its gradients are exactly 0 (the
+// plain versions add them as zeros; the JAX kernels' support test widened
+// by PG_EPS admits a subset of such pairs too).
 //
-// Bound. ~0.5 KFLOP per sample is nothing for the card; the cost is the
-// dependent gathers: 8 scattered 2- or 4-byte loads per live (sample, bone)
-// from a volume of 1.7 MB (bf16) or 3.4 MB (f32) that stays resident in the
-// 50 MB L2, and in the backward as many atomics. So both kernels are bound
-// by L2 latency and throughput; the design keeps every gather and atomic on
-// the L2-resident volume and touches each sample's row once.
+// Live suffix. k0 (a device int, in blocks of kTile rows; null for 0) is
+// clamped to [0, n_blocks - 1]. Rows below k0 * kTile are dead by the
+// sorted domain's invariant: the forward stores them as zeros, the backward
+// stores their dpts as zeros and adds nothing, neither computes them.
 //
-// Numerics. Every sum and product uses explicit round-to-nearest
+// Forward (B1): one thread per sample walks the bones in order (their
+// affines as float4 rows in shared memory), one image load per live pair.
+// Keeping several bones' loads in flight per thread measured slower: the
+// registers it takes cost more warps than the loads gain (PERF.md).
+//
+// Backward (B4): a warp walks kRowsPerWarp samples with lane = bone, so a
+// sample's live pairs run side by side and the lane's dRg/dTg sums stay in
+// its registers. Per sample the lanes' shares of dpts are summed by
+// shuffles. dRg/dTg are summed per CTA in shared memory and added with one
+// atomic per nonzero entry into one of kReplicas copies. dvol sums over
+// samples in a z-pair image, float2 (z = cz - 1, z = cz) at (b, x + 1,
+// y + 1, cz) for x, y in [-1, G]: a lane sums its cell's 8 tap shares
+// over consecutive rows (a warp's rows are neighbouring samples of a ray,
+// which often share a cell) and adds them as 4 float2 atomics (vector
+// reductions, compute capability 9.x) when its cell changes; the
+// off-grid taps' shares go to padding that nothing reads. The scratch
+// (replicas and z-pair image) is zeroed by one memset; `inv_fold_kernel`
+// then writes dvol [B, G*G, G] (each voxel the sum of its two z-pair
+// entries, in that order) and dRg, dTg (the replicas summed in order).
+//
+// Numerics. Every per-pair sum and product uses explicit round-to-nearest
 // intrinsics (no FMA contraction), in the order of the plain versions
 // hosnerf_tpu_torch/ops/cuda/lbs.py::inverse_core_plain and
-// inverse_core_bwd_plain. vol_bf16 = 1 reproduces the TPU kernels' bf16
-// matmul semantics: the xy tap products hx*hy, dhat(fx)*hy, hx*dhat(fy),
-// the volume and the dvol factor gw*hz are rounded to bf16; every sum is
-// f32. vol_bf16 = 0 is f32 throughout. The forward agrees with its plain
-// version bit for bit; the backward's sums over samples differ in order.
+// inverse_core_bwd_plain. bf16 reproduces the TPU kernels' bf16 matmul
+// semantics: the xy tap products hx*hy, dhat(fx)*hy, hx*dhat(fy), the
+// volume and the dvol factor gw*hz are rounded to bf16; every sum is f32.
+// highest is f32 throughout (the same image layout, f32 entries). The
+// forward agrees with its plain version bit for bit: its sum over bones is
+// the plain version's, and the plain version's off-grid taps add zeros,
+// as the image's padding does. The backward's sums over bones (dpts, by
+// shuffles) and over samples (dvol, dRg, dTg: registers, shared memory and
+// atomics; dRg/dTg's multiply-adds fused) take another order.
 
 #include "lbs_common.cuh"
 
@@ -52,190 +80,342 @@ namespace {
 
 using namespace hosnerf;
 
-constexpr int kThreads = 256;
+constexpr int kTile = 1024;         // k0 counts blocks of this many rows
+constexpr int kFwdThreads = 256;
+constexpr int kImageThreads = 256;
+constexpr int kBwdWarps = 4;
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kRowsPerWarp = 16;
+constexpr int kBwdRows = kBwdWarps * kRowsPerWarp;  // rows per backward CTA
+constexpr int kReplicas = 16;       // copies of the dRg/dTg sums
+constexpr int kFoldThreads = 256;
+static_assert(kMaxBones <= 32, "the backward puts one bone on each lane");
 
+// The 8 corners of one image entry, loaded whole.
 template <typename VT>
-__global__ void __launch_bounds__(kThreads)
-inverse_lbs_kernel(const float* __restrict__ pts, const float* __restrict__ rg,
-                   const float* __restrict__ tg, const VT* __restrict__ vol,
-                   float4* __restrict__ out, int n, int B, int G, float eps) {
-  __shared__ float s_r[kMaxBones * 9];
-  __shared__ float s_t[kMaxBones * 3];
-  for (int i = threadIdx.x; i < B * 9; i += blockDim.x) s_r[i] = rg[i];
-  for (int i = threadIdx.x; i < B * 3; i += blockDim.x) s_t[i] = tg[i];
+struct Corners;
+
+template <>
+struct Corners<__nv_bfloat16> {
+  uint4 u;
+  __device__ __forceinline__ void load(const __nv_bfloat16* img, int cell) {
+    u = __ldg(reinterpret_cast<const uint4*>(img) + cell);
+  }
+  __device__ __forceinline__ void unpack(float (&v)[8]) const {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __bfloat1622float2(h[k]);
+      v[2 * k] = f.x;
+      v[2 * k + 1] = f.y;
+    }
+  }
+};
+
+template <>
+struct Corners<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* img, int cell) {
+    a = __ldg(reinterpret_cast<const float4*>(img) + 2 * cell);
+    b = __ldg(reinterpret_cast<const float4*>(img) + 2 * cell + 1);
+  }
+  __device__ __forceinline__ void unpack(float (&v)[8]) const {
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  }
+};
+
+// f = ((x R0 + y R1) + z R2) + T for one row (R0, R1, R2, T) of a bone's
+// grid affine, without contraction, in the plain versions' order.
+__device__ __forceinline__ float affine4(float x, float y, float z,
+                                         float4 r) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(x, r.x), __fmul_rn(y, r.y)),
+                             __fmul_rn(z, r.z)), r.w);
+}
+
+// The image cell of one axis, floor(f) + 1, and whether floor(f) lies in
+// [-1, G-1] (false for NaN).
+__device__ __forceinline__ bool axis_cell(float f, int G, int& c) {
+  const float f0 = floorf(f);
+  c = (int)f0 + 1;
+  return f0 >= -1.f && f0 <= (float)(G - 1);
+}
+
+// Hat weights at floor(f) and floor(f) + 1 (lbs_common.cuh::make_taps).
+__device__ __forceinline__ void hats(float f, float (&h)[2]) {
+  const float f0 = floorf(f);
+  h[0] = fmaxf(0.f, __fsub_rn(1.f, fabsf(__fsub_rn(f, f0))));
+  h[1] = fmaxf(0.f, __fsub_rn(1.f, fabsf(__fsub_rn(f, __fadd_rn(f0, 1.f)))));
+}
+
+// img[b][cx][cy][cz][k] = vol[b, x*G + y, z] at (x, y, z) = (cx, cy, cz) - 1
+// + (dx, dy, dz), k = 4 dx + 2 dy + dz; 0 off the grid. One thread per
+// entry.
+template <typename TI, typename TO>
+__global__ void __launch_bounds__(kImageThreads)
+inv_image_kernel(const TI* __restrict__ vol, TO* __restrict__ img, int B,
+                 int G) {
+  const int P = G + 1;
+  const int cell = blockIdx.x * kImageThreads + threadIdx.x;
+  if (cell >= B * P * P * P) return;
+  const int cz = cell % P, cy = cell / P % P, cx = cell / (P * P) % P;
+  const int b = cell / (P * P * P);
+  __align__(16) TO v[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int x = cx - 1 + (k >> 2), y = cy - 1 + ((k >> 1) & 1),
+              z = cz - 1 + (k & 1);
+    const bool on = x >= 0 && x < G && y >= 0 && y < G && z >= 0 && z < G;
+    v[k] = from_f<TO>(on ? to_f(vol[((size_t)b * G * G + x * G + y) * G + z])
+                         : 0.f);
+  }
+  uint4* dst = reinterpret_cast<uint4*>(img + (size_t)cell * 8);
+  const uint4* src = reinterpret_cast<const uint4*>(v);
+#pragma unroll
+  for (int q = 0; q < (int)(8 * sizeof(TO) / 16); ++q) dst[q] = src[q];
+}
+
+// B1: out [n] float4 = (acc_x, acc_y, acc_z, wsum), every row written.
+template <typename VT>
+__global__ void __launch_bounds__(kFwdThreads)
+inv_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ rg,
+               const float* __restrict__ tg, const VT* __restrict__ img,
+               const int* __restrict__ k0, float4* __restrict__ out, int n,
+               int B, int G) {
+  __shared__ float4 s_bone[kMaxBones * 3];  // rows (Rc0, Rc1, Rc2, Tc)
+  const int row0 = blockIdx.x * kFwdThreads;
+  const int row = row0 + threadIdx.x;
+  const int first = k0 ? first_live_row(k0, n, kTile) : 0;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (row0 + kFwdThreads <= first) {  // the whole CTA is dead prefix
+    if (row < n) out[row] = zero;
+    return;
+  }
+  for (int i = threadIdx.x; i < B * 3; i += kFwdThreads)
+    s_bone[i] = make_float4(rg[3 * i], rg[3 * i + 1], rg[3 * i + 2], tg[i]);
   __syncthreads();
-
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= n) return;
+  if (row < first) {
+    out[row] = zero;
+    return;
+  }
   const float x = pts[3 * row], y = pts[3 * row + 1], z = pts[3 * row + 2];
-  const float lo = -1.0f - eps, hi = (float)G + eps;
+  const int P = G + 1;
   float ax = 0.f, ay = 0.f, az = 0.f, aw = 0.f;
-
   for (int b = 0; b < B; ++b) {
-    const float fx = affine(x, y, z, s_r + 9 * b, s_t[3 * b]);
-    const float fy = affine(x, y, z, s_r + 9 * b + 3, s_t[3 * b + 1]);
-    const float fz = affine(x, y, z, s_r + 9 * b + 6, s_t[3 * b + 2]);
-    if (!(fx > lo && fx < hi && fy > lo && fy < hi && fz > lo && fz < hi))
+    float f[3];
+    int cx, cy, cz;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) f[c] = affine4(x, y, z, s_bone[3 * b + c]);
+    if (!(axis_cell(f[0], G, cx) & axis_cell(f[1], G, cy) &
+          axis_cell(f[2], G, cz)))
       continue;
-    const Taps tx = make_taps(fx, G), ty = make_taps(fy, G),
-               tz = make_taps(fz, G);
-    const VT* vb = vol + (size_t)b * G * G * G;
+    Corners<VT> e;
+    e.load(img, ((b * P + cx) * P + cy) * P + cz);
+    float v[8], hx[2], hy[2], hz[2];
+    hats(f[0], hx);
+    hats(f[1], hy);
+    hats(f[2], hz);
+    e.unpack(v);
     float zc0 = 0.f, zc1 = 0.f;
 #pragma unroll
     for (int dx = 0; dx < 2; ++dx) {
 #pragma unroll
       for (int dy = 0; dy < 2; ++dy) {
-        if (!(tx.v[dx] && ty.v[dy])) continue;
-        const float w = round_tap(__fmul_rn(tx.h[dx], ty.h[dy]), vol);
-        const int base = (tx.i[dx] * G + ty.i[dy]) * G;
-        if (tz.v[0]) zc0 = __fadd_rn(zc0, __fmul_rn(w, load_vol(vb, base + tz.i[0])));
-        if (tz.v[1]) zc1 = __fadd_rn(zc1, __fmul_rn(w, load_vol(vb, base + tz.i[1])));
+        const float w = round_tap(__fmul_rn(hx[dx], hy[dy]), img);
+        zc0 = __fadd_rn(zc0, __fmul_rn(w, v[4 * dx + 2 * dy]));
+        zc1 = __fadd_rn(zc1, __fmul_rn(w, v[4 * dx + 2 * dy + 1]));
       }
     }
-    const float wb = __fadd_rn(__fmul_rn(tz.h[0], zc0), __fmul_rn(tz.h[1], zc1));
-    ax = __fadd_rn(ax, __fmul_rn(wb, fx));
-    ay = __fadd_rn(ay, __fmul_rn(wb, fy));
-    az = __fadd_rn(az, __fmul_rn(wb, fz));
+    const float wb = __fadd_rn(__fmul_rn(hz[0], zc0), __fmul_rn(hz[1], zc1));
+    ax = __fadd_rn(ax, __fmul_rn(wb, f[0]));
+    ay = __fadd_rn(ay, __fmul_rn(wb, f[1]));
+    az = __fadd_rn(az, __fmul_rn(wb, f[2]));
     aw = __fadd_rn(aw, wb);
   }
   out[row] = make_float4(ax, ay, az, aw);
 }
 
-// Backward. drt [B, 12] = (dRg[b] row-major [c][k], dTg[b][c]); drt and dvol
-// must be zeroed by the caller. dpts is written for every row < n.
+// B4: dpts [n, 3] written for every row; the dRg/dTg sums into `rep`
+// (kReplicas x [B, 12]: dRg row-major [c][k], then dTg[c]) and the dvol
+// shares into the z-pair image `zp` [B, G+2, G+2, G+1] float2, both zeroed
+// by the launcher.
 template <typename VT>
-__global__ void __launch_bounds__(kThreads)
-inverse_lbs_bwd_kernel(const float* __restrict__ pts,
-                       const float* __restrict__ rg,
-                       const float* __restrict__ tg,
-                       const VT* __restrict__ vol,
-                       const float4* __restrict__ gacc,
-                       float* __restrict__ dpts, float* __restrict__ drt,
-                       float* __restrict__ dvol, int n, int B, int G,
-                       float eps) {
-  __shared__ float s_r[kMaxBones * 9];
-  __shared__ float s_t[kMaxBones * 3];
-  __shared__ float s_d[kMaxBones * 12];
-  for (int i = threadIdx.x; i < B * 9; i += blockDim.x) s_r[i] = rg[i];
-  for (int i = threadIdx.x; i < B * 3; i += blockDim.x) s_t[i] = tg[i];
-  for (int i = threadIdx.x; i < B * 12; i += blockDim.x) s_d[i] = 0.f;
-  __syncthreads();
-
-  // every lane of every warp runs the bone loop (the warp reductions need
-  // them all); rows past n are never live
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in = row < n;
-  float x = 0.f, y = 0.f, z = 0.f;
-  float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (in) {
-    x = pts[3 * row];
-    y = pts[3 * row + 1];
-    z = pts[3 * row + 2];
-    g = gacc[row];
+__global__ void __launch_bounds__(kBwdThreads)
+inv_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ rg,
+               const float* __restrict__ tg, const VT* __restrict__ img,
+               const float4* __restrict__ gacc, const int* __restrict__ k0,
+               float* __restrict__ dpts, float* __restrict__ rep,
+               float2* __restrict__ zp, int n, int B, int G) {
+  __shared__ float s_d[kBwdWarps][12][32];
+  __shared__ float4 s_bone[kMaxBones * 3];  // rows (Rc0, Rc1, Rc2, Tc)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row0 = blockIdx.x * kBwdRows;
+  const int first = k0 ? first_live_row(k0, n, kTile) : 0;
+  if (row0 + kBwdRows <= first) {  // the whole CTA is dead prefix
+    for (int i = threadIdx.x; i < 3 * kBwdRows; i += kBwdThreads)
+      if (3 * row0 + i < 3 * n) dpts[3 * row0 + i] = 0.f;
+    return;
   }
-  const float lo = -1.0f - eps, hi = (float)G + eps;
-  const int lane = threadIdx.x & 31;
-  const size_t G3 = (size_t)G * G * G;
-  float dpx = 0.f, dpy = 0.f, dpz = 0.f;
-
-  for (int b = 0; b < B; ++b) {
-    const float* r = s_r + 9 * b;
-    const float fx = affine(x, y, z, r, s_t[3 * b]);
-    const float fy = affine(x, y, z, r + 3, s_t[3 * b + 1]);
-    const float fz = affine(x, y, z, r + 6, s_t[3 * b + 2]);
-    const bool live = in && fx > lo && fx < hi && fy > lo && fy < hi &&
-                      fz > lo && fz < hi;
-    if (!__any_sync(kFullMask, live)) continue;
-    float d[12];
+  for (int i = threadIdx.x; i < B * 3; i += kBwdThreads)
+    s_bone[i] = make_float4(rg[3 * i], rg[3 * i + 1], rg[3 * i + 2], tg[i]);
+  __syncthreads();
+  const bool bone = lane < B;
+  const float4* rt = s_bone + 3 * (bone ? lane : 0);  // the lane's bone
+  float d[12];
 #pragma unroll
-    for (int j = 0; j < 12; ++j) d[j] = 0.f;
+  for (int j = 0; j < 12; ++j) d[j] = 0.f;
+  const int P = G + 1, Q = G + 2;
+  const float dh[2] = {-1.f, 1.f};
+  // dvol shares of the lane's current cell, summed over consecutive rows
+  // (a warp's rows are neighbouring samples of a ray) and added to the
+  // z-pair image when the cell changes
+  int cell = -1, ox = 0, oy = 0, oz = 0;
+  float sh[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) sh[k] = 0.f;
+  auto flush = [&]() {
+    if (cell < 0) return;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2 dv = make_float2(sh[2 * q], sh[2 * q + 1]);
+      if (dv.x != 0.f || dv.y != 0.f)
+        atomicAdd(zp + ((lane * Q + ox + (q >> 1)) * Q + oy + (q & 1)) * P + oz,
+                  dv);
+      sh[2 * q] = sh[2 * q + 1] = 0.f;
+    }
+  };
+
+  for (int s = 0; s < kRowsPerWarp; ++s) {
+    const int row = row0 + warp * kRowsPerWarp + s;
+    if (row >= n) break;
+    if (row < first) {
+      if (lane < 3) dpts[3 * row + lane] = 0.f;
+      continue;
+    }
+    const float p[3] = {pts[3 * row], pts[3 * row + 1], pts[3 * row + 2]};
+    const float4 g = gacc[row];
+    const float fx = affine4(p[0], p[1], p[2], rt[0]);
+    const float fy = affine4(p[0], p[1], p[2], rt[1]);
+    const float fz = affine4(p[0], p[1], p[2], rt[2]);
+    int cx, cy, cz;
+    const bool live = bone & axis_cell(fx, G, cx) & axis_cell(fy, G, cy) &
+                      axis_cell(fz, G, cz);
+    float dp[3] = {0.f, 0.f, 0.f};
     if (live) {
-      const Taps tx = make_taps(fx, G), ty = make_taps(fy, G),
-                 tz = make_taps(fz, G);
-      const float dh[2] = {-1.f, 1.f};
+      const int here = ((lane * P + cx) * P + cy) * P + cz;
+      Corners<VT> e;
+      e.load(img, here);
+      if (here != cell) {
+        flush();
+        cell = here;
+        ox = cx;
+        oy = cy;
+        oz = cz;
+      }
+      float v[8], hx[2], hy[2], hz[2];
+      hats(fx, hx);
+      hats(fy, hy);
+      hats(fz, hz);
       const float gw = __fadd_rn(
           __fadd_rn(__fadd_rn(__fmul_rn(g.x, fx), __fmul_rn(g.y, fy)),
                     __fmul_rn(g.z, fz)), g.w);
-      const float gz0 = round_tap(__fmul_rn(gw, tz.h[0]), vol);
-      const float gz1 = round_tap(__fmul_rn(gw, tz.h[1]), vol);
-      const VT* vb = vol + b * G3;
-      float* db = dvol + b * G3;
+      const float gz0 = round_tap(__fmul_rn(gw, hz[0]), img);
+      const float gz1 = round_tap(__fmul_rn(gw, hz[1]), img);
+      e.unpack(v);
       float zc0 = 0.f, zc1 = 0.f, m20 = 0.f, m21 = 0.f, m30 = 0.f, m31 = 0.f;
 #pragma unroll
       for (int dx = 0; dx < 2; ++dx) {
 #pragma unroll
         for (int dy = 0; dy < 2; ++dy) {
-          if (!(tx.v[dx] && ty.v[dy])) continue;
-          const float w = round_tap(__fmul_rn(tx.h[dx], ty.h[dy]), vol);
-          const float wdx = round_tap(__fmul_rn(dh[dx], ty.h[dy]), vol);
-          const float wdy = round_tap(__fmul_rn(tx.h[dx], dh[dy]), vol);
-          const int base = (tx.i[dx] * G + ty.i[dy]) * G;
-          if (tz.v[0]) {
-            const float v = load_vol(vb, base + tz.i[0]);
-            zc0 = __fadd_rn(zc0, __fmul_rn(w, v));
-            m20 = __fadd_rn(m20, __fmul_rn(wdx, v));
-            m30 = __fadd_rn(m30, __fmul_rn(wdy, v));
-            const float dv = __fmul_rn(w, gz0);
-            if (dv != 0.f) atomicAdd(db + base + tz.i[0], dv);
-          }
-          if (tz.v[1]) {
-            const float v = load_vol(vb, base + tz.i[1]);
-            zc1 = __fadd_rn(zc1, __fmul_rn(w, v));
-            m21 = __fadd_rn(m21, __fmul_rn(wdx, v));
-            m31 = __fadd_rn(m31, __fmul_rn(wdy, v));
-            const float dv = __fmul_rn(w, gz1);
-            if (dv != 0.f) atomicAdd(db + base + tz.i[1], dv);
-          }
+          const float w = round_tap(__fmul_rn(hx[dx], hy[dy]), img);
+          const float wdx = round_tap(__fmul_rn(dh[dx], hy[dy]), img);
+          const float wdy = round_tap(__fmul_rn(hx[dx], dh[dy]), img);
+          const float v0 = v[4 * dx + 2 * dy], v1 = v[4 * dx + 2 * dy + 1];
+          zc0 = __fadd_rn(zc0, __fmul_rn(w, v0));
+          m20 = __fadd_rn(m20, __fmul_rn(wdx, v0));
+          m30 = __fadd_rn(m30, __fmul_rn(wdy, v0));
+          zc1 = __fadd_rn(zc1, __fmul_rn(w, v1));
+          m21 = __fadd_rn(m21, __fmul_rn(wdx, v1));
+          m31 = __fadd_rn(m31, __fmul_rn(wdy, v1));
+          sh[4 * dx + 2 * dy] += __fmul_rn(w, gz0);
+          sh[4 * dx + 2 * dy + 1] += __fmul_rn(w, gz1);
         }
       }
-      const float hz0 = tz.h[0], hz1 = tz.h[1];
-      const float wb = __fadd_rn(__fmul_rn(hz0, zc0), __fmul_rn(hz1, zc1));
+      const float wb = __fadd_rn(__fmul_rn(hz[0], zc0), __fmul_rn(hz[1], zc1));
       const float df[3] = {
           __fadd_rn(__fmul_rn(g.x, wb),
-                    __fmul_rn(gw, __fadd_rn(__fmul_rn(m20, hz0),
-                                            __fmul_rn(m21, hz1)))),
+                    __fmul_rn(gw, __fadd_rn(__fmul_rn(m20, hz[0]),
+                                            __fmul_rn(m21, hz[1])))),
           __fadd_rn(__fmul_rn(g.y, wb),
-                    __fmul_rn(gw, __fadd_rn(__fmul_rn(m30, hz0),
-                                            __fmul_rn(m31, hz1)))),
+                    __fmul_rn(gw, __fadd_rn(__fmul_rn(m30, hz[0]),
+                                            __fmul_rn(m31, hz[1])))),
           __fadd_rn(__fmul_rn(g.z, wb),
                     __fmul_rn(gw, __fadd_rn(__fmul_rn(-1.f, zc0), zc1)))};
-      const float p[3] = {x, y, z};
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
 #pragma unroll
-        for (int k = 0; k < 3; ++k) d[3 * c + k] = __fmul_rn(df[c], p[k]);
-        d[9 + c] = df[c];
+        for (int k = 0; k < 3; ++k) d[3 * c + k] = fmaf(df[c], p[k], d[3 * c + k]);
+        d[9 + c] += df[c];
       }
-      dpx = __fadd_rn(dpx, __fadd_rn(__fadd_rn(__fmul_rn(df[0], r[0]),
-                                               __fmul_rn(df[1], r[3])),
-                                     __fmul_rn(df[2], r[6])));
-      dpy = __fadd_rn(dpy, __fadd_rn(__fadd_rn(__fmul_rn(df[0], r[1]),
-                                               __fmul_rn(df[1], r[4])),
-                                     __fmul_rn(df[2], r[7])));
-      dpz = __fadd_rn(dpz, __fadd_rn(__fadd_rn(__fmul_rn(df[0], r[2]),
-                                               __fmul_rn(df[1], r[5])),
-                                     __fmul_rn(df[2], r[8])));
+      const float4 r0 = rt[0], r1 = rt[1], r2 = rt[2];
+      dp[0] = __fadd_rn(__fadd_rn(__fmul_rn(df[0], r0.x), __fmul_rn(df[1], r1.x)),
+                        __fmul_rn(df[2], r2.x));
+      dp[1] = __fadd_rn(__fadd_rn(__fmul_rn(df[0], r0.y), __fmul_rn(df[1], r1.y)),
+                        __fmul_rn(df[2], r2.y));
+      dp[2] = __fadd_rn(__fadd_rn(__fmul_rn(df[0], r0.z), __fmul_rn(df[1], r1.z)),
+                        __fmul_rn(df[2], r2.z));
     }
 #pragma unroll
-    for (int j = 0; j < 12; ++j) {
+    for (int off = 16; off > 0; off >>= 1) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        d[j] += __shfl_xor_sync(kFullMask, d[j], off);
+      for (int k = 0; k < 3; ++k)
+        dp[k] += __shfl_xor_sync(kFullMask, dp[k], off);
     }
-    if (lane == 0) {
-#pragma unroll
-      for (int j = 0; j < 12; ++j) atomicAdd(s_d + 12 * b + j, d[j]);
-    }
+    if (lane < 3) dpts[3 * row + lane] = lane == 0 ? dp[0] : lane == 1 ? dp[1] : dp[2];
   }
-  if (in) {
-    dpts[3 * row] = dpx;
-    dpts[3 * row + 1] = dpy;
-    dpts[3 * row + 2] = dpz;
-  }
+  flush();
+#pragma unroll
+  for (int j = 0; j < 12; ++j) s_d[warp][j][lane] = d[j];
   __syncthreads();
-  for (int i = threadIdx.x; i < B * 12; i += blockDim.x)
-    if (s_d[i] != 0.f) atomicAdd(drt + i, s_d[i]);
+  float* dst = rep + (blockIdx.x % kReplicas) * B * 12;
+  for (int i = threadIdx.x; i < B * 12; i += kBwdThreads) {
+    const int b = i / 12, j = i % 12;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kBwdWarps; ++w) sum += s_d[w][j][b];
+    if (sum != 0.f) atomicAdd(dst + i, sum);
+  }
 }
+
+// dvol[b, x*G + y, z] = zp[b][x+1][y+1][z+1].x + zp[b][x+1][y+1][z].y;
+// dRg/dTg = the kReplicas copies summed in order.
+__global__ void __launch_bounds__(kFoldThreads)
+inv_fold_kernel(const float* __restrict__ rep, const float2* __restrict__ zp,
+                float* __restrict__ dvol, float* __restrict__ drg,
+                float* __restrict__ dtg, int B, int G) {
+  const int i = blockIdx.x * kFoldThreads + threadIdx.x;
+  const int P = G + 1, Q = G + 2;
+  if (i < B * G * G * G) {
+    const int z = i % G, y = i / G % G, x = i / (G * G) % G;
+    const int b = i / (G * G * G);
+    const float2* col = zp + ((size_t)(b * Q + x + 1) * Q + y + 1) * P;
+    dvol[i] = __fadd_rn(col[z + 1].x, col[z].y);
+  }
+  if (i < B * 12) {
+    float sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < kReplicas; ++k) sum += rep[k * B * 12 + i];
+    const int b = i / 12, j = i % 12;
+    if (j < 9) drg[9 * b + j] = sum;
+    else dtg[3 * b + j - 9] = sum;
+  }
+}
+
+// floats before the z-pair image in the backward's scratch (16-byte aligned)
+int replica_floats(int B) { return (kReplicas * B * 12 + 3) / 4 * 4; }
+
+int zpair_floats(int B, int G) { return 2 * B * (G + 2) * (G + 2) * (G + 1); }
 
 }  // namespace
 
@@ -245,50 +425,90 @@ const char* hosnerf_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// pts [n, 3] f32; rg [B, 9] f32; tg [B, 3] f32; vol [B, G*G, G] (bf16 when
-// vol_bf16, else f32); out [n, 4] f32. Launches on `stream`, returns
-// cudaGetLastError().
-int hosnerf_inverse_lbs(const float* pts, const float* rg, const float* tg,
-                        const void* vol, float* out, int n, int B, int G,
-                        int vol_bf16, float eps, void* stream) {
-  if (n <= 0) return 0;
-  if (B < 1 || B > kMaxBones) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + kThreads - 1) / kThreads);
+// f32 elements of the backward's scratch for B bones at grid size G.
+int hosnerf_inverse_bwd_scratch(int B, int G) {
+  return replica_floats(B) + zpair_floats(B, G);
+}
+
+// The corner image: vol [B, G*G, G] (bf16 when vol_bf16, else f32) -> img
+// [B, G+1, G+1, G+1, 8] (bf16 when img_bf16, else f32). One launch on
+// `stream`; returns cudaGetLastError().
+int hosnerf_inverse_image(const void* vol, int vol_bf16, void* img,
+                          int img_bf16, int B, int G, void* stream) {
+  if (B < 1 || B > kMaxBones || G < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int P = G + 1;
+  const dim3 grid((B * P * P * P + kImageThreads - 1) / kImageThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vol_bf16) {
-    inverse_lbs_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        pts, rg, tg, static_cast<const __nv_bfloat16*>(vol),
-        reinterpret_cast<float4*>(out), n, B, G, eps);
-  } else {
-    inverse_lbs_kernel<float><<<grid, kThreads, 0, s>>>(
-        pts, rg, tg, static_cast<const float*>(vol),
-        reinterpret_cast<float4*>(out), n, B, G, eps);
-  }
+  using bf = __nv_bfloat16;
+  if (vol_bf16 && img_bf16)
+    inv_image_kernel<bf, bf><<<grid, kImageThreads, 0, s>>>(
+        static_cast<const bf*>(vol), static_cast<bf*>(img), B, G);
+  else if (vol_bf16)
+    inv_image_kernel<bf, float><<<grid, kImageThreads, 0, s>>>(
+        static_cast<const bf*>(vol), static_cast<float*>(img), B, G);
+  else if (img_bf16)
+    inv_image_kernel<float, bf><<<grid, kImageThreads, 0, s>>>(
+        static_cast<const float*>(vol), static_cast<bf*>(img), B, G);
+  else
+    inv_image_kernel<float, float><<<grid, kImageThreads, 0, s>>>(
+        static_cast<const float*>(vol), static_cast<float*>(img), B, G);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Backward: gacc [n, 4] f32 in; dpts [n, 3] f32 out (every row written);
-// drt [B, 12] f32 (dRg row-major, then dTg) and dvol [B, G*G, G] f32
-// accumulated, zeroed by the caller. Returns cudaGetLastError().
-int hosnerf_inverse_lbs_bwd(const float* pts, const float* rg,
-                            const float* tg, const void* vol,
-                            const float* gacc, float* dpts, float* drt,
-                            float* dvol, int n, int B, int G, int vol_bf16,
-                            float eps, void* stream) {
+// Forward: pts [n, 3] f32; rg [B, 9]; tg [B, 3]; img the corner image (bf16
+// when img_bf16, else f32); k0 a device int or null; out [n, 4] f32, every
+// row written. Returns cudaGetLastError().
+int hosnerf_inverse_lbs(const float* pts, const float* rg, const float* tg,
+                        const void* img, const int* k0, float* out, int n,
+                        int B, int G, int img_bf16, void* stream) {
   if (n <= 0) return 0;
   if (B < 1 || B > kMaxBones) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + kThreads - 1) / kThreads);
+  const dim3 grid((n + kFwdThreads - 1) / kFwdThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float4* g = reinterpret_cast<const float4*>(gacc);
-  if (vol_bf16) {
-    inverse_lbs_bwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        pts, rg, tg, static_cast<const __nv_bfloat16*>(vol), g, dpts, drt,
-        dvol, n, B, G, eps);
-  } else {
-    inverse_lbs_bwd_kernel<float><<<grid, kThreads, 0, s>>>(
-        pts, rg, tg, static_cast<const float*>(vol), g, dpts, drt, dvol, n,
-        B, G, eps);
+  float4* o = reinterpret_cast<float4*>(out);
+  if (img_bf16)
+    inv_fwd_kernel<__nv_bfloat16><<<grid, kFwdThreads, 0, s>>>(
+        pts, rg, tg, static_cast<const __nv_bfloat16*>(img), k0, o, n, B, G);
+  else
+    inv_fwd_kernel<float><<<grid, kFwdThreads, 0, s>>>(
+        pts, rg, tg, static_cast<const float*>(img), k0, o, n, B, G);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Backward: gacc [n, 4] f32 in; dpts [n, 3] (every row), drg [B, 9], dtg
+// [B, 3] and dvol [B, G*G, G] f32 out, all written here; scratch
+// (hosnerf_inverse_bwd_scratch floats) zeroed here. Three device
+// operations on `stream` (memset, kernel, fold); returns the first error.
+int hosnerf_inverse_lbs_bwd(const float* pts, const float* rg,
+                            const float* tg, const void* img,
+                            const float* gacc, const int* k0, float* dpts,
+                            float* drg, float* dtg, float* dvol,
+                            float* scratch, int n, int B, int G, int img_bf16,
+                            void* stream) {
+  if (B < 1 || B > kMaxBones) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float2* zp = reinterpret_cast<float2*>(scratch + replica_floats(B));
+  cudaError_t err = cudaMemsetAsync(
+      scratch, 0, sizeof(float) * hosnerf_inverse_bwd_scratch(B, G), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n > 0) {
+    const dim3 grid((n + kBwdRows - 1) / kBwdRows);
+    const float4* g = reinterpret_cast<const float4*>(gacc);
+    if (img_bf16)
+      inv_bwd_kernel<__nv_bfloat16><<<grid, kBwdThreads, 0, s>>>(
+          pts, rg, tg, static_cast<const __nv_bfloat16*>(img), g, k0, dpts,
+          scratch, zp, n, B, G);
+    else
+      inv_bwd_kernel<float><<<grid, kBwdThreads, 0, s>>>(
+          pts, rg, tg, static_cast<const float*>(img), g, k0, dpts, scratch,
+          zp, n, B, G);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  const int fold_n = B * G * G * G > B * 12 ? B * G * G * G : B * 12;
+  inv_fold_kernel<<<(fold_n + kFoldThreads - 1) / kFoldThreads, kFoldThreads,
+                    0, s>>>(scratch, zp, dvol, drg, dtg, B, G);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -276,12 +276,12 @@ class HumanObjectField(nn.Module):
         return raw, fg_mask, outputs
 
     def _samples_sorted(self, batch, si, embed, iter_val, is_train, R, S):
-        """Liveness-sorted per-sample pipeline (the CUDA path). The
-        inverse-LBS kernel writes dead rows as exact zeros; the MLP and
-        forward-LBS kernels skip the dead prefix in whole blocks (one
-        boundary, the MLPs' 1024 rows, for all of them), and their
-        unwritten rows are zeroed on the exact group-aligned dead/live
-        boundary before anything reads them. Dead samples are masked out of
+        """Liveness-sorted per-sample pipeline (the CUDA path). Every
+        kernel skips the dead prefix in whole blocks (one boundary, the
+        MLPs' 1024 rows, for all of them): the inverse-LBS kernels store
+        its rows as exact zeros, the MLP and forward-LBS kernels leave them
+        unwritten, and those are zeroed on the exact group-aligned
+        dead/live boundary before anything reads them. Dead samples are masked out of
         every consumer (compositing, the cycle mask, the flow weights), so
         their skipped values and zero cotangents change nothing."""
         B = self.total_bones
@@ -293,8 +293,9 @@ class HumanObjectField(nn.Module):
         dom = cuda_lbs.bp_prepare(pts_flat, rg, tg, G, B)
         pts_s = dom.sort_rows(pts_flat.float())
         n_pad = pts_s.shape[0]
+        k0 = dom.k0_for(cuda_mlp.MLP_TILE)  # == cuda_lbs.INV_TILE
         acc_s = cuda_lbs.inverse_core_pg_s(pts_s, rg, tg, vol_qz,
-                                           precision="bf16")
+                                           precision="bf16", k0_blocks=k0)
         x_skel_s, wsum_s = cuda_lbs.world_from_grid(acc_s, s_, o_)
         live = dom.live_row_mask()
 
@@ -303,7 +304,6 @@ class HumanObjectField(nn.Module):
             kernels leave skipped rows' input gradients unwritten)."""
             return torch.where(live, x, x.detach())
 
-        k0 = dom.k0_for(cuda_mlp.MLP_TILE)
         if not self.ignore_non_rigid_motions:
             cnl_pts_s = self._nr_apply(
                 self.non_rigid_mlp, grad_gate(x_skel_s).contiguous(),

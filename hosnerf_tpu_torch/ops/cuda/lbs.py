@@ -13,11 +13,13 @@ and `inverse_core_pg_s` with their VJPs, `shared_core` with its VJP,
 The TPU's five inverse cores compute one function, acc[n] = (sum_b w_b f_b,
 sum_b w_b), with the same bf16 rounding; they differ in how they order the
 samples and schedule (tile, bone) pairs for the MXU and scalar prefetch.
-The Hopper kernel (`csrc/lbs_inverse.cu`) computes that function per
-sample in bone order with a per-(sample, bone) support early-out, takes no
-tables and is right for any row order. So the cores are entries that put
-the rows in their own order around the one kernel pair (forward B1,
-backward B4): `inverse_core` the rows as given, `inverse_core_pg` the
+The Hopper kernels (`csrc/lbs_inverse.cu`) compute that function per
+sample from a corner image of the volume (`inverse_image`), skipping the
+(sample, bone) pairs whose cell lies off the grid; they take no tables and
+are right for any row order (the sorted path's k0 only lets them skip its
+dead prefix). So the cores are entries that put the rows in their own
+order around the one kernel pair (forward B1, backward B4), at k0 = 0:
+`inverse_core` the rows as given, `inverse_core_pg` the
 Morton group sort, `inverse_core_pgw` the signature + Morton sort,
 `inverse_core_bp` and `bp_prepare` the signature sort. The TPU pair
 tables (`_build_pairs`, `_build_window_pairs`, `_slot_pairs`,
@@ -47,6 +49,8 @@ ROW_PAD = 128      # sorted-domain rows padded to a multiple of this (the
                    # JAX pair tile), so both packages sort the same rows
 MAX_SIG_BONES = 31  # the int32 signature holds one bit per bone
 TILE_SH = 512      # forward-LBS k0 counts blocks of this many rows
+INV_TILE = 1024    # inverse-LBS k0 counts blocks of this many rows (csrc
+                   # kTile; the trunks' MLP_TILE, so one k0 serves both)
 MAX_BONES = 32     # csrc kMaxBones
 SORT_CELLS = 16    # Morton cells per axis, as the JAX package's SORT_CELLS
 MORTON_BITS = (SORT_CELLS - 1).bit_length()
@@ -376,58 +380,132 @@ def _check_inverse(pts_s, rg, tg, vol_qz):
     return B, G, n
 
 
+def inverse_image_plain(vol_qz, precision: str = "bf16"):
+    """The inverse kernels' copy of the volume, [B, G+1, G+1, G+1, 8]:
+    entry (b, cx, cy, cz) holds the 8 corners of the grid cell whose lower
+    corner is (cx, cy, cz) - 1, corner k = 4 dx + 2 dy + dz at voxel (x, y,
+    z) = (cx, cy, cz) - 1 + (dx, dy, dz), i.e. vol_qz[b, x*G + y, z], zero
+    off the grid; in the precision's type (bf16 rounds to nearest)."""
+    B, _, G = vol_qz.shape
+    P = G + 1
+    vol = _vol_for(vol_qz, precision).reshape(B, G, G, G)
+    pad = vol.new_zeros(B, G + 2, G + 2, G + 2)   # index = voxel + 1
+    pad[:, 1:-1, 1:-1, 1:-1] = vol
+    return torch.stack([pad[:, dx:dx + P, dy:dy + P, dz:dz + P]
+                        for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)],
+                       -1)
+
+
+def inverse_image(vol_qz, precision: str = "bf16"):
+    """The image of `inverse_image_plain`, flat. A CPU tensor runs
+    `inverse_image_plain`; a CUDA tensor one launch of csrc/lbs_inverse.cu
+    (cast, relayout and zero padding), or raises. The autograd forward
+    builds it once and keeps it for the backward."""
+    if vol_qz.device.type == "cpu":
+        return inverse_image_plain(vol_qz, precision).reshape(-1)
+    if not vol_qz.is_cuda:
+        raise ValueError(f"unsupported device {vol_qz.device}")
+    B, _, G = vol_qz.shape
+    _rounder(precision)  # raises on an unknown precision
+    src = (vol_qz if vol_qz.dtype in (torch.float32, torch.bfloat16)
+           else vol_qz.float()).contiguous()
+    img = torch.empty(B * (G + 1) ** 3 * 8, device=vol_qz.device,
+                      dtype=torch.bfloat16 if precision == "bf16"
+                      else torch.float32)
+    lib = _lib()
+    rc = lib.hosnerf_inverse_image(
+        src.data_ptr(), int(src.dtype == torch.bfloat16), img.data_ptr(),
+        int(precision == "bf16"), B, G,
+        torch.cuda.current_stream(vol_qz.device).cuda_stream)
+    _build.check(rc, lib, "inverse_image")
+    return img
+
+
+def _k0_ptr(k0, device):
+    """(pointer, tensor kept alive) for a kernel's k0: null for None."""
+    if k0 is None:
+        return None, None
+    t = _k0_tensor(k0, device)
+    return t.data_ptr(), t
+
+
+def _inv_fwd(pts_s, rg, tg, vol_qz, img, k0, B: int, G: int,
+             precision: str, entry):
+    """B1's launch; builds the volume's image first unless given (after
+    the output: a caller's NaN poison reaches the output first). Returns
+    (acc, image)."""
+    n, dev = pts_s.shape[0], pts_s.device
+    out = torch.empty(n, 4, device=dev, dtype=torch.float32)
+    img = inverse_image(vol_qz, precision) if img is None else img
+    k0_p, k0_t = _k0_ptr(k0, dev)
+    lib = _lib()
+    rc = lib.hosnerf_inverse_lbs(
+        pts_s.data_ptr(), rg.data_ptr(), tg.data_ptr(), img.data_ptr(), k0_p,
+        out.data_ptr(), n, B, G, int(precision == "bf16"),
+        torch.cuda.current_stream(dev).cuda_stream)
+    entry.launches += 1
+    _build.check(rc, lib, entry.__name__)
+    return out, img
+
+
+def _inv_bwd(pts_s, rg, tg, vol_qz, img, gacc, k0, B: int, G: int,
+             precision: str):
+    """B4's launches; builds the volume's image after dpts unless given."""
+    n, dev = pts_s.shape[0], pts_s.device
+    gacc = gacc.float().contiguous()
+    if gacc.shape != (n, 4) or gacc.device != dev:
+        raise ValueError("gacc must be [n, 4] on the device of pts_s")
+    lib = _lib()
+    dpts = torch.empty(n, 3, device=dev, dtype=torch.float32)
+    img = inverse_image(vol_qz, precision) if img is None else img
+    drg = torch.empty(B, 9, device=dev, dtype=torch.float32)
+    dtg = torch.empty(B, 3, device=dev, dtype=torch.float32)
+    dvol = torch.empty(B, G * G, G, device=dev, dtype=torch.float32)
+    scratch = torch.empty(lib.hosnerf_inverse_bwd_scratch(B, G), device=dev,
+                          dtype=torch.float32)
+    k0_p, k0_t = _k0_ptr(k0, dev)
+    rc = lib.hosnerf_inverse_lbs_bwd(
+        pts_s.data_ptr(), rg.data_ptr(), tg.data_ptr(), img.data_ptr(),
+        gacc.data_ptr(), k0_p, dpts.data_ptr(), drg.data_ptr(),
+        dtg.data_ptr(), dvol.data_ptr(), scratch.data_ptr(), n, B, G,
+        int(precision == "bf16"), torch.cuda.current_stream(dev).cuda_stream)
+    inverse_core_bwd.launches += 1
+    _build.check(rc, lib, "inverse_core_bwd")
+    return dpts, drg, dtg, dvol
+
+
 def inverse_core_fwd(pts_s, rg, tg, vol_qz, precision: str = "bf16",
                      entry=None):
-    """B1: inverse-LBS accumulation acc [n, 4]. A CPU tensor runs
-    `inverse_core_plain`; a CUDA tensor runs the kernel of
-    csrc/lbs_inverse.cu (or raises) and adds one to the launch count of
-    `entry`, the inverse core that asked (`inverse_core_pg_s` unless
-    named)."""
+    """B1: inverse-LBS accumulation acc [n, 4] over every row. A CPU
+    tensor runs `inverse_core_plain`; a CUDA tensor builds the volume's
+    image and runs the kernel of csrc/lbs_inverse.cu (or raises), adding
+    one to the launch count of `entry`, the inverse core that asked
+    (`inverse_core_pg_s` unless named)."""
     if pts_s.device.type == "cpu":
         return inverse_core_plain(pts_s, rg, tg, vol_qz, precision)
     if not pts_s.is_cuda:
         raise ValueError(f"unsupported device {pts_s.device}")
-    B, G, n = _check_inverse(pts_s, rg, tg, vol_qz)
-    vol = _vol_for(vol_qz, precision).contiguous()
-    out = torch.empty(n, 4, device=pts_s.device, dtype=torch.float32)
-    lib = _lib()
-    stream = torch.cuda.current_stream(pts_s.device).cuda_stream
-    rc = lib.hosnerf_inverse_lbs(
-        pts_s.data_ptr(), rg.data_ptr(), tg.data_ptr(), vol.data_ptr(),
-        out.data_ptr(), n, B, G, int(precision == "bf16"), PG_EPS, stream)
-    entry = entry or inverse_core_pg_s
-    entry.launches += 1
-    _build.check(rc, lib, entry.__name__)
-    return out
+    B, G, _ = _check_inverse(pts_s, rg, tg, vol_qz)
+    return _inv_fwd(pts_s, rg, tg, vol_qz, None, None, B, G, precision,
+                    entry or inverse_core_pg_s)[0]
 
 
-def inverse_core_bwd(pts_s, rg, tg, vol_qz, gacc, precision: str = "bf16"):
+def inverse_core_bwd(pts_s, rg, tg, vol_qz, gacc, precision: str = "bf16",
+                     k0=None):
     """B4: the inverse-LBS backward, (dpts, drg, dtg, dvol). A CPU tensor
-    runs `inverse_core_bwd_plain`; a CUDA tensor the kernel of
-    csrc/lbs_inverse.cu (or raises). dvol/drg/dtg sum over all samples
-    with atomics, so their summation order varies from run to run."""
+    runs `inverse_core_bwd_plain`; a CUDA tensor builds the volume's image
+    and runs the kernels of csrc/lbs_inverse.cu (or raises). k0: first
+    live block of INV_TILE rows (a device tensor or int, clamped to
+    n_blocks - 1; None for 0), as `inverse_core_pg_s` takes it: the rows
+    below it must be dead (no bone's support); their dpts are stored as 0
+    and they add nothing. dvol, drg and dtg sum over samples with atomics,
+    so their summation order varies from run to run."""
     if pts_s.device.type == "cpu":
         return inverse_core_bwd_plain(pts_s, rg, tg, vol_qz, gacc, precision)
     if not pts_s.is_cuda:
         raise ValueError(f"unsupported device {pts_s.device}")
-    B, G, n = _check_inverse(pts_s, rg, tg, vol_qz)
-    gacc = gacc.float().contiguous()
-    if gacc.shape != (n, 4) or gacc.device != pts_s.device:
-        raise ValueError("gacc must be [n, 4] on the device of pts_s")
-    vol = _vol_for(vol_qz, precision).contiguous()
-    dev = pts_s.device
-    dpts = torch.empty(n, 3, device=dev, dtype=torch.float32)
-    drt = torch.zeros(B, 12, device=dev, dtype=torch.float32)
-    dvol = torch.zeros(B, G * G, G, device=dev, dtype=torch.float32)
-    lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.hosnerf_inverse_lbs_bwd(
-        pts_s.data_ptr(), rg.data_ptr(), tg.data_ptr(), vol.data_ptr(),
-        gacc.data_ptr(), dpts.data_ptr(), drt.data_ptr(), dvol.data_ptr(),
-        n, B, G, int(precision == "bf16"), PG_EPS, stream)
-    inverse_core_bwd.launches += 1
-    _build.check(rc, lib, "inverse_core_bwd")
-    return dpts, drt[:, :9].contiguous(), drt[:, 9:].contiguous(), dvol
+    B, G, _ = _check_inverse(pts_s, rg, tg, vol_qz)
+    return _inv_bwd(pts_s, rg, tg, vol_qz, None, gacc, k0, B, G, precision)
 
 
 inverse_core_bwd.launches = 0
@@ -436,28 +514,48 @@ inverse_core_bwd.launches = 0
 class _InverseCore(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, pts_s, rg, tg, vol_qz, precision, entry):
+    def forward(ctx, pts_s, rg, tg, vol_qz, precision, entry, k0):
         ctx.precision = precision
-        ctx.save_for_backward(pts_s, rg, tg, vol_qz)
-        return inverse_core_fwd(pts_s, rg, tg, vol_qz, precision, entry)
+        if pts_s.device.type == "cpu":
+            ctx.save_for_backward(pts_s, rg, tg, vol_qz, None, None)
+            return inverse_core_plain(pts_s, rg, tg, vol_qz, precision)
+        if not pts_s.is_cuda:
+            raise ValueError(f"unsupported device {pts_s.device}")
+        B, G, _ = _check_inverse(pts_s, rg, tg, vol_qz)
+        out, img = _inv_fwd(pts_s, rg, tg, vol_qz, None, k0, B, G,
+                            precision, entry)
+        ctx.save_for_backward(pts_s, rg, tg, vol_qz, img, k0)
+        return out
 
     @staticmethod
     def backward(ctx, gacc):
-        pts_s, rg, tg, vol_qz = ctx.saved_tensors
-        dpts, drg, dtg, dvol = inverse_core_bwd(pts_s, rg, tg, vol_qz,
-                                                gacc, ctx.precision)
+        pts_s, rg, tg, vol_qz, img, k0 = ctx.saved_tensors
+        if img is None:
+            dpts, drg, dtg, dvol = inverse_core_bwd_plain(
+                pts_s, rg, tg, vol_qz, gacc, ctx.precision)
+        else:
+            B, _, G = vol_qz.shape
+            dpts, drg, dtg, dvol = _inv_bwd(pts_s, rg, tg, vol_qz, img,
+                                            gacc, k0, B, G, ctx.precision)
         return (dpts, drg.to(rg.dtype), dtg.to(tg.dtype),
-                dvol.to(vol_qz.dtype), None, None)
+                dvol.to(vol_qz.dtype), None, None, None)
 
 
-def inverse_core_pg_s(pts_s, rg, tg, vol_qz, precision: str = "bf16"):
+def inverse_core_pg_s(pts_s, rg, tg, vol_qz, precision: str = "bf16",
+                      k0_blocks=None):
     """Inverse-LBS accumulation over (sorted) samples: acc [n, 4] =
     (sum_b w_b f_b, sum_b w_b) in grid coordinates, dead rows exactly 0.
     pts_s [n, 3] f32; rg [B, 9]; tg [B, 3]; vol_qz [B, G*G, G].
     Differentiable in all four: forward B1, backward B4 (each the plain
-    version for CPU tensors, the kernel for CUDA tensors)."""
+    version for CPU tensors, the kernel for CUDA tensors). k0_blocks: the
+    sorted domain's first live block of INV_TILE rows (`BPDomain.k0_for`),
+    a device tensor or int, clamped to n_blocks - 1. The rows below it
+    must be dead (no bone's support): the kernels store them as zeros
+    without computing them (the plain versions' arithmetic gives zeros
+    there too)."""
+    k0 = None if k0_blocks is None else _k0_tensor(k0_blocks, pts_s.device)
     return _InverseCore.apply(pts_s, rg, tg, vol_qz, precision,
-                              inverse_core_pg_s)
+                              inverse_core_pg_s, k0)
 
 
 inverse_core_pg_s.launches = 0
@@ -473,7 +571,7 @@ def _in_row_order(order, pts, rg, tg, vol_qz, precision, entry):
     with torch.no_grad():
         perm, inv_perm = _row_perms(order(pts_p, rg, tg, G, n))
     acc_s = _InverseCore.apply(pts_p[perm], rg, tg, vol_qz, precision,
-                               entry)
+                               entry, None)
     return acc_s[inv_perm][:n]
 
 
@@ -496,7 +594,7 @@ def inverse_core(pts_g, rg, tg, vol_qz, precision: str = "bf16"):
     """Row 6 (`inverse_core`, the TPU's dense tile schedule): the rows in
     the order given, unpadded. Same contract as `inverse_core_pg_s`."""
     return _InverseCore.apply(pts_g.float().contiguous(), rg, tg, vol_qz,
-                              precision, inverse_core)
+                              precision, inverse_core, None)
 
 
 def inverse_core_pg(pts_g, rg, tg, vol_qz, precision: str = "bf16"):
@@ -529,14 +627,17 @@ PG_CORES = {"quad": inverse_core_pg, "win": inverse_core_pgw,
             "bp": inverse_core_bp}
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("lbs_inverse")
     p = ctypes.c_void_p
     i = ctypes.c_int
+    _build.declare(lib, "hosnerf_inverse_bwd_scratch", [i, i])
+    _build.declare(lib, "hosnerf_inverse_image", [p, i, p, i, i, i, p])
     _build.declare(lib, "hosnerf_inverse_lbs",
-                   [p, p, p, p, p, i, i, i, i, ctypes.c_float, p])
+                   [p, p, p, p, p, p, i, i, i, i, p])
     _build.declare(lib, "hosnerf_inverse_lbs_bwd",
-                   [p, p, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, p])
+                   [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, p])
     return lib
 
 

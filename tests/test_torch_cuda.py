@@ -405,6 +405,114 @@ def test_inverse_entries_match_plain(lbs_inputs, prec):
             _close(a.grad, b, 1e-4, f"{name} {what}")
 
 
+# B1/B4 edge cases: (n, B, G, kind, k0). kind "mixed": samples in, around
+# and far off every bone's grid; "faces": samples at and just past each
+# face of bone 0's support box f in (-1 - PG_EPS, G + PG_EPS); "sorted":
+# the mixed samples with a far-off third, through bp_prepare, so that the
+# domain's k0 (k0 None here) skips a dead prefix. k0 10**6 is the
+# all-dead clamp: only the last INV_TILE block is computed.
+INV_CASES = {
+    "n0": (0, 26, 32, "mixed", 0),
+    "n1000": (1_000, 26, 32, "mixed", 0),
+    "n262143": (262_143, 26, 32, "mixed", 0),
+    "n262143_clamped": (262_143, 26, 32, "mixed", 10 ** 6),
+    "sorted_k0": (40_000, 26, 32, "sorted", None),
+    "faces": (3_000, 26, 32, "faces", 0),
+    "B1_G16": (5_000, 1, 16, "mixed", 0),
+    "B32_G32": (5_000, 32, 32, "mixed", 3),
+    "B26_G16": (5_000, 26, 16, "sorted", None),
+}
+
+
+def _inverse_case(dev, n, B, G, kind, seed=0):
+    """(pts, rg, tg, vol_qz, gacc, k0 of a sorted case or None)."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    R = (torch.eye(3, device=dev)[None] * (0.8 + 0.4 * torch.rand(
+        B, 1, 1, device=dev, generator=gen))
+        + 0.1 * torch.randn(B, 3, 3, device=dev, generator=gen))
+    t = 4.0 * torch.rand(B, 3, device=dev, generator=gen) - 2.0
+    vol_qz = 2.0 * torch.rand(B, G * G, G, device=dev, generator=gen) - 0.5
+    pts = -3.0 + (G + 5.0) * torch.rand(n, 3, device=dev, generator=gen)
+    pts[::9] += 60.0
+    if kind == "faces":
+        eps = clbs.PG_EPS
+        vals = torch.tensor([-1.0 - 2 * eps, -1.0 - eps / 2, -1.0, 0.0,
+                             G - 1.0, G - 1e-3, float(G), G + eps / 2,
+                             G + 2 * eps], device=dev)
+        f = torch.full((n, 3), G / 2.0 + 0.3, device=dev)
+        axis = torch.arange(n, device=dev) % 3
+        f[torch.arange(n, device=dev), axis] = vals[
+            torch.arange(n, device=dev) // 3 % len(vals)]
+        pts = torch.linalg.solve(R[0], (f - t[0]).T).T
+    k0 = None
+    if kind == "sorted":
+        pts[: n // 3] += 90.0
+        dom = clbs.bp_prepare(pts, R.reshape(B, 9), t, G, B)
+        pts = dom.sort_rows(pts)
+        k0 = dom.k0_for(clbs.INV_TILE)
+        assert int(k0) >= 1
+    gacc = torch.randn(pts.shape[0], 4, device=dev, generator=gen)
+    gacc[::4] = 0.0
+    return (pts.contiguous(), R.reshape(B, 9).contiguous(), t.contiguous(),
+            vol_qz, gacc, k0)
+
+
+@pytest.mark.parametrize("prec", ["bf16", "highest"])
+@pytest.mark.parametrize("case", sorted(INV_CASES))
+def test_inverse_kernels_edge_cases(dev, case, prec):
+    """B1 and B4 vs their plain versions on NaN-poisoned outputs: B1 bit
+    for bit on the rows from the clamped k0 * INV_TILE on, the rows below
+    exactly 0; B4 (dpts from there on, the sums over those rows) at
+    chip_smoke's tolerances (relative L2 1e-4, max 1e-4 of the scale in
+    f32, 1e-2 in bf16), its dpts rows below exactly 0. One launch count
+    per entry call."""
+    n, B, G, kind, k0 = INV_CASES[case]
+    pts, rg, tg, vol_qz, gacc, dom_k0 = _inverse_case(dev, n, B, G, kind)
+    k0 = dom_k0 if k0 is None else torch.tensor([k0], device=dev,
+                                                dtype=torch.int32)
+    n = pts.shape[0]
+    first = clbs.first_live_row(int(k0), n, clbs.INV_TILE) if n else 0
+    counts = lambda: (clbs.inverse_core_pg_s.launches,  # noqa: E731
+                      clbs.inverse_core_bwd.launches)
+    before = counts()
+    ref = clbs.inverse_core_plain(pts, rg, tg, vol_qz, prec)
+    _poison(64 << 20, dev)
+    got = clbs.inverse_core_pg_s(pts, rg, tg, vol_qz, prec, k0_blocks=k0)
+    torch.cuda.synchronize()
+    assert got.shape == (n, 4) and torch.isfinite(got).all()
+    assert not got[:first].any()
+    assert torch.equal(got[first:], ref[first:])
+    if kind == "sorted":
+        assert torch.equal(got, ref)           # the skipped rows are dead
+    dref = clbs.inverse_core_bwd_plain(pts[first:], rg, tg, vol_qz,
+                                       gacc[first:], prec)
+    _poison(64 << 20, dev)
+    dgot = clbs.inverse_core_bwd(pts, rg, tg, vol_qz, gacc, prec, k0=k0)
+    torch.cuda.synchronize()
+    assert not dgot[0][:first].any()
+    max_tol = 1e-2 if prec == "bf16" else 1e-4
+    for what, a, b in zip(("dpts", "drg", "dtg", "dvol"),
+                          (dgot[0][first:],) + tuple(dgot[1:]), dref):
+        if n == 0:
+            assert a.shape == b.shape and not a.any(), what
+        else:
+            _close(a, b, 1e-4, what, max_tol)
+    assert [a - b for a, b in zip(counts(), before)] == [1, 1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("prec", ["bf16", "highest"])
+def test_inverse_image_matches_plain(dev, prec, dtype):
+    """The inverse kernels' corner image, built in one launch, equals
+    `inverse_image_plain` bit for bit."""
+    vol_qz = torch.randn(26, 32 * 32, 32, device=dev,
+                         generator=torch.Generator(dev).manual_seed(9))
+    vol_qz = vol_qz.to(dtype)
+    got = clbs.inverse_image(vol_qz, prec)
+    ref = clbs.inverse_image_plain(vol_qz, prec).reshape(-1)
+    assert got.dtype == ref.dtype and torch.equal(got, ref)
+
+
 @pytest.mark.parametrize("prec", ["bf16", "highest"])
 def test_shared_core_kernels_match_plain(lbs_inputs, prec):
     """Row 7 forward (one thread per (sample, bone)) to 1e-6 of the scale
