@@ -20,18 +20,22 @@ Phases, each of which fails the run:
             time (profiler) and the corner image's; B1/B4, B5 and row 7
             beside a library route (bmm + grid_sample f32 + blend for the
             inverse LBS, grid_sample f32 for row 7, for B5 followed by the
-            K-set blend), held to the f32 plain version first; B2, B3 and row 8 also report
-            TFLOP/s and their share of the bound, and B3's three launches
-            (recompute, rows, dW) are timed apart under torch.profiler; the four inverse-LBS cores
-            (rows 6, 9, 10, 11: B1/B4 on the training points in each core's
-            row order), the all-bone weights (row 7) on the training step's
-            canonical points, the trunk-only MLP (row 8) at
+            K-set blend), held to the f32 plain version first; B2, B3 and
+            row 8 beside the module MLPs (cuBLAS bf16, or f32 with TF32 off
+            for the f32 kernels) and their autograd backward; B2, B3 and
+            row 8 also report TFLOP/s and their share of the bound (f32:
+            of the tensor-core bound and of the FMA one), B2's kernel time
+            beside its entry's, and B3's three launches (recompute, rows,
+            dW) are timed apart under torch.profiler; the four inverse-LBS
+            cores (rows 6, 9, 10, 11: B1/B4 on the training points in each
+            core's row order), the all-bone weights (row 7) on the training
+            step's canonical points, the trunk-only MLP (row 8) at
             tools/bench_mlp.py's two layouts and 262,144 rows, and the
             pair-grid prototype (row 12) at its own shapes; rows 7, 8 and
             12 then once more through their user entry points
             (`ops/lbs.py::bone_weights`, `ops/cuda/mlp.py::fused_trunk`
-            with its backward, `tools/proto_pairgrid.py`), launches counted
-            around each;
+            with its backward in both precisions, `tools/proto_pairgrid.py`),
+            launches counted around each;
   render    3 frames of 128 x 128 rays through the port's render entry point
             (`eval/renderers.py`: render_human_image + make_render_fn) with
             the full-width stage-2 model (random weights from seed 0, bf16
@@ -50,6 +54,11 @@ Phases, each of which fails the run:
   profile   one more training step under torch.profiler; then one
             more step with B5's backward inputs captured, and that
             backward timed on the step's own gradient beside a random one;
+  train f32 the same step at Stage2Config's default compute_dtype (None:
+            f32 "highest" trunks, B2/B3 on their bf16x3 kernels): one
+            warm-up and F32_STEPS timed steps, launches and loss checked,
+            then one step under torch.profiler (device busy time and the
+            trunk kernels' share of it);
   dense     the same training step on the dense per-sample path
             (`sparse=False`: the Morton-order inverse core, the trunks and
             the forward LBS on every sample): one warm-up and DENSE_STEPS
@@ -67,8 +76,9 @@ Phases, each of which fails the run:
 Stdout ends with the card's name and power limit, one JSON line of kernel
 results and one JSON status line. The render kernels' entries report the
 render path (their launches there, their times at its shapes), the training
-kernels' entries the training step, the inverse cores the dense step and
-the dense render chunks, rows 7, 8 and 12 their entry points' runs.
+kernels' entries the training step, the f32 trunk kernels' entries (`_f32`)
+the f32 training step, the inverse cores the dense step and the dense
+render chunks, rows 7, 8 and 12 their entry points' runs.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
 """
@@ -87,6 +97,7 @@ FRAMES = 3
 ITER = 10 ** 7             # the render path's iter_val
 TRAIN_ITER = 60_000        # non-rigid condition and full hann band on
 TRAIN_STEPS = 10
+F32_STEPS = 3
 # kernel launches per training step: the sorted path runs the inverse LBS
 # once, the trunks four times (non-rigid, canonical, and the forward
 # non-rigid MLP on both deform streams) and the forward LBS once
@@ -109,7 +120,8 @@ PER_PALLAS_DENSE_STEP = {"inverse_core": 1, "inverse_core_bwd": 1,
 # inverse LBS does the same arithmetic in the same order with
 # round-to-nearest intrinsics on both sides -> 1e-6 of the output scale.
 TOL_LBS = 1e-6
-# embed+trunk, f32: summation order only -> 1e-5 of the scale. bf16: one
+# embed+trunk, f32 (bf16x3 products, each weight chunk's sum added with
+# rounding): summation order only -> 1e-5 of the scale. bf16: one
 # flipped bf16 rounding of an activation moves an output by about a bf16
 # ulp of the activations -> 1e-2 of the scale, and at most 5% of the
 # entries beyond 1e-3 of it.
@@ -165,6 +177,10 @@ EXTRA_KEYS = ("step_grad_ms", "step_random_grad_ms", "step_rows",
 # H100 SXM peaks (NVIDIA data sheet), for the bounds: HBM bytes/s, dense
 # bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+# f32-grade products on the tensor cores, the f32 trunks' bound: six bf16
+# products per f32 product (bf16x3; three TF32 ones at 495 TFLOP/s give the
+# same); their share of the FMA bound (F32_FLOPS) is printed beside it
+F32_TC_FLOPS = BF16_FLOPS / 6
 # f32 operations each kernel does, counted from its arithmetic: per live
 # (sample, bone) pair for the inverse LBS (affine 18, taps 24, xy weights
 # 4, z column 16, blend 8; the backward adds the derivative taps, dvol
@@ -212,11 +228,47 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, f32_ops: float = 0.0, bf16_ops: float = 0.0):
+def bound(nbytes: float, f32_ops: float = 0.0, bf16_ops: float = 0.0,
+          f32_tc_ops: float = 0.0):
     """(least ms the card could take, 'bytes' or 'operations')."""
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = (f32_ops / F32_FLOPS + bf16_ops / BF16_FLOPS) * 1e3
+    t_ops = (f32_ops / F32_FLOPS + bf16_ops / BF16_FLOPS
+             + f32_tc_ops / F32_TC_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def trunk_bound(res, io_bytes: float, flops: float, prec: str) -> str:
+    """Sets a trunk kernel's bound: its matmul operations on the tensor
+    cores (bf16, or f32-grade at F32_TC_FLOPS) against its bytes; for f32
+    also the FMA bound (F32_FLOPS) as `fma_bound_ms`. Returns the line
+    fragment with the rate and the shares (after `res["ms"]` is set)."""
+    ops = "bf16_ops" if prec == "bf16" else "f32_tc_ops"
+    res["bound_ms"], res["bound_by"] = bound(io_bytes, **{ops: flops})
+    line = f" bound_ms={res['bound_ms']:.5f} ({res['bound_by']})" + rate(
+        res, flops)
+    if prec != "bf16":
+        res["fma_bound_ms"] = bound(io_bytes, f32_ops=flops)[0]
+        res["fma_bound_share"] = res["fma_bound_ms"] / res["ms"]
+        line += (f" fma_bound_ms={res['fma_bound_ms']:.5f} "
+                 f"fma_bound_share={res['fma_bound_share']:.3f}")
+    return line
+
+
+class f32_modules:
+    """The model's module MLPs in f32 (compute_dtype None) inside the
+    block: the f32 kernels' library route (cuBLAS f32, TF32 off)."""
+
+    def __init__(self, model, on: bool = True):
+        self.mods = [model.cnl_mlp, model.non_rigid_mlp] if on else []
+
+    def __enter__(self):
+        self.saved = [m.compute_dtype for m in self.mods]
+        for m in self.mods:
+            m.compute_dtype = None
+
+    def __exit__(self, *exc):
+        for m, d in zip(self.mods, self.saved):
+            m.compute_dtype = d
 
 
 def rate(res, flops: float) -> str:
@@ -512,7 +564,9 @@ def check_mlp(torch, model, si, dom, x_skel_s, results, iters):
     """Both trunk specs at the render shapes with the model's weights:
     k0 = 0, the chunk's own dead-prefix k0 (at least 1), and the all-dead
     clamp; rows below the clamped k0 * 1024 are not compared. The library
-    route, the module MLPs on cuBLAS bf16, is timed beside the bf16 kernel."""
+    route, the module MLPs on cuBLAS bf16 (f32 for the f32 kernel), is timed
+    beside each kernel, and the kernel's device time (profiler) beside its
+    entry's."""
     from hosnerf_tpu_torch.models import embedders
     from hosnerf_tpu_torch.ops.cuda import mlp as cmlp
     n_pad = x_skel_s.shape[0]
@@ -578,19 +632,26 @@ def check_mlp(torch, model, si, dom, x_skel_s, results, iters):
                         res = dict(err=err, rel=err / scale, ms=ms,
                                    plain_ms=plain_ms)
                         flops = trunk_flops(layers, out, n_pad)
-                        if prec == "bf16":
+                        with f32_modules(model, prec != "bf16"):
                             res["library_ms"] = time_ms(
                                 torch, library[name], iters)
-                            line += f" library_ms={res['library_ms']:.4f}"
-                        res["bound_ms"], res["bound_by"] = bound(
-                            nbytes(x_skel_s, got, *[t for p in layers
-                                                    for t in p], *out)
+                        line += f" library_ms={res['library_ms']:.4f}"
+                        line += trunk_bound(
+                            res, nbytes(x_skel_s, got, *[t for p in layers
+                                                         for t in p], *out)
                             + (nbytes(aux) if kw["aux_mode"] == "broadcast"
-                               else aux.shape[-1] * 4),
-                            **({"bf16_ops": flops} if prec == "bf16"
-                               else {"f32_ops": flops}))
-                        line += (f" bound_ms={res['bound_ms']:.5f} "
-                                 f"({res['bound_by']})") + rate(res, flops)
+                               else aux.shape[-1] * 4), flops, prec)
+                        kern = TRUNK_KERNELS[prec][0]
+                        dev_ms = device_ms(
+                            torch, lambda: cmlp.fused_embed_trunk(
+                                x_skel_s, aux, alpha, layers, out,
+                                precision=prec, k0_blocks=k0_t, **kw),
+                            [("kernel", (kern,))], 3)["kernel"]
+                        check(dev_ms > 0, f"{name} {prec}: the profiler saw "
+                              f"no {kern} launch")
+                        res["launch_ms"] = {"kernel": dev_ms}
+                        line += (f" kernel device ms={dev_ms:.4f} (entry "
+                                 f"less kernel {ms - dev_ms:.4f})")
                         results[(name, prec)] = res
                 print(line, flush=True)
                 del got, g, r, e
@@ -882,7 +943,8 @@ def check_mlp_bwd(torch, model, ti, results, iters):
     (the canonical trunk on the non-rigid output, as in the step), both
     precisions, k0 = 0 / live / all-dead: dx and stream-daux rows below
     the clamped k0 * 1024 exactly 0. The library route, autograd through
-    the module MLPs on cuBLAS bf16, is timed beside the bf16 kernel."""
+    the module MLPs on cuBLAS bf16 (f32 for the f32 kernels), is timed
+    beside each kernel."""
     from hosnerf_tpu_torch.models import embedders
     from hosnerf_tpu_torch.ops.cuda import mlp as cmlp
     n = ti["n_pad"]
@@ -955,47 +1017,50 @@ def check_mlp_bwd(torch, model, ti, results, iters):
                     io = nbytes(x, gout, got[0], got[1], *params, *got[3],
                                 *[t for p in got[2] for t in p]) + (
                         nbytes(aux) if not stream else aux.shape[-1] * 4)
-                    res["bound_ms"], res["bound_by"] = bound(
-                        io, **({"bf16_ops": flops} if prec == "bf16"
-                               else {"f32_ops": flops}))
-                    line += (f" bound_ms={res['bound_ms']:.5f} "
-                             f"({res['bound_by']})") + rate(res, flops)
-                    if prec == "bf16":
+                    line += trunk_bound(res, io, flops, prec)
+                    with f32_modules(model, prec != "bf16"):
                         res["library_ms"] = library_trunk_bwd_ms(
                             torch, model, name, x, aux, alpha, gout, iters)
-                        line += f" library_ms={res['library_ms']:.4f}"
+                    line += f" library_ms={res['library_ms']:.4f}"
                     results[(name + "_bwd", prec)] = res
                 print(line, flush=True)
                 del got, flat_g, flat_r
         del gout
 
 
-B3_LAUNCHES = (("recompute", "embed_trunk_bf16"), ("rows", "rows_bwd_bf16"),
-               ("dw", "dw_bf16"))
+# the trunk kernels by precision: the forward (B2, and B3's recompute),
+# B3's rows and dW launches
+TRUNK_KERNELS = {"bf16": ("embed_trunk_bf16", "rows_bwd_bf16", "dw_bf16"),
+                 "highest": ("embed_trunk_x3", "rows_bwd_x3", "dw_x3")}
 
 
 def b3_launch_split(torch, ti, results, reps=3):
-    """B3's three launches timed apart at the training shapes (bf16, k0 =
-    0): one C call launches them back to back, so their device times are
-    read from torch.profiler (CUPTI kernel records), mean of `reps` calls
-    after the timed ones above."""
+    """B3's three launches timed apart at the training shapes (both
+    precisions, k0 = 0): one C call launches them back to back, so their
+    device times are read from torch.profiler (CUPTI kernel records), mean
+    of `reps` calls after the timed ones above."""
     from hosnerf_tpu_torch.ops.cuda import mlp as cmlp
     xs = {"nonrigid": ti["x_skel_s"], "canonical": ti["cnl_pts_s"]}
     for name, (kw, aux, alpha, layers, out) in ti["specs"].items():
         x = xs[name]
         gout = torch.randn(x.shape[0], out[0].shape[0], device=x.device,
                            generator=torch.Generator(x.device).manual_seed(7))
-        split = device_ms(torch, lambda: cmlp.fused_embed_trunk_bwd(
-            x, aux, alpha, layers, out, gout, k0_blocks=0, **kw),
-            [(part, (kernel,)) for part, kernel in B3_LAUNCHES], reps)
-        check(all(v > 0 for v in split.values()),
-              f"trunk bwd {name}: the profiler saw no B3 launch ({split})")
-        res = results[(name + "_bwd", "bf16")]
-        res["launch_ms"] = split
-        print(f"kernel fused_embed_trunk_bwd {name} bf16 launches: "
-              + " ".join(f"{k}_ms={v:.4f}" for k, v in split.items())
-              + f" (sum {sum(split.values()):.4f}; events {res['ms']:.4f})",
-              flush=True)
+        for prec, kernels in TRUNK_KERNELS.items():
+            split = device_ms(torch, lambda: cmlp.fused_embed_trunk_bwd(
+                x, aux, alpha, layers, out, gout, precision=prec,
+                k0_blocks=0, **kw),
+                [(part, (kernel,)) for part, kernel in
+                 zip(("recompute", "rows", "dw"), kernels)], reps)
+            check(all(v > 0 for v in split.values()),
+                  f"trunk bwd {name} {prec}: the profiler saw no B3 launch "
+                  f"({split})")
+            res = results[(name + "_bwd", prec)]
+            res["launch_ms"] = split
+            print(f"kernel fused_embed_trunk_bwd {name} {prec} launches: "
+                  + " ".join(f"{k}_ms={v:.4f}" for k, v in split.items())
+                  + f" (sum {sum(split.values()):.4f}; events "
+                  f"{res['ms']:.4f}; entry less kernels "
+                  f"{res['ms'] - sum(split.values()):.4f})", flush=True)
 
 
 def library_trunk_bwd_ms(torch, model, name, x, aux, alpha, gout,
@@ -1281,8 +1346,8 @@ def check_trunk(torch, model, results, iters):
     """Row 8 forward and backward vs their plain versions at
     tools/bench_mlp.py's two layouts and 262,144 rows (bf16; f32 too for
     the canonical one), outputs NaN-poisoned, tolerances of B2 and B3; the
-    library route (the model's module MLP of the same layout, cuBLAS
-    bf16, and its autograd backward) timed beside bf16."""
+    library route (the model's module MLP of the same layout, cuBLAS bf16
+    or f32, and its autograd backward) timed beside each."""
     from hosnerf_tpu_torch.ops.cuda import mlp as cmlp
     dev = next(model.parameters()).device
     for name in TRUNK_LAYOUTS:
@@ -1334,28 +1399,24 @@ def check_trunk(torch, model, results, iters):
                 x, layers, out, spec=spec, precision=prec), 2)
             pb = time_ms(torch, lambda: cmlp.fused_trunk_bwd_plain(
                 x, layers, out, gout, spec=spec, precision=prec), 1)
-            ops = {"bf16_ops" if prec == "bf16" else "f32_ops": flops}
-            bf = bound(nbytes(x, got, *params), **ops)
-            bb = bound(nbytes(x, gout, *flat_g, *params),
-                       **{k: 3 * v for k, v in ops.items()})
-            res_f = dict(err=err_f, rel=err_f / scale, ms=ms_f, plain_ms=pf,
-                         bound_ms=bf[0], bound_by=bf[1])
-            res_b = dict(err=err_b, rel=rel_b, ms=ms_b, plain_ms=pb,
-                         bound_ms=bb[0], bound_by=bb[1])
-            rates = (" fwd" + rate(res_f, flops) + " bwd"
-                     + rate(res_b, 3 * flops))
+            res_f = dict(err=err_f, rel=err_f / scale, ms=ms_f, plain_ms=pf)
+            res_b = dict(err=err_b, rel=rel_b, ms=ms_b, plain_ms=pb)
+            rates = (" fwd" + trunk_bound(res_f, nbytes(x, got, *params),
+                                          flops, prec)
+                     + " bwd" + trunk_bound(
+                         res_b, nbytes(x, gout, *flat_g, *params), 3 * flops,
+                         prec))
             line = (f"kernel fused_trunk {name} {prec}: rows={BENCH_ROWS} "
                     f"fwd max_abs_err={err_f:.3e} (over scale "
                     f"{err_f / scale:.3e}, beyond_1e-3={frac:.4f}) bwd "
                     f"max_abs_err={err_b:.3e} (over scale {rel_b:.3e}) fwd "
                     f"ms={ms_f:.4f} bwd ms={ms_b:.4f} fwd plain_ms={pf:.4f} "
-                    f"bwd plain_ms={pb:.4f} fwd bound_ms={bf[0]:.5f} "
-                    f"({bf[1]}) bwd bound_ms={bb[0]:.5f} ({bb[1]})" + rates)
-            if prec == "bf16":
+                    f"bwd plain_ms={pb:.4f}" + rates)
+            with f32_modules(model, prec != "bf16"):
                 res_f["library_ms"], res_b["library_ms"] = \
                     library_trunk_ms(torch, model, name, x, gout, iters)
-                line += (f" library fwd ms={res_f['library_ms']:.4f} bwd "
-                         f"ms={res_b['library_ms']:.4f}")
+            line += (f" library fwd ms={res_f['library_ms']:.4f} bwd "
+                     f"ms={res_b['library_ms']:.4f}")
             print(line, flush=True)
             results[("trunk_" + name, prec)] = res_f
             results[("trunk_" + name + "_bwd", prec)] = res_b
@@ -1434,7 +1495,8 @@ def entry_point_runs(torch, ti, batch, device):
     the step's canonical points through `ops/lbs.py::bone_weights`
     (impl='pallas') and their backward; the canonical trunk-only MLP
     through `fused_trunk` and its backward; `tools/proto_pairgrid.py`'s
-    main. Returns the counts."""
+    main; then, counts zeroed again, the same trunk call with f32
+    ("highest") weights and its backward. Returns (counts, f32 counts)."""
     from hosnerf_tpu_torch.ops import lbs as lbs_ops
     from hosnerf_tpu_torch.ops.cuda import mlp as cmlp
     from hosnerf_tpu_torch.tools import proto_pairgrid as pp
@@ -1464,7 +1526,23 @@ def entry_point_runs(torch, ti, batch, device):
           + " ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
     check(launches == {k: expect.get(k, 0) for k in launches},
           f"entry points: launches {launches}, expected {expect}")
-    return launches
+    for w in wrappers.values():
+        w.launches = 0
+    with torch.enable_grad():
+        x, layers, out, kw = trunk_weights(torch, "canonical", device, 2)
+        x.requires_grad_()
+        cmlp.fused_trunk(x, layers, out, precision="highest",
+                         **kw).square().sum().backward()
+        check(bool(torch.isfinite(x.grad).all()),
+              "fused_trunk f32: non-finite gradient")
+    torch.cuda.synchronize()
+    f32 = {k: w.launches for k, w in wrappers.items()}
+    expect = {"fused_trunk": 1, "fused_trunk_bwd": 1}
+    print("phase entry points (f32 trunk): launches "
+          + " ".join(f"{k}={v}" for k, v in f32.items()), flush=True)
+    check(f32 == {k: expect.get(k, 0) for k in f32},
+          f"entry points f32: launches {f32}, expected {expect}")
+    return launches, f32
 
 
 def check_dense_render(torch, model, batch):
@@ -1548,14 +1626,17 @@ LBS_PROFILE_PARTS = {
     # B1 and B4 (csrc/lbs_inverse.cu); B4's memset is not told apart from
     # the step's others
     "inverse LBS": INV_PARTS[:3],
+    # B2 and B3's recompute, B3's rows and dW launches, either precision
+    "trunk": tuple((part, tuple(k[i] for k in TRUNK_KERNELS.values()))
+                   for i, part in enumerate(("fwd", "rows", "dw"))),
 }
 
 
 def profile(torch, what: str, fn, ref_ms: float):
     """fn under torch.profiler: device and host time by operator, the
-    LBS kernels' device time, and the device's idle share, of
+    LBS and trunk kernels' device time, and the device's idle share, of
     the profiled wall time and of `ref_ms`, the same work's unprofiled
-    time."""
+    time. Returns (device busy ms, {group: {part: ms}})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
@@ -1575,20 +1656,25 @@ def profile(torch, what: str, fn, ref_ms: float):
     for key in ("self_device_time_total", "self_cpu_time_total"):
         print(events.table(sort_by=key, row_limit=14,
                            max_name_column_width=60))
-    # the LBS kernels, often below the tables' rows: B5's backward is its
-    # binning passes plus tap_bwd_kernel, B4 its kernel and fold
+    # the LBS and trunk kernels, often below the tables' rows: B5's
+    # backward is its binning passes plus tap_bwd_kernel, B4 its kernel and
+    # fold
+    groups = {}
     for group, parts in LBS_PROFILE_PARTS.items():
-        lbs_ms = {part: sum(e.self_device_time_total for e in events
-                            if e.device_type == DeviceType.CUDA
-                            and any(k in e.key for k in kernels)) / 1e3
-                  for part, kernels in parts}
+        groups[group] = {part: sum(e.self_device_time_total for e in events
+                                   if e.device_type == DeviceType.CUDA
+                                   and any(k in e.key for k in kernels))
+                         / 1e3 for part, kernels in parts}
         print(f"phase profile: {what}, {group} device ms: "
-              + " ".join(f"{part} {ms:.4f}" for part, ms in lbs_ms.items()),
-              flush=True)
+              + " ".join(f"{part} {ms:.4f}"
+                         for part, ms in groups[group].items()), flush=True)
+    trunk_ms = sum(groups["trunk"].values())
     print(f"phase profile: {what}, device busy {busy_ms:.2f} ms; idle share "
           f"{1 - busy_ms / wall_ms:.3f} of {wall_ms:.2f} ms profiled wall, "
-          f"{1 - busy_ms / ref_ms:.3f} of {ref_ms:.2f} ms unprofiled",
-          flush=True)
+          f"{1 - busy_ms / ref_ms:.3f} of {ref_ms:.2f} ms unprofiled; trunk "
+          f"kernels {trunk_ms:.3f} ms, {trunk_ms / busy_ms:.3f} of the "
+          "device time", flush=True)
+    return busy_ms, groups
 
 
 # ---------------------------------------------------------------------------
@@ -1782,6 +1868,8 @@ def run(torch, np) -> int:
     for name, log in reports.items():
         for ln in ptxas_report(log):
             print(f"  ptxas {name}: {ln}")
+    print(f"f32 trunk route: {cmlp.f32_route()} (six bf16 wgmma products "
+          "per f32 product)", flush=True)
 
     G = 32
     model = HumanObjectField(mweight_volume_size=G, compute_dtype="bf16",
@@ -1805,8 +1893,8 @@ def run(torch, np) -> int:
         check_trunk(torch, model, results, ITERS)
         check_proto(torch, device, results, ITERS)
     torch.cuda.empty_cache()
-    entry_launches = entry_point_runs(torch, ti, train_batch(torch, device),
-                                      device)
+    entry_launches, entry_f32 = entry_point_runs(
+        torch, ti, train_batch(torch, device), device)
     del ti
     torch.cuda.empty_cache()
     print(f"phase kernels: {time.time() - t0:.1f} s", flush=True)
@@ -1867,8 +1955,16 @@ def run(torch, np) -> int:
     del one_step
     torch.cuda.empty_cache()
 
-    # ---- the dense per-sample path ----
+    # ---- the training step at the default compute_dtype (f32 trunks) ----
     from hosnerf_tpu_torch.train import stage2
+    f32_launches, f32_ms, one_step = train_phase(
+        torch, device, kind, lp, stage2.Stage2Config(), F32_STEPS, PER_STEP,
+        "train f32")
+    profile(torch, "one f32 training step", one_step, f32_ms)
+    del one_step
+    torch.cuda.empty_cache()
+
+    # ---- the dense per-sample path ----
     dense_launches, dense_ms, one_step = train_phase(
         torch, device, kind, lp, stage2.Stage2Config(
             sparse=False, compute_dtype="bf16"), DENSE_STEPS,
@@ -1903,13 +1999,17 @@ def run(torch, np) -> int:
 
     def rates(parts):
         """The B2/B3/row 8 entries: TFLOP/s and bound share over the
-        parts, and B3's time per launch (recompute, rows, dW)."""
+        parts (f32: also the FMA bound's share), and the kernel device
+        times (B2's kernel; B3's recompute, rows, dW)."""
         if any("flops" not in results[p] for p in parts):
             return {}
         ms = sum(results[p]["ms"] for p in parts)
         out = {"tflops": sum(results[p]["flops"] for p in parts) / ms / 1e9,
                "bound_share": sum(results[p]["bound_ms"] for p in parts)
                / ms}
+        if all("fma_bound_ms" in results[p] for p in parts):
+            out["fma_bound_share"] = sum(results[p]["fma_bound_ms"]
+                                         for p in parts) / ms
         split = {p[0]: results[p]["launch_ms"] for p in parts
                  if "launch_ms" in results[p]}
         if split:
@@ -1917,6 +2017,7 @@ def run(torch, np) -> int:
         return out
 
     trunks = [("nonrigid", "bf16"), ("canonical", "bf16")]
+    trunks_f32 = [(n, "highest") for n, _ in trunks]
     kernels = [
         entry("inverse_core_pg_s", "hosnerf_tpu_torch/csrc/lbs_inverse.cu",
               "hosnerf_tpu/ops/pallas/lbs.py:1013", render_launches["lbs"],
@@ -1929,6 +2030,15 @@ def run(torch, np) -> int:
               "hosnerf_tpu/ops/pallas/mlp.py:600",
               train_launches["fused_embed_trunk_bwd"],
               [(n + "_bwd", p) for n, p in trunks]),
+        # the f32 ("highest") kernels: launches on the f32 training step
+        entry("fused_embed_trunk_f32", "hosnerf_tpu_torch/csrc/embed_trunk.cu",
+              "hosnerf_tpu/ops/pallas/mlp.py:560",
+              f32_launches["fused_embed_trunk"], trunks_f32),
+        entry("fused_embed_trunk_bwd_f32",
+              "hosnerf_tpu_torch/csrc/embed_trunk_bwd.cu",
+              "hosnerf_tpu/ops/pallas/mlp.py:600",
+              f32_launches["fused_embed_trunk_bwd"],
+              [(n + "_bwd", p) for n, p in trunks_f32]),
         entry("inverse_core_bwd", "hosnerf_tpu_torch/csrc/lbs_inverse.cu",
               "hosnerf_tpu/ops/pallas/lbs.py:1130",
               train_launches["inverse_core_bwd"], [("lbs_bwd", "bf16")]),
@@ -1967,6 +2077,14 @@ def run(torch, np) -> int:
               "hosnerf_tpu/ops/pallas/mlp.py:268",
               entry_launches["fused_trunk_bwd"],
               [(n + "_bwd", p) for n, p in trunk_parts]),
+        entry("fused_trunk_f32", "hosnerf_tpu_torch/csrc/embed_trunk.cu",
+              "hosnerf_tpu/ops/pallas/mlp.py:242", entry_f32["fused_trunk"],
+              [("trunk_canonical", "highest")]),
+        entry("fused_trunk_bwd_f32",
+              "hosnerf_tpu_torch/csrc/embed_trunk_bwd.cu",
+              "hosnerf_tpu/ops/pallas/mlp.py:268",
+              entry_f32["fused_trunk_bwd"],
+              [("trunk_canonical_bwd", "highest")]),
         entry("proto_pairgrid", "hosnerf_tpu_torch/csrc/proto_pairgrid.cu",
               "tools/proto_pairgrid.py:60",
               entry_launches["proto_pairgrid"], [("proto", "f32")]),

@@ -28,7 +28,10 @@
 //         mbarrier ring; each layer is wgmma.m64nHIDk16 over 16-column
 //         K-steps, A from the 128-byte-swizzled Xs/Hs images and B from
 //         the ring (trunk_common.cuh).
-//   f32:  64-row tiles, 256 threads, 4x(HID/16) FMA register tiles.
+//   f32:  the same wgmma machinery on bf16x3 pieces (six bf16 products
+//         per f32 product, trunk_common.cuh): persistent CTAs of one
+//         64-row tile whose two consumer warpgroups compute half of each
+//         layer's columns; each weight chunk streams as three piece images.
 // The layer inputs are up to two segments of Xs/Hs, each a multiple of 16
 // columns; the host scatters the weight columns to match and, for bf16,
 // starts every segment at a 64-column chunk (csrc layout documented in
@@ -38,8 +41,8 @@
 //
 // Bound. Canonical: ~1.05 MFLOP per row against ~0.3 KB of row traffic,
 // so the kernel is bound by the tensor cores' issue rate (bf16: 1.11 ms
-// at 989 TFLOP/s for the render shapes' 528,384 rows) or FP32 FMA
-// throughput (f32). The mma.sync kernel it replaces fed the tensor cores
+// at 989 TFLOP/s for the render shapes' 528,384 rows; f32 six times that
+// at 165 TFLOP/s of f32 products). The mma.sync kernel it replaces fed the tensor cores
 // from shared memory with 32-bit loads (116 TFLOP/s); wgmma reads both
 // operands from shared memory itself, and the producer warp keeps the
 // weight copies off the consumers' instruction stream.
@@ -51,8 +54,11 @@
 //
 // Live suffix: k0 (a device int, in 1024-row blocks) is clamped to
 // [0, n_blocks - 1]; rows below k0 * 1024 are left unwritten, as the TPU
-// kernel does (bf16 CTAs start at the first live tile, f32 CTAs below it
-// exit at once).
+// kernel does (CTAs start at the first live tile).
+//
+// Numerics (f32) follow mlp.py's "highest" forward: f32 input, each layer
+// the f32 product (bf16x3, summed per weight chunk and the chunks added
+// with rounding), f32 bias, ReLU, f32 head.
 
 #include "trunk_common.cuh"
 
@@ -62,10 +68,14 @@ const char* hosnerf_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// The route of the f32 ("highest") kernels, for the record of a run.
+const char* hosnerf_trunk_f32_route() { return trunk::kF32Route; }
+
 // meta: int32 host array, see hosnerf_tpu_torch/ops/cuda/mlp.py::_pack_meta.
 // x [n, 3] f32 ([n, Din] for the raw kind); aux rows of A floats at stride
 // meta.aux_stride; alpha [1] f32 and k0 [1] int32 on the device; w/b packed
-// weights and biases (bf16 when bf16, else f32); wout [out_dim, HID] f32;
+// weights (bf16 chunk images; f32: three bf16 piece images per chunk) and
+// biases (bf16 when bf16, else f32); wout [out_dim, HID] f32;
 // bout [out_dim] f32; out [n, out_dim] f32. Returns cudaGetLastError()
 // after the launch.
 int hosnerf_embed_trunk(const int* meta, int bf16, const float* x,

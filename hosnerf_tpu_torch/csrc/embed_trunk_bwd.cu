@@ -40,6 +40,12 @@
 //      MN-major from 64-row tiles of the stored images that the producer
 //      bulk-copies through a 4-stage ring; the row range is split over
 //      CTAs, which add their tile with one red.global per entry.
+// f32 ("highest") runs the same three launches on bf16x3 pieces
+// (trunk_common.cuh): every stored image (act_x, act_h, gc) holds each
+// 64-row tile as three piece images, hi first, and every product is six
+// piece products on the tensor cores. Its tiles are 64 rows (one consumer
+// warpgroup per chunk in `rows`) and its dW items take at most 2 input
+// panels.
 // Atomics make the sums over rows come in a different order on each run;
 // the caller compares relative to the output's scale.
 //
@@ -50,12 +56,16 @@
 // own traffic: the stored images are written once (1.1 GB), the output
 // tiles read back by `rows` (1.1 GB), gc written (1.1 GB) and both read by
 // `dw` (2.2 GB): ~5.4 GB, 1.6 ms at 3.35 TB/s, the floor of this design.
+// f32: six products per f32 product (5.0 ms at 165 TFLOP/s of f32-grade
+// products) and three pieces per stored value: ~14 GB of scratch traffic
+// (the mask reads only the hi piece), ~4.2 ms, the floor there.
 //
 // Numerics (bf16) follow mlp.py::_trunk_bwd_tile: head in f32; per layer,
 // mask g by h_out > 0, gc = bf16(g), dW += A^T gc (bf16 operands, f32
 // accumulation), db += sum of the unrounded g, g = gc W (bf16 operands);
 // the PE chain in f32: dx_c = sum_j (g_sin c_j - g_cos s_j) 2^j over the
-// windowed sin/cos, plus the identity columns for the fourier kind.
+// windowed sin/cos, plus the identity columns for the fourier kind. f32:
+// the same with gc = g and every product in f32 (bf16x3).
 //
 // Live suffix: k0 (a device int, in 1024-row blocks) is clamped to
 // [0, n_blocks - 1]; rows below k0 * 1024 are skipped by all three launches
@@ -117,29 +127,6 @@ __device__ __forceinline__ void embed_aux_bwd(
       for (int r = 0; r < nrows; ++r) s = __fadd_rn(s, dXs[r * dstr + m.exp_w + a]);
       if (s != 0.f) atomicAdd(daux + a, s);
     }
-  }
-}
-
-// Head: dWout [O][HID] += hf^T Go, dbout += column sums of Go (one atomic
-// per CTA and entry). hl: the tile's rows of the last layer's output.
-template <typename T, int HID>
-__device__ __forceinline__ void head_bwd(const T* hl, const float* Go, int O,
-                                         int nrows, float* dwout,
-                                         float* dbout) {
-  for (int k = threadIdx.x; k < HID; k += blockDim.x) {
-    float s[kMaxOut] = {0.f, 0.f, 0.f, 0.f};
-    for (int r = 0; r < nrows; ++r) {
-      const float h = static_cast<float>(hl[(size_t)r * HID + k]);
-      for (int o = 0; o < O; ++o)
-        s[o] = __fadd_rn(s[o], __fmul_rn(h, Go[r * O + o]));
-    }
-    for (int o = 0; o < O; ++o)
-      if (s[o] != 0.f) atomicAdd(dwout + o * HID + k, s[o]);
-  }
-  if ((int)threadIdx.x < O) {
-    float s = 0.f;
-    for (int r = 0; r < nrows; ++r) s = __fadd_rn(s, Go[r * O + threadIdx.x]);
-    if (s != 0.f) atomicAdd(dbout + threadIdx.x, s);
   }
 }
 
@@ -565,8 +552,8 @@ struct DwPlan {
 constexpr int kDwStage = 6 * kPanelBytes;   // 2 gc panels + 4 input panels
 constexpr int kDwStages = 4;
 
-// Every (layer, segment, group of <= 4 input panels, 128 output rows).
-inline bool dw_plan(const Meta& m, int hid, DwPlan& plan) {
+// Every (layer, segment, group of <= max_np input panels, 128 output rows).
+inline bool dw_plan(const Meta& m, int hid, int max_np, DwPlan& plan) {
   const int hp = hid < 64 ? 64 : hid;
   plan.count = 0;
   for (int l = 0; l < m.L; ++l)
@@ -574,13 +561,13 @@ inline bool dw_plan(const Meta& m, int hid, DwPlan& plan) {
       const Layer& ly = m.layer[l];
       if (ly.width[s] == 0) continue;
       const int pa = ly.off[s] / 64, pb = (ly.off[s] + ly.width[s] - 1) / 64;
-      for (int p0 = pa; p0 <= pb; p0 += 4)
+      for (int p0 = pa; p0 <= pb; p0 += max_np)
         for (int o0 = 0; o0 < hp; o0 += 128) {
           if (plan.count == kMaxDwItems) return false;
           DwItem& it = plan.item[plan.count++];
           it.ls = 2 * l + s;
           it.p0 = p0;
-          it.np = pb - p0 + 1 < 4 ? pb - p0 + 1 : 4;
+          it.np = pb - p0 + 1 < max_np ? pb - p0 + 1 : max_np;
           it.o0 = o0;
         }
     }
@@ -722,276 +709,607 @@ dw_bf16(const __grid_constant__ Meta m, const __grid_constant__ DwPlan plan,
 }
 
 // ---------------------------------------------------------------------------
-// f32 rows kernel: 64-row tiles, 256 threads, 4 x (HID/16) FMA tiles
+// f32 ("highest"): the rows and dW kernels on bf16x3 pieces
 // ---------------------------------------------------------------------------
+//
+// The f32 backward runs the bf16 schedule on three-piece images (split3,
+// trunk_common.cuh): the recompute stores each 64-row tile's Xs and Hs as
+// [hi | mid | lo] images, the rows kernel stores gc the same way, and every
+// product is the six piece products with qa + qb <= 2, hi hi last. Tiles
+// are 64 rows: three pieces of a 128-row gradient image would not fit
+// beside the weights.
 
-// acc [4 rows][HID/16 cols] per thread = Gs [rows][HID] . Wf[:, cols]; Wf
-// rows (= the HID outputs of the forward layer, row stride K) streamed in
-// 16-row chunks.
-template <int HID>
-__device__ __forceinline__ void pass_f32(float (&acc)[4][HID / 16],
-                                         const float* Gs, int gstr,
-                                         const float* wf, int K, int ncols,
-                                         float* Ws, int ty, int tx) {
-  constexpr int CPT = HID / 16;
+// rows, f32: per 64-row tile, two consumer warpgroups share the work by
+// 64-column chunks: warpgroup w owns every chunk whose index within its
+// segment is w mod 2, so it keeps g for its own hidden columns (HID / 4
+// registers), writes their mask, gc pieces and db, and computes the input
+// gradients of its own weight chunks; the producer streams each layer's
+// chunks in pairs, piece by piece (lo, mid, hi; NP stages of PR <= 64 rows
+// each, through a ring of up to 8), alternating owners, so both
+// warpgroups issue products at once. A warpgroup frees each stage once the
+// next one's products are issued, so it holds at most two.
+// The mask comes from the stored hi piece (h > 0 iff its bf16 rounding
+// is), the head from the three pieces' f32 sum; a chunk's input gradient
+// sums the piece products with qa + qb <= 2 (hi hi last) over K = HID.
+
+// The owner of weight chunk j of a layer (0 or 1), and j's chunk index
+// within its segment.
+__device__ __forceinline__ int chunk_in_seg(const Layer& ly, int j) {
+  const int sg = ly.width[1] > 0 && j * 64 >= ly.kpos[1] ? 1 : 0;
+  return j - ly.kpos[sg] / 64;
+}
+
+// The stream position of (chunk j, piece pb, stage p) in a layer of nch
+// chunks: chunks in pairs (2i, 2i + 1), each pair piece by piece, the
+// pair's two chunks alternating.
+template <int NP>
+__device__ __forceinline__ int stream_pos(int j, int pb, int p, int nch) {
+  const int j0 = j & ~1, pair = (j0 + 1 < nch) ? 2 : 1;
+  return j0 * 3 * NP + ((2 - pb) * NP + p) * pair + (j - j0);
+}
+
+// Sums over the 16 rows of each warp of v [NS * 16] (per owned chunk s,
+// v[16 s + 2 k + c] = column 64 (2 s + wg) + 8 k + 2 q + c), staged per
+// warp in wp[warp][HID].
+template <int HID, int NS>
+__device__ __forceinline__ void stage_own(float* wp, float (&v)[NS * 16],
+                                          int warp, int lane, int wg) {
+  fold_rows(v, lane);
+  const int g = lane >> 2, q = lane & 3;
+  constexpr int P = NS * 2;   // entries per lane after the fold
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
-  const int q4 = ncols / 4;
-  auto load = [&](float* dst, int kb) {
-    for (int i = threadIdx.x; i < kKcF32 * q4; i += blockDim.x) {
-      const int r = i / q4, q = i - r * q4;
-      cp_async16(dst + r * HID + 4 * q, wf + (size_t)(kb + r) * K + 4 * q);
-    }
-  };
-  const int n_chunks = HID / kKcF32;
-  load(Ws, 0);
-  cp_async_commit();
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    if (ch + 1 < n_chunks) {
-      load(Ws + ((ch + 1) & 1) * kKcF32 * HID, (ch + 1) * kKcF32);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* wb = Ws + (ch & 1) * kKcF32 * HID;
-    const int kb = ch * kKcF32;
-#pragma unroll 4
-    for (int kk = 0; kk < kKcF32; ++kk) {
-      float a[4], b[CPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Gs[(ty * 4 + i) * gstr + kb + kk];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int c = tx + 16 * j;
-        b[j] = c < ncols ? wb[kk * HID + c] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int k = 0; k < P; ++k) {
+    const int e = g * P + k, sl = e >> 4, r = e & 15;
+    const int col = 64 * (2 * sl + wg) + (r >> 1) * 8 + 2 * q + (r & 1);
+    if (col < HID) wp[warp * HID + col] = v[k];
   }
 }
 
+constexpr int kMaxStages3 = 8;   // ring of the f32 rows kernel
+
 template <int HID>
-__global__ void __launch_bounds__(kThreads)
-rows_bwd_f32(Meta m, int aux_stream, const float* __restrict__ x,
-             const float* __restrict__ alpha_p, const int* __restrict__ k0_p,
-             const float* __restrict__ gout, const float* __restrict__ act_h,
-             const float* __restrict__ wf, const float* __restrict__ wout,
-             float* __restrict__ dx, float* __restrict__ daux,
-             float* __restrict__ gc, float* __restrict__ db,
-             float* __restrict__ dwout, float* __restrict__ dbout, int n) {
-  constexpr int CPT = HID / 16;
-  const int row0 = blockIdx.x * kTmF32;
-  if (row0 < first_live_row(k0_p, n)) return;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int gstr = HID + 4, dstr = m.xw + 4, O = m.out_dim;
-  float* Gs = reinterpret_cast<float*>(smem);
-  float* dXs = Gs + kTmF32 * gstr;
-  float* Ws = dXs + kTmF32 * dstr;                  // [2][KC][HID]
-  float* Wo = Ws + 2 * kKcF32 * HID;
-  float* Go = Wo + O * HID;
-  float* sdb = Go + kTmF32 * O;
-  const int nrows = min(kTmF32, n - row0);
-  const int tid = threadIdx.x;
-
-  for (int i = tid; i < O * HID; i += kThreads) Wo[i] = wout[i];
-  for (int i = tid; i < kTmF32 * O; i += kThreads)
-    Go[i] = i / O < nrows ? gout[(size_t)row0 * O + i] : 0.f;
-  for (int i = tid; i < kTmF32 * dstr; i += kThreads) dXs[i] = 0.f;
-  for (int i = tid; i < HID; i += kThreads) sdb[i] = 0.f;
-  __syncthreads();
-
-  head_bwd<float, HID>(act_h + ((size_t)(m.L - 1) * n + row0) * HID, Go, O,
-                       nrows, dwout, dbout);
-
-  const int ty = tid >> 4, tx = tid & 15;
-  float acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int r = ty * 4 + i, c = tx + 16 * j;
-      float s = 0.f;
-      for (int o = 0; o < O; ++o)
-        s = __fadd_rn(s, __fmul_rn(Go[r * O + o], Wo[o * HID + c]));
-      acc[i][j] = s;
-    }
-
-  for (int l = m.L - 1; l >= 0; --l) {
-    const Layer& ly = m.layer[l];
-    const float* hl = act_h + ((size_t)l * n + row0) * HID;
-    float* gl = gc + ((size_t)l * n + row0) * HID;
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int c = tx + 16 * j;
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i;
-        float v = 0.f;
-        if (r < nrows && hl[(size_t)r * HID + c] > 0.f) v = acc[i][j];
-        acc[i][j] = v;
-        Gs[r * gstr + c] = v;
-        if (r < nrows) gl[(size_t)r * HID + c] = v;
-        s = __fadd_rn(s, v);
-      }
-      if (s != 0.f) atomicAdd(sdb + c, s);
-    }
-    __syncthreads();
-    for (int i = tid; i < HID; i += kThreads) {
-      if (sdb[i] != 0.f) atomicAdd(db + l * HID + i, sdb[i]);
-      sdb[i] = 0.f;
-    }
-
-    int seg_row = 0, h_row = -1;
-    for (int s = 0; s < 2; ++s) {
-      const int width = ly.width[s];
-      if (width == 0) continue;
-      if (ly.buf[s] == 1) {
-        h_row = seg_row;
-      } else {
-        for (int cb = 0; cb < width; cb += HID) {
-          const int ncols = min(HID, width - cb);
-          pass_f32<HID>(acc, Gs, gstr, wf + ly.w_off + seg_row + cb, ly.K,
-                        ncols, Ws, ty, tx);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < CPT; ++j) {
-              const int c = tx + 16 * j;
-              if (c < ncols)
-                dXs[(ty * 4 + i) * dstr + ly.off[s] + cb + c] += acc[i][j];
-            }
-        }
-      }
-      seg_row += width;
-    }
-    if (h_row >= 0)
-      pass_f32<HID>(acc, Gs, gstr, wf + ly.w_off + h_row, ly.K, HID, Ws, ty,
-                    tx);
-  }
-  __syncthreads();
-  embed_aux_bwd(m, dXs, dstr, x, *alpha_p, row0, nrows, aux_stream, dx, daux,
-                threadIdx.x, blockDim.x);
-}
-
-// ---------------------------------------------------------------------------
-// f32 dW_i = A_i^T gc_i: split over row ranges, one 64 x 64 tile per CTA
-// ---------------------------------------------------------------------------
-
-constexpr int kDwTile = 64;
-
-struct RowRange {
-  int begin, end;
+struct Rows3Shape {
+  static constexpr int HPn = Shape<HID>::HPn;
+  static constexpr int PR = HID < 64 ? HID : 64;    // weight rows per stage
+  static constexpr int NP = HID / PR;               // stages per piece
+  static constexpr uint32_t kStage = PR * 128;
 };
 
-__device__ __forceinline__ RowRange split_rows(const int* k0_p, int n,
-                                               int splits, int align) {
-  const int first = first_live_row(k0_p, n);
-  const int total = n - first;
-  const int per = ((total + splits - 1) / splits + align - 1) / align * align;
-  RowRange rr;
-  rr.begin = first + blockIdx.z * per;
-  rr.end = min(n, rr.begin + per);
-  return rr;
-}
+// Shared memory of the f32 rows kernel, as the kernel lays it out.
+struct Rows3Smem {
+  __nv_bfloat16* Gs;     // [3] pieces of the gradient image
+  unsigned char* ring;
+  float *dX, *Wo, *sWo, *sdb, *wp, *Gw, *sdbo, *sdaux;
+  uint64_t *full, *empty, *hbar;
+};
 
-// Source of input column k (a multiple of 4) of layer l at one row.
-template <typename T>
-__device__ __forceinline__ const T* a_src(const Meta& m, const Layer& ly,
-                                          const T* act_x, const T* hprev,
-                                          int hid, int row, int k) {
-  const int s = k >= ly.width[0] ? 1 : 0;
-  const int c = ly.off[s] + k - (s ? ly.width[0] : 0);
-  return ly.buf[s] == 0 ? act_x + (size_t)row * m.xw + c
-                        : hprev + (size_t)row * hid + c;
+// The consumer side of rows_bwd_x3 for warpgroup WG: a template, so that
+// which weight chunks a warpgroup takes depends on no thread index (a
+// branch on one around the products makes ptxas serialise them).
+template <int HID, int WG>
+__device__ __forceinline__ void rows_x3_consumer(
+    const Meta& m, int aux_stream, const float* __restrict__ x,
+    const float* __restrict__ alpha_p, const float* __restrict__ gout,
+    const __nv_bfloat16* __restrict__ act_h, float* __restrict__ dx,
+    float* __restrict__ daux, __nv_bfloat16* __restrict__ gc,
+    float* __restrict__ db, float* __restrict__ dwout,
+    float* __restrict__ dbout, int n, int stages, int n_tiles, int t_first,
+    const Rows3Smem& sm) {
+  using S = Rows3Shape<HID>;
+  constexpr int HPn = S::HPn, PR = S::PR, NP = S::NP;
+  constexpr uint32_t kStage = S::kStage;
+  constexpr int HS = HPn * kPanel;               // piece stride
+  constexpr int NS = HPn > 1 ? HPn / 2 : 1;      // g chunks per warpgroup
+  const int O = m.out_dim, dstr = m.xw + 4;
+  __nv_bfloat16* Gs = sm.Gs;
+  const unsigned char* ring = sm.ring;
+  float *dX = sm.dX, *Wo = sm.Wo, *sWo = sm.sWo, *sdb = sm.sdb, *wp = sm.wp,
+        *Gw = sm.Gw, *sdbo = sm.sdbo, *sdaux = sm.sdaux;
+  uint64_t *full = sm.full, *empty = sm.empty, *hbar = sm.hbar;
+  const int tid = threadIdx.x;
+  const int wt = tid & 127, warp = wt >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int bar = 2 + WG;   // this warpgroup; 1: both
+  const unsigned char* gb = reinterpret_cast<const unsigned char*>(Gs);
+  const float alpha = *alpha_p;
+  Ring rc{0, 0u, stages};
+  uint32_t hphase = 0;
+  const uint32_t hi_bytes = HPn * kPanelBytes;
+  if (tid == 0 && t_first < n_tiles)
+    bulk_prefetch_l2(
+        act_h + ((size_t)(m.L - 1) * n_tiles + t_first) * 3 * HS,
+        3 * hi_bytes);
+  for (int t = t_first; t < n_tiles; t += gridDim.x) {
+    const int row0 = t * kTm3;
+    const int nrows = max(0, min(kTm3, n - row0));
+    for (int i = tid; i < kTm3 * O; i += 256)
+      Gw[i] = i / O < nrows ? gout[(size_t)row0 * O + i] : 0.f;
+    named_sync(1, 256);
+    if (tid < O) {
+      float s = 0.f;
+      for (int r = 0; r < nrows; ++r) s = __fadd_rn(s, Gw[r * O + tid]);
+      sdbo[tid] = __fadd_rn(sdbo[tid], s);
+    }
+    // g = gout Wout (f32) on this warpgroup's chunks, in the accumulator
+    // layout (gs[s] holds chunk 2 s + WG)
+    float go[2][kMaxOut];
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int o = 0; o < kMaxOut; ++o)
+        go[half][o] = o < O ? Gw[(warp * 16 + g + 8 * half) * O + o] : 0.f;
+    float gs[NS][32];
+#pragma unroll
+    for (int sl = 0; sl < NS; ++sl)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int col = 64 * (2 * sl + WG) + 8 * k + 2 * q;
+        float2 wo[kMaxOut];
+#pragma unroll
+        for (int o = 0; o < kMaxOut; ++o)
+          wo[o] = col < HID
+                      ? *reinterpret_cast<const float2*>(Wo + o * HID + col)
+                      : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float v = 0.f;
+#pragma unroll
+          for (int o = 0; o < kMaxOut; ++o)
+            v = __fadd_rn(v, __fmul_rn(go[e >> 1][o],
+                                       (e & 1) ? wo[o].y : wo[o].x));
+          gs[sl][4 * k + e] = v;
+        }
+      }
+
+    for (int l = m.L - 1; l >= 0; --l) {
+      const Layer& ly = m.layer[l];
+      const bool last = l == m.L - 1;
+      // this layer's output tile into Gs (all three pieces for the head,
+      // else the hi piece, the mask), once both warpgroups' products and
+      // the last gc store have read Gs
+      named_sync(1, 256);
+      if (tid == 0) {
+        bulk_wait_read();
+        const uint32_t bytes = last ? 3 * hi_bytes : hi_bytes;
+        mbar_expect_tx(hbar, bytes);
+        bulk_g2s(Gs, act_h + ((size_t)l * n_tiles + t) * 3 * HS, bytes,
+                 hbar);
+      }
+      mbar_wait(hbar, hphase);
+      hphase ^= 1u;
+      if (last) {
+        // head: dWout[o] += h^T Go[:, o] over the tile's rows, on this
+        // warpgroup's columns
+        for (int o = 0; o < O; ++o) {
+          float a[NS * 16];
+#pragma unroll
+          for (int sl = 0; sl < NS; ++sl)
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+              const int col = 64 * (2 * sl + WG) + 8 * k + 2 * q;
+              float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+              for (int half = 0; half < 2; ++half) {
+                const int r = warp * 16 + g + 8 * half;
+                if (r < nrows && col < HID) {
+                  const float2 h = get2_x3(Gs, HS, swz(r, col));
+                  const float gv = Gw[r * O + o];
+                  a0 = __fadd_rn(a0, __fmul_rn(h.x, gv));
+                  a1 = __fadd_rn(a1, __fmul_rn(h.y, gv));
+                }
+              }
+              a[16 * sl + 2 * k] = a0;
+              a[16 * sl + 2 * k + 1] = a1;
+            }
+          stage_own<HID, NS>(wp, a, warp, lane, WG);
+          named_sync(bar, 128);
+          for (int i = wt; i < NS * 64; i += 128) {
+            const int c = 64 * (2 * (i >> 6) + WG) + (i & 63);
+            if (c < HID)
+              sWo[o * HID + c] =
+                  __fadd_rn(sWo[o * HID + c], warps_sum<HID>(wp, c));
+          }
+          named_sync(bar, 128);
+        }
+      }
+      // ReLU mask from the hi piece, gc = g split into Gs in place, then
+      // db's column sums, on this warpgroup's columns
+      float v[NS * 16];
+#pragma unroll
+      for (int sl = 0; sl < NS; ++sl)
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int col = 64 * (2 * sl + WG) + 8 * k + 2 * q;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int r = warp * 16 + g + 8 * half;
+            float& v0 = gs[sl][4 * k + 2 * half];
+            float& v1 = gs[sl][4 * k + 2 * half + 1];
+            if (col < HID) {
+              float h0 = 0.f, h1 = 0.f;
+              if (r < nrows) {
+                const float2 h = __bfloat1622float2(
+                    *reinterpret_cast<const __nv_bfloat162*>(Gs +
+                                                             swz(r, col)));
+                h0 = h.x;
+                h1 = h.y;
+              }
+              v0 = h0 > 0.f ? v0 : 0.f;
+              v1 = h1 > 0.f ? v1 : 0.f;
+              put2<3>(Gs, HS, swz(r, col), v0, v1);
+            }
+          }
+          v[16 * sl + 2 * k] = __fadd_rn(gs[sl][4 * k], gs[sl][4 * k + 2]);
+          v[16 * sl + 2 * k + 1] =
+              __fadd_rn(gs[sl][4 * k + 1], gs[sl][4 * k + 3]);
+        }
+      stage_own<HID, NS>(wp, v, warp, lane, WG);
+      fence_async();
+      named_sync(bar, 128);
+      for (int i = wt; i < NS * 64; i += 128) {
+        const int c = 64 * (2 * (i >> 6) + WG) + (i & 63);
+        if (c < HID)
+          sdb[l * HID + c] = __fadd_rn(sdb[l * HID + c], warps_sum<HID>(wp, c));
+      }
+      named_sync(1, 256);   // both warpgroups' gc pieces are in Gs
+      if (tid == 0) {
+        bulk_s2g(gc + ((size_t)l * n_tiles + t) * 3 * HS, Gs, 3 * hi_bytes);
+        const int tn = l > 0 ? t : t + (int)gridDim.x;
+        if (tn < n_tiles)
+          bulk_prefetch_l2(
+              act_h + ((size_t)(l > 0 ? l - 1 : m.L - 1) * n_tiles + tn) *
+                          3 * HS,
+              l > 0 ? hi_bytes : 3 * hi_bytes);
+      }
+
+      // input gradients gc W of this warpgroup's weight chunks; the
+      // ring walks every stage of the layer, waiting only for its own
+      const int nch = ly.K / 64;
+      const Ring r0 = rc;
+      for (int j = 0; j < nch; ++j) {
+        const int cj = chunk_in_seg(ly, j);
+        if ((cj & 1) != WG) continue;
+        float u[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) u[i] = 0.f;
+        int prev = -1;
+#pragma unroll
+        for (int pb = 2; pb >= 0; --pb)
+#pragma unroll
+          for (int p = 0; p < NP; ++p) {
+            const int at = r0.stage + stream_pos<NP>(j, pb, p, nch);
+            const int stage = at % stages;
+            mbar_wait(full + stage,
+                      r0.phase ^ (uint32_t)((at / stages) & 1));
+            wgmma_fence();
+            const unsigned char* stg = ring + stage * kStage;
+#pragma unroll
+            for (int pa = 2 - pb; pa >= 0; --pa)
+#pragma unroll
+              for (int i = 0; i < PR / 16; ++i) {
+                const int k = p * PR + 16 * i;
+                wgmma<64, 0, 1>(u,
+                                sw128_desc(gb + pa * 2 * HS +
+                                           (k >> 6) * kPanelBytes +
+                                           (k & 63) * 2),
+                                sw128_desc(stg + i * 16 * 128));
+              }
+            wgmma_commit();
+            if (prev >= 0) {
+              wgmma_wait<1>();
+              if (lane == 0) mbar_arrive(empty + prev);
+            }
+            prev = stage;
+          }
+        wgmma_wait<0>();
+        fence_regs(u);
+        if (lane == 0) mbar_arrive(empty + prev);
+        // the chunk's columns: this warpgroup's next g (an Hs segment)
+        // or into dX (Xs)
+        const int sg = ly.width[1] > 0 && j * 64 >= ly.kpos[1] ? 1 : 0;
+        const int width = ly.width[sg];
+        if (ly.buf[sg]) {
+#pragma unroll
+          for (int sl = 0; sl < NS; ++sl)
+            if (2 * sl + WG == cj) {
+#pragma unroll
+              for (int e = 0; e < 32; ++e) gs[sl][e] = u[e];
+            }
+        } else {
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const int r = warp * 16 + g + 8 * ((e >> 1) & 1);
+            const int c = cj * 64 + 8 * (e >> 2) + 2 * q + (e & 1);
+            if (c < width) dX[r * dstr + ly.off[sg] + c] += u[e];
+          }
+        }
+      }
+      // the ring after the layer's 3 NP nch stages
+      {
+        const int adv = 3 * NP * nch;
+        rc.stage = (r0.stage + adv) % stages;
+        rc.phase = r0.phase ^ (uint32_t)(((r0.stage + adv) / stages) & 1);
+      }
+    }
+    named_sync(1, 256);
+    embed_aux_bwd(m, dX, dstr, x, alpha, row0, nrows, aux_stream, dx,
+                  aux_stream ? daux : sdaux, tid, 256);
+    named_sync(1, 256);
+    for (int i = tid; i < kTm3 * dstr; i += 256) dX[i] = 0.f;
+  }
+  if (tid == 0) bulk_wait_all();
+  named_sync(1, 256);   // the shared sums are complete
+  for (int i = tid; i < m.L * HID; i += 256)
+    if (sdb[i] != 0.f) atomicAdd(db + i, sdb[i]);
+  for (int i = tid; i < O * HID; i += 256)
+    if (sWo[i] != 0.f) atomicAdd(dwout + i, sWo[i]);
+  if (tid < O && sdbo[tid] != 0.f) atomicAdd(dbout + tid, sdbo[tid]);
+  if (!aux_stream && m.kind != 2)
+    for (int a = tid; a < m.A; a += 256)
+      if (sdaux[a] != 0.f) atomicAdd(daux + a, sdaux[a]);
 }
 
 template <int HID>
-__global__ void __launch_bounds__(256)
-dw_f32(Meta m, const int* __restrict__ k0_p, const float* __restrict__ act_x,
-       const float* __restrict__ act_h, const float* __restrict__ gc,
-       float* __restrict__ dw, int n, int splits) {
-  constexpr int BK = 16;
-  const int l = blockIdx.y;
-  const Layer& ly = m.layer[l];
-  const int tiles_n = (ly.K + kDwTile - 1) / kDwTile;
-  const int tiles_m = (HID + kDwTile - 1) / kDwTile;
-  if ((int)blockIdx.x >= tiles_m * tiles_n) return;
-  const int o0 = (blockIdx.x / tiles_n) * kDwTile;
-  const int kc0 = (blockIdx.x % tiles_n) * kDwTile;
-  const RowRange rr = split_rows(k0_p, n, splits, BK);
-  if (rr.begin >= rr.end) return;
+__global__ void __launch_bounds__(kWsThreads, 1)
+rows_bwd_x3(const __grid_constant__ Meta m, int aux_stream,
+            const float* __restrict__ x, const float* __restrict__ alpha_p,
+            const int* __restrict__ k0_p, const float* __restrict__ gout,
+            const __nv_bfloat16* __restrict__ act_h,
+            const __nv_bfloat16* __restrict__ w,
+            const float* __restrict__ wout, float* __restrict__ dx,
+            float* __restrict__ daux, __nv_bfloat16* __restrict__ gc,
+            float* __restrict__ db, float* __restrict__ dwout,
+            float* __restrict__ dbout, int n, int stages) {
+  using S = Rows3Shape<HID>;
+  constexpr int HPn = S::HPn, PR = S::PR, NP = S::NP;
+  constexpr uint32_t kStage = S::kStage;
+  constexpr int HS = HPn * kPanel;               // piece stride
+  constexpr int NS = HPn > 1 ? HPn / 2 : 1;      // g chunks per warpgroup
+  const int O = m.out_dim, dstr = m.xw + 4;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  __nv_bfloat16* Gs = reinterpret_cast<__nv_bfloat16*>(base);   // [3] pieces
+  unsigned char* ring = reinterpret_cast<unsigned char*>(Gs + 3 * HS);
+  float* dX = reinterpret_cast<float*>(ring + stages * kStage);  // [64][dstr]
+  float* Wo = dX + kTm3 * dstr;
+  float* sWo = Wo + kMaxOut * HID;
+  float* sdb = sWo + kMaxOut * HID;
+  float* wp = sdb + m.L * HID;                        // [4 warps][HID]
+  float* Gw = wp + 4 * HID;                           // [64][O]
+  float* sdbo = Gw + kTm3 * kMaxOut;
+  float* sdaux = sdbo + kMaxOut;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sdaux + kMaxAux);
+  uint64_t* empty = full + kMaxStages3;
+  uint64_t* hbar = empty + kMaxStages3;   // act_h tile -> Gs
 
-  __shared__ __align__(16) float Gt[BK][kDwTile];
-  __shared__ __align__(16) float At[BK][kDwTile];
-  const float* gl = gc + (size_t)l * n * HID;
-  const float* hprev = act_h + (size_t)(l > 0 ? l - 1 : 0) * n * HID;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int r0 = rr.begin; r0 < rr.end; r0 += BK) {
-    {
-      const int r = tid >> 4, q = tid & 15, row = r0 + r;
-      float4 gv = make_float4(0.f, 0.f, 0.f, 0.f), av = gv;
-      const int o = o0 + 4 * q, k = kc0 + 4 * q;
-      if (row < rr.end && o < HID)
-        gv = *reinterpret_cast<const float4*>(gl + (size_t)row * HID + o);
-      if (row < rr.end && k < ly.K)
-        av = *reinterpret_cast<const float4*>(
-            a_src(m, ly, act_x, hprev, HID, row, k));
-      *reinterpret_cast<float4*>(&Gt[r][4 * q]) = gv;
-      *reinterpret_cast<float4*>(&At[r][4 * q]) = av;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Gt[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = At[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  const int tid = threadIdx.x;
+  {
+    uint4* z = reinterpret_cast<uint4*>(Gs);
+    for (int i = tid; i < 3 * HPn * kPanelBytes / 16; i += kWsThreads)
+      z[i] = make_uint4(0u, 0u, 0u, 0u);
+    for (int i = tid; i < kTm3 * dstr; i += kWsThreads) dX[i] = 0.f;
+    for (int i = tid; i < kMaxOut * HID; i += kWsThreads)
+      Wo[i] = i < O * HID ? wout[i] : 0.f;
+    for (int i = tid; i < kMaxOut * HID + m.L * HID; i += kWsThreads)
+      sWo[i] = 0.f;                                   // sWo, then sdb
+    for (int i = tid; i < kMaxOut + kMaxAux; i += kWsThreads) sdbo[i] = 0.f;
   }
-  float* dwl = dw + ly.w_off;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = o0 + ty + 16 * i, k = kc0 + tx + 16 * j;
-      if (o < HID && k < ly.K && acc[i][j] != 0.f)
-        atomicAdd(dwl + (size_t)o * ly.K + k, acc[i][j]);
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4);   // the owning warpgroup's four warps
     }
+    mbar_init(hbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int n_tiles = (n + kTm3 - 1) / kTm3;
+  const int t_first = first_live_row(k0_p, n) / kTm3 + blockIdx.x;
+  const int wg = tid >> 7;
+  if (wg == 2) {
+    reg_dealloc<40>();
+    if (tid == 2 * 128) {
+      Ring rp{0, 0u, stages};
+      for (int t = t_first; t < n_tiles; t += gridDim.x)
+        for (int l = m.L - 1; l >= 0; --l) {
+          const Layer& ly = m.layer[l];
+          const __nv_bfloat16* wl = w + 3 * (size_t)ly.w_off;
+          const int nch = ly.K / 64;
+          for (int j0 = 0; j0 < nch; j0 += 2)
+            for (int pb = 2; pb >= 0; --pb)   // lo, mid, hi
+              for (int p = 0; p < NP; ++p)
+                for (int j = j0; j < j0 + 2 && j < nch; ++j) {
+                  mbar_wait(empty + rp.stage, rp.phase ^ 1u);
+                  mbar_expect_tx(full + rp.stage, kStage);
+                  bulk_g2s(ring + rp.stage * kStage,
+                           wl + ((size_t)(3 * j + pb) * HID + p * PR) * 64,
+                           kStage, full + rp.stage);
+                  rp.next();
+                }
+        }
+    }
+  } else {
+    reg_alloc<232>();
+    const Rows3Smem sm{Gs, ring, dX, Wo, sWo, sdb, wp, Gw, sdbo, sdaux,
+                       full, empty, hbar};
+    if (wg == 0)
+      rows_x3_consumer<HID, 0>(m, aux_stream, x, alpha_p, gout, act_h, dx,
+                               daux, gc, db, dwout, dbout, n, stages,
+                               n_tiles, t_first, sm);
+    else
+      rows_x3_consumer<HID, 1>(m, aux_stream, x, alpha_p, gout, act_h, dx,
+                               daux, gc, db, dwout, dbout, n, stages,
+                               n_tiles, t_first, sm);
+  }
 }
 
-size_t f32_rows_smem(const Meta& m, int hid) {
-  const int O = m.out_dim;
-  return sizeof(float) * (kTmF32 * (hid + 4) + kTmF32 * (m.xw + 4) +
-                          2 * kKcF32 * hid + O * hid + kTmF32 * O + hid);
+// Shared memory of the f32 rows kernel: the three-piece Gs image, the
+// weight ring, dX (f32), the head weights, the per-CTA sums, the barriers.
+// Canonical (HID 256, xw 128, 8 stages of [64][64]): 96 + 64 + 33 + 22 KB.
+inline size_t x3_rows_smem(const Meta& m, int hid, int stages) {
+  const int hpn = hid < 64 ? 1 : hid / 64;
+  const int pr = hid < 64 ? hid : 64;
+  return 1024 + (size_t)3 * hpn * kPanelBytes + (size_t)stages * pr * 128 +
+         sizeof(float) * ((size_t)kTm3 * (m.xw + 4) + 2 * kMaxOut * hid +
+                          m.L * hid + 4 * hid + kTm3 * kMaxOut + kMaxOut +
+                          kMaxAux) +
+         (2 * kMaxStages3 + 1) * sizeof(uint64_t);
+}
+
+// dW, f32: the bf16 dW kernel's items on three-piece tiles, at most 2
+// input panels per item (a stage holds each operand's three pieces).
+constexpr int kDw3Panels = 2;
+constexpr int kDw3Stage = 3 * (2 + kDw3Panels) * kPanelBytes;   // 96 KB
+constexpr int kDw3Stages = 2;
+
+// Per stage (one 64-row tile): 4 K-steps of NPN panels, six piece
+// products each (qg + qa <= 2, hi hi last), both operands MN-major.
+template <int NPN>
+__device__ __forceinline__ void dw_products_x3(float (&acc)[kDw3Panels][32],
+                                               const unsigned char* ring,
+                                               uint64_t* full,
+                                               uint64_t* empty, int r0,
+                                               int r1, int wg, int lane) {
+  Ring rc{0, 0u, kDw3Stages};
+  int prev = -1;
+  for (int rt = r0; rt < r1; ++rt) {
+    mbar_wait(full + rc.stage, rc.phase);
+    const unsigned char* stg = ring + rc.stage * kDw3Stage;
+    if (NPN > 0) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < NPN; ++j) {
+          // gc piece qg of this warpgroup's 64 outputs, input piece qa
+          auto prod = [&](int qg, int qa) {
+            wgmma<64, 1, 1>(
+                acc[j],
+                sw128_desc(stg + (qg * 2 + wg) * kPanelBytes + kk * 2048),
+                sw128_desc(stg + (6 + qa * kDw3Panels + j) * kPanelBytes +
+                           kk * 2048));
+          };
+          prod(2, 0);
+          prod(0, 2);
+          prod(1, 1);
+          prod(1, 0);
+          prod(0, 1);
+          prod(0, 0);
+        }
+      wgmma_commit();
+    }
+    if (prev >= 0) {
+      if (NPN > 0) wgmma_wait<1>();
+      if (lane == 0) mbar_arrive(empty + prev);
+    }
+    prev = rc.stage;
+    rc.next();
+  }
+  if (NPN > 0) wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < kDw3Panels; ++j) fence_regs(acc[j]);
+  if (lane == 0 && prev >= 0) mbar_arrive(empty + prev);
+}
+
+template <int HID>
+__global__ void __launch_bounds__(kWsThreads, 1)
+dw_x3(const __grid_constant__ Meta m, const __grid_constant__ DwPlan plan,
+      const int* __restrict__ k0_p, const __nv_bfloat16* __restrict__ act_x,
+      const __nv_bfloat16* __restrict__ act_h,
+      const __nv_bfloat16* __restrict__ gc, float* __restrict__ dw, int n) {
+  constexpr int HPn = Shape<HID>::HPn;
+  constexpr int HS = HPn * kPanel;
+  const DwItem& it = plan.item[blockIdx.x];
+  const int l = it.ls >> 1, sg = it.ls & 1;
+  const Layer& ly = m.layer[l];
+  const int n_tiles = (n + kTm3 - 1) / kTm3;
+  const int ft = first_live_row(k0_p, n) / kTm3;
+  const int per = (n_tiles - ft + gridDim.y - 1) / gridDim.y;
+  const int r0 = ft + blockIdx.y * per;
+  const int r1 = min(n_tiles, r0 + per);
+  if (r0 >= r1) return;
+  const int nop = min(2, HPn - it.o0 / 64);
+  const int np = it.np;
+  const int src_pn = ly.buf[sg] == 0 ? x_panels(m) : HPn;
+  // tile rt, piece k: gsrc + (3 rt + k) HS, asrc + (3 rt + k) src_pn panels
+  const __nv_bfloat16* gsrc =
+      gc + (size_t)l * n_tiles * 3 * HS + (it.o0 / 64) * kPanel;
+  const __nv_bfloat16* asrc =
+      (ly.buf[sg] == 0 ? act_x : act_h + (size_t)(l - 1) * n_tiles * 3 * HS) +
+      it.p0 * kPanel;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kDw3Stages * kDw3Stage);
+  uint64_t* empty = full + kMaxStages;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kDw3Stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = tid >> 7;
+  if (wg == 2) {
+    reg_dealloc<40>();
+    if (tid == 2 * 128) {
+      Ring rp{0, 0u, kDw3Stages};
+      for (int rt = r0; rt < r1; ++rt) {
+        mbar_wait(empty + rp.stage, rp.phase ^ 1u);
+        mbar_expect_tx(full + rp.stage, 3 * (nop + np) * kPanelBytes);
+        unsigned char* stg = ring + rp.stage * kDw3Stage;
+        for (int k = 0; k < 3; ++k) {
+          bulk_g2s(stg + 2 * k * kPanelBytes, gsrc + (size_t)(3 * rt + k) * HS,
+                   nop * kPanelBytes, full + rp.stage);
+          bulk_g2s(stg + (6 + k * kDw3Panels) * kPanelBytes,
+                   asrc + (size_t)(3 * rt + k) * src_pn * kPanel,
+                   np * kPanelBytes, full + rp.stage);
+        }
+        rp.next();
+      }
+    }
+  } else {
+    reg_alloc<232>();
+    const int wt = tid & 127, warp = wt >> 5, lane = tid & 31;
+    const int g = lane >> 2, q = lane & 3;
+    const bool active = wg < nop;
+    float acc[kDw3Panels][32];
+#pragma unroll
+    for (int j = 0; j < kDw3Panels; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+    switch (active ? np : 0) {
+      case 1: dw_products_x3<1>(acc, ring, full, empty, r0, r1, wg, lane); break;
+      case 2: dw_products_x3<2>(acc, ring, full, empty, r0, r1, wg, lane); break;
+      default: dw_products_x3<0>(acc, ring, full, empty, r0, r1, wg, lane);
+    }
+    if (!active) return;
+    float* dwl = dw + ly.w_off;
+#pragma unroll
+    for (int j = 0; j < kDw3Panels; ++j) {
+      if (j >= np) continue;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int o = it.o0 + wg * 64 + warp * 16 + g + 8 * ((e >> 1) & 1);
+        const int c = (it.p0 + j) * 64 + 8 * (e >> 2) + 2 * q + (e & 1) -
+                      ly.off[sg];
+        const float v = acc[j][e];
+        if (o < HID && c >= 0 && c < ly.width[sg] && v != 0.f)
+          atomicAdd(dwl + (size_t)o * ly.K + ly.kpos[sg] + c, v);
+      }
+    }
+  }
 }
 
 template <int HID>
 int launch_bwd(const Meta& m, int bf16, int aux_stream, const float* x,
                const float* aux, const float* alpha, const int* k0,
-               const void* w, const void* b, const void* wt,
-               const float* wout, const float* gout, void* act_x,
+               const void* w, const void* b, const float* wout,
+               const float* gout, void* act_x,
                void* act_h, void* gc, float* dx, float* daux, float* db,
                float* dwout, float* dbout, float* dw, int n, int splits,
                cudaStream_t s) {
@@ -1002,7 +1320,7 @@ int launch_bwd(const Meta& m, int bf16, int aux_stream, const float* x,
     const int stages =
         ring_depth([&](int st) { return bf16_rows_smem(m, HID, st); });
     DwPlan plan;
-    if (stages == 0 || (!aux_stream && m.A > kMaxAux) || !dw_plan(m, HID, plan))
+    if (stages == 0 || (!aux_stream && m.A > kMaxAux) || !dw_plan(m, HID, 4, plan))
       return (int)cudaErrorInvalidValue;
     const size_t smem = bf16_rows_smem(m, HID, stages);
     cudaError_t e = cudaFuncSetAttribute(
@@ -1029,28 +1347,40 @@ int launch_bwd(const Meta& m, int bf16, int aux_stream, const float* x,
         static_cast<const __nv_bfloat16*>(act_h),
         static_cast<const __nv_bfloat16*>(gc), dw, n);
   } else {
-    const size_t smem = f32_rows_smem(m, HID);
-    int max_tiles = 0;
-    for (int l = 0; l < m.L; ++l) {
-      const int tiles = ((HID + kDwTile - 1) / kDwTile) *
-                        ((m.layer[l].K + kDwTile - 1) / kDwTile);
-      max_tiles = tiles > max_tiles ? tiles : max_tiles;
-    }
-    const dim3 dw_grid(max_tiles, m.L, splits);
+    // at least 3 stages: a warpgroup waits for its next stage (two stream
+    // positions on) while it holds its last one
+    int stages = kMaxStages3;
+    while (stages >= 3 && x3_rows_smem(m, HID, stages) > (size_t)kSmemLimit)
+      --stages;
+    if (stages < 3) stages = 0;
+    DwPlan plan;
+    if (stages == 0 || (!aux_stream && m.A > kMaxAux) ||
+        !dw_plan(m, HID, kDw3Panels, plan))
+      return (int)cudaErrorInvalidValue;
+    const size_t smem = x3_rows_smem(m, HID, stages);
     cudaError_t e = cudaFuncSetAttribute(
-        rows_bwd_f32<HID>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        rows_bwd_x3<HID>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
-    rows_bwd_f32<HID><<<(n + kTmF32 - 1) / kTmF32, kThreads, smem, s>>>(
-        m, aux_stream, x, alpha, k0, gout, static_cast<const float*>(act_h),
-        static_cast<const float*>(wt), wout, dx, daux,
-        static_cast<float*>(gc), db, dwout, dbout, n);
+    const int tiles = (n + kTm3 - 1) / kTm3;
+    rows_bwd_x3<HID><<<tiles < num_sms() ? tiles : num_sms(), kWsThreads,
+                       smem, s>>>(
+        m, aux_stream, x, alpha, k0, gout,
+        static_cast<const __nv_bfloat16*>(act_h),
+        static_cast<const __nv_bfloat16*>(w), wout, dx, daux,
+        static_cast<__nv_bfloat16*>(gc), db, dwout, dbout, n, stages);
     rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
-    dw_f32<HID><<<dw_grid, 256, 0, s>>>(
-        m, k0, static_cast<const float*>(act_x),
-        static_cast<const float*>(act_h), static_cast<const float*>(gc), dw,
-        n, splits);
+    const size_t dw_smem = 1024 + (size_t)kDw3Stages * kDw3Stage +
+                           2 * kMaxStages * sizeof(uint64_t);
+    e = cudaFuncSetAttribute(dw_x3<HID>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)dw_smem);
+    if (e != cudaSuccess) return (int)e;
+    dw_x3<HID><<<dim3(plan.count, splits), kWsThreads, dw_smem, s>>>(
+        m, plan, k0, static_cast<const __nv_bfloat16*>(act_x),
+        static_cast<const __nv_bfloat16*>(act_h),
+        static_cast<const __nv_bfloat16*>(gc), dw, n);
   }
   return (int)cudaGetLastError();
 }
@@ -1064,12 +1394,10 @@ const char* hosnerf_cuda_error_string(int code) {
 }
 
 // meta: as hosnerf_embed_trunk. w/b: the forward's packed weights and
-// biases; wt: f32 only, the same weights packed [HID][K] per layer for the
-// rows kernel (null for bf16, whose kernels read the forward's chunk
-// images transposed); wout [out_dim, HID] f32; gout [n, out_dim] f32.
-// Scratch (bf16 when bf16, else f32): act_x, act_h [L], gc [L]; bf16: the
-// swizzled 64-row tile images of mlp.py::_act_buffers, f32: [n, xw] and
-// [L, n, HID] row-major. Outputs: dx [n, 3] and, when aux_stream, daux
+// biases (every kernel reads the chunk images, the backward's transposed);
+// wout [out_dim, HID] f32; gout [n, out_dim] f32. Scratch, bf16: act_x,
+// act_h [L], gc [L], the swizzled 64-row tile images of
+// mlp.py::_act_buffers (f32: three pieces per tile). Outputs: dx [n, 3] and, when aux_stream, daux
 // [n, A] (rows below the clamped k0 * 1024 unwritten); accumulated (zeroed
 // by the caller): daux [A] when broadcast, db [L, HID], dwout [out_dim,
 // HID], dbout [out_dim], dw (packed [HID][K] per layer at the weights'
@@ -1078,7 +1406,7 @@ const char* hosnerf_cuda_error_string(int code) {
 int hosnerf_embed_trunk_bwd(const int* meta, int bf16, int aux_stream,
                             const float* x, const float* aux,
                             const float* alpha, const int* k0, const void* w,
-                            const void* b, const void* wt, const float* wout,
+                            const void* b, const float* wout,
                             const float* gout, void* act_x, void* act_h,
                             void* gc, float* dx, float* daux, float* db,
                             float* dwout, float* dbout, float* dw, int n,
@@ -1089,9 +1417,9 @@ int hosnerf_embed_trunk_bwd(const int* meta, int bf16, int aux_stream,
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (m.hid) {
-    case 32: return launch_bwd<32>(m, bf16, aux_stream, x, aux, alpha, k0, w, b, wt, wout, gout, act_x, act_h, gc, dx, daux, db, dwout, dbout, dw, n, splits, s);
-    case 128: return launch_bwd<128>(m, bf16, aux_stream, x, aux, alpha, k0, w, b, wt, wout, gout, act_x, act_h, gc, dx, daux, db, dwout, dbout, dw, n, splits, s);
-    case 256: return launch_bwd<256>(m, bf16, aux_stream, x, aux, alpha, k0, w, b, wt, wout, gout, act_x, act_h, gc, dx, daux, db, dwout, dbout, dw, n, splits, s);
+    case 32: return launch_bwd<32>(m, bf16, aux_stream, x, aux, alpha, k0, w, b, wout, gout, act_x, act_h, gc, dx, daux, db, dwout, dbout, dw, n, splits, s);
+    case 128: return launch_bwd<128>(m, bf16, aux_stream, x, aux, alpha, k0, w, b, wout, gout, act_x, act_h, gc, dx, daux, db, dwout, dbout, dw, n, splits, s);
+    case 256: return launch_bwd<256>(m, bf16, aux_stream, x, aux, alpha, k0, w, b, wout, gout, act_x, act_h, gc, dx, daux, db, dwout, dbout, dw, n, splits, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

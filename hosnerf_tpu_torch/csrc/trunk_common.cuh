@@ -14,7 +14,7 @@
 // slice read from x at row stride ex_w.
 //
 // The forward kernels take STORE = true in the backward's recompute: they
-// then write the bf16/f32 input row (Xs) and every layer's output (Hs) to
+// then write the input row (Xs) and every layer's output (Hs) images to
 // device memory for the backward and skip the head.
 
 #pragma once
@@ -29,7 +29,6 @@ constexpr int kMaxLayers = 12;
 constexpr int kMaxSteps = 320;
 constexpr int kMaxOut = 4;
 constexpr int kMaxFreq = 32;
-constexpr int kThreads = 256;
 constexpr int kSkipTile = 1024;   // k0 counts blocks of this many rows
 constexpr float kPi = 3.14159265358979323846f;
 
@@ -38,9 +37,10 @@ struct Layer {     // input = segment 0, then segment 1 if width[1] > 0
   int off[2];    // first column in that buffer
   int width[2];  // columns, a multiple of 16
   int kpos[2];   // first packed weight column of the segment
-  int K;         // packed weight columns (bf16: a multiple of 64)
-  int w_off;     // element offset of this layer's weights
-  int step0;     // bf16: this layer's K-steps are Meta::step[step0 ...]
+  int K;         // packed weight columns, a multiple of 64
+  int w_off;     // element offset of this layer's [HID, K] weights (f32:
+                 // its three piece images start at 3 w_off)
+  int step0;     // this layer's K-steps are Meta::step[step0 ...]
   int nsteps;
 };
 
@@ -56,7 +56,7 @@ struct Meta {
   int skip_off;   // kind 2: first x column of the skip slice the aux copies
   int x_stride;   // x row stride in floats: 3, or ex_w for kind 2
   Layer layer[kMaxLayers];
-  // bf16 K-steps (16 packed columns each), in packed column order: bits
+  // K-steps (16 packed columns each), in packed column order: bits
   // 0-15 the byte offset of the A tile in the warpgroup's Xs or Hs image,
   // bit 16 the buffer (1 = Hs), bits 17-18 the step within its 64-column
   // weight chunk, bits 20+ the chunk.
@@ -100,19 +100,6 @@ inline bool parse_meta(const int* meta, Meta& m) {
   return true;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // k0 clamped to [0, n_blocks - 1]; the first row a launch computes.
 __device__ __forceinline__ int first_live_row(const int* k0_p, int n) {
   const int n_blocks = (n + kSkipTile - 1) / kSkipTile;
@@ -122,55 +109,12 @@ __device__ __forceinline__ int first_live_row(const int* k0_p, int n) {
   return k0 * kSkipTile;
 }
 
-// The PE term of PE column e (< ex_w) without its window: frequency index
-// j, coordinate, and whether it is a sine (identity columns: j = -1).
-struct PECol {
-  int j, coord;
-  bool is_sin;
-};
-
-__device__ __forceinline__ PECol pe_col(const Meta& m, int e) {
-  PECol c;
-  if (m.kind == 0) {
-    if (e < 3) {
-      c.j = -1;
-      c.coord = e;
-      c.is_sin = false;
-      return c;
-    }
-    e -= 3;
-  }
-  const int r = e % 6;
-  c.j = e / 6;
-  c.coord = r % 3;
-  c.is_sin = r < 3;
-  return c;
-}
-
 // The hann window of frequency j ((1 - cos(pi clamp(alpha - j, 0, 1))) / 2),
 // or 1 for the plain fourier kind.
 __device__ __forceinline__ float pe_window(const Meta& m, float alpha, int j) {
   if (m.kind != 1) return 1.f;
   const float t = fminf(fmaxf(__fsub_rn(alpha, (float)j), 0.f), 1.f);
   return __fdiv_rn(__fsub_rn(1.f, cosf(__fmul_rn(kPi, t))), 2.f);
-}
-
-// Value of input column c (Xs layout) for one row, in f32.
-__device__ __forceinline__ float input_value(const Meta& m, const float* xr,
-                                             const float* auxr, float alpha,
-                                             int c) {
-  if (c < m.ex_w) {
-    if (m.kind == 2) return xr[c];
-    const PECol pc = pe_col(m, c);
-    if (pc.j < 0) return xr[pc.coord];
-    const float arg = __fmul_rn(xr[pc.coord], exp2f((float)pc.j));
-    float v = pc.is_sin ? sinf(arg) : cosf(arg);
-    if (m.kind == 1) v = __fmul_rn(v, pe_window(m, alpha, pc.j));
-    return v;
-  }
-  const int a = c - m.exp_w;
-  if (c >= m.exp_w && a < m.A) return auxr[a];
-  return 0.f;
 }
 
 // ---------------------------------------------------------------------------
@@ -338,6 +282,19 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 // accumulator layout: d[4 j + e] is row 16 warp + lane / 4 + 8 (e / 2),
 // column 8 j + 2 (lane % 4) + e % 2.
 template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n16(float (&d)[8], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da,
                                           uint64_t db, int scale_d) {
   asm volatile(
@@ -452,7 +409,8 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
 template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da,
                                       uint64_t db) {
-  if constexpr (N == 32) wgmma_n32<TA, TB>(d, da, db, 1);
+  if constexpr (N == 16) wgmma_n16<TA, TB>(d, da, db, 1);
+  else if constexpr (N == 32) wgmma_n32<TA, TB>(d, da, db, 1);
   else if constexpr (N == 64) wgmma_n64<TA, TB>(d, da, db, 1);
   else if constexpr (N == 128) wgmma_n128<TA, TB>(d, da, db, 1);
   else wgmma_n256<TA, TB>(d, da, db, 1);
@@ -481,25 +439,83 @@ __host__ __device__ __forceinline__ int x_panels(const Meta& m) {
   return (m.xw + 63) / 64;
 }
 
-// The first-layer input of one warpgroup's 64 rows (from row0) into its Xs
-// image, as input_value gives it but split by what each column needs: one
-// sine and one cosine per (row, coordinate, frequency), the windows from
-// the table `win` (kind 1), the identity and aux columns copied. Pad
-// columns are never written (the image starts zeroed); rows past n hold
-// zeros.
+// f32 values as three bf16 pieces (the f32 kernels' operands): hi =
+// bf16(v), mid = bf16(v - hi), lo = bf16(v - hi - mid), each difference
+// exact in f32, so hi + mid + lo holds v's 24 significant bits (|v - hi -
+// mid - lo| <= 2^-24 |v|). A tile's pieces are three images of the bf16
+// layout, hi first, `ps` elements apart.
+__device__ __forceinline__ void split3(float v, __nv_bfloat16 (&p)[3]) {
+  p[0] = __float2bfloat16_rn(v);
+  const float r = __fsub_rn(v, __bfloat162float(p[0]));
+  p[1] = __float2bfloat16_rn(r);
+  p[2] = __float2bfloat16_rn(__fsub_rn(r, __bfloat162float(p[1])));
+}
+
+// Element i of an image as NP pieces: v rounded to bf16 (NP = 1) or split.
+template <int NP>
+__device__ __forceinline__ void put(__nv_bfloat16* img, int ps, int i,
+                                    float v) {
+  if constexpr (NP == 1) {
+    img[i] = __float2bfloat16_rn(v);
+  } else {
+    __nv_bfloat16 p[3];
+    split3(v, p);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) img[k * ps + i] = p[k];
+  }
+}
+
+// Two neighbouring columns (i even) of an image as NP pieces.
+template <int NP>
+__device__ __forceinline__ void put2(__nv_bfloat16* img, int ps, int i,
+                                     float a, float b) {
+  if constexpr (NP == 1) {
+    *reinterpret_cast<__nv_bfloat162*>(img + i) = __floats2bfloat162_rn(a, b);
+  } else {
+    __nv_bfloat16 pa[3], pb[3];
+    split3(a, pa);
+    split3(b, pb);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      __nv_bfloat162 v;
+      v.x = pa[k];
+      v.y = pb[k];
+      *reinterpret_cast<__nv_bfloat162*>(img + k * ps + i) = v;
+    }
+  }
+}
+
+// The f32 value of two neighbouring columns (i even) of a three-piece
+// image: (hi + mid) + lo.
+__device__ __forceinline__ float2 get2_x3(const __nv_bfloat16* img, int ps,
+                                          int i) {
+  float2 v[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    v[k] = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(img + k * ps + i));
+  return make_float2(__fadd_rn(__fadd_rn(v[0].x, v[1].x), v[2].x),
+                     __fadd_rn(__fadd_rn(v[0].y, v[1].y), v[2].y));
+}
+
+// The first-layer input of 64 rows (from row0) into an Xs image of NP
+// pieces (`ps` elements apart), by NT threads (thread wt): one sine and
+// one cosine per (row, coordinate, frequency), the windows from the table
+// `win` (kind 1), the identity and aux columns copied. Pad columns are
+// never written (the image starts zeroed); rows past n hold zeros.
+template <int NP, int NT>
 __device__ __forceinline__ void input_stage(const Meta& m, __nv_bfloat16* Xs,
-                                            const float* x, const float* aux,
-                                            const float* win, int row0, int n,
-                                            int wt) {
+                                            int ps, const float* x,
+                                            const float* aux, const float* win,
+                                            int row0, int n, int wt) {
   if (m.kind == 2) {
-    for (int i = wt; i < kWgRows * m.ex_w; i += 128) {
+    for (int i = wt; i < kWgRows * m.ex_w; i += NT) {
       const int r = i / m.ex_w, c = i - r * m.ex_w, row = row0 + r;
-      Xs[swz(r, c)] = __float2bfloat16_rn(
-          row < n ? x[(size_t)row * m.ex_w + c] : 0.f);
+      put<NP>(Xs, ps, swz(r, c), row < n ? x[(size_t)row * m.ex_w + c] : 0.f);
     }
   } else {
     const int idoff = m.kind == 0 ? 3 : 0, per_row = 3 * m.F;
-    for (int i = wt; i < kWgRows * per_row; i += 128) {
+    for (int i = wt; i < kWgRows * per_row; i += NT) {
       const int r = i / per_row, e = i - r * per_row, row = row0 + r;
       const int j = e / 3, cd = e - 3 * j;
       float sv = 0.f, cv = 0.f;
@@ -512,19 +528,19 @@ __device__ __forceinline__ void input_stage(const Meta& m, __nv_bfloat16* Xs,
           cv = __fmul_rn(cv, win[j]);
         }
       }
-      Xs[swz(r, idoff + 6 * j + cd)] = __float2bfloat16_rn(sv);
-      Xs[swz(r, idoff + 6 * j + 3 + cd)] = __float2bfloat16_rn(cv);
+      put<NP>(Xs, ps, swz(r, idoff + 6 * j + cd), sv);
+      put<NP>(Xs, ps, swz(r, idoff + 6 * j + 3 + cd), cv);
     }
     if (m.kind == 0)
-      for (int i = wt; i < kWgRows * 3; i += 128) {
+      for (int i = wt; i < kWgRows * 3; i += NT) {
         const int r = i / 3, cd = i - 3 * r, row = row0 + r;
-        Xs[swz(r, cd)] = __float2bfloat16_rn(row < n ? x[3 * row + cd] : 0.f);
+        put<NP>(Xs, ps, swz(r, cd), row < n ? x[3 * row + cd] : 0.f);
       }
   }
-  for (int i = wt; i < kWgRows * m.A; i += 128) {
+  for (int i = wt; i < kWgRows * m.A; i += NT) {
     const int r = i / m.A, a = i - r * m.A, row = row0 + r;
-    Xs[swz(r, m.exp_w + a)] = __float2bfloat16_rn(
-        row < n ? aux[(size_t)row * m.aux_stride + a] : 0.f);
+    put<NP>(Xs, ps, swz(r, m.exp_w + a),
+            row < n ? aux[(size_t)row * m.aux_stride + a] : 0.f);
   }
 }
 
@@ -611,7 +627,7 @@ embed_trunk_bf16(const __grid_constant__ Meta m, const float* __restrict__ x,
       const size_t tile64 = 2 * (size_t)t + wg;
       if (STORE && wt == 0) bulk_wait_read();
       named_sync(bar, 128);
-      input_stage(m, Xs, x, aux, win, row0, n, wt);
+      input_stage<1, 128>(m, Xs, 0, x, aux, win, row0, n, wt);
       fence_async();
       named_sync(bar, 128);
       if (STORE && wt == 0)
@@ -737,132 +753,241 @@ inline int ring_depth(F smem_of) {
 }
 
 // ---------------------------------------------------------------------------
-// f32 ("highest"): FMA register tiles, 64-row tiles
+// f32 ("highest"): bf16x3 products on wgmma
 // ---------------------------------------------------------------------------
+//
+// Route. An f32 product x y is taken as the six products of bf16 pieces
+// (split3) whose size is at least 2^-16 of hi hi: lo hi, hi lo, mid mid,
+// mid hi, hi mid and hi hi (piece indices qa + qb <= 2; the dropped terms
+// are below 2^-24 of it). Each is exact in the tensor cores' f32 sums, so
+// the f32 kernels run the bf16 wgmma machinery above at six products per
+// f32 product: 989 / 6 = 165 TFLOP/s of f32 products at the H100's peak,
+// 2.5x its 67 TFLOP/s of f32 FMA. This is what the TPU does for
+// Precision.HIGHEST.
+//
+// Accumulation. Tensor cores have been measured to add into their f32
+// accumulator with truncation (towards zero, up to an ulp of the running
+// sum per product group): a bias that could build up to ~1e-5 of an
+// output through eight layers. So the forward sums each 64-column weight
+// chunk's 24 products in a fresh accumulator u (pieces in the order lo,
+// mid, hi, the hi hi products last) and adds u into the layer's
+// accumulator with a rounded FADD: per chunk only the last four wgmmas
+// add at u's full size.
+//
+// Layout. Tiles of 64 rows: the three-piece Xs and Hs images of 128 rows
+// would not fit beside the weights. Two consumer warpgroups share the
+// tile, each computing half of every layer's output columns (m64n(HID/2));
+// the producer streams each weight chunk as three piece images [HID][64],
+// lo, mid, hi, through the ring.
 
-constexpr int kTmF32 = 64;
-constexpr int kKcF32 = 16;
-
-template <int HID>
-__device__ __forceinline__ void load_chunk_f32(float* ws, const float* w,
-                                               const Layer& ly, int kb) {
-  // f32 weights are packed K-major ([K][HID]): a chunk is contiguous.
-  const float* src = w + ly.w_off + (size_t)kb * HID;
-  for (int i = threadIdx.x; i < kKcF32 * HID / 4; i += kThreads)
-    cp_async16(ws + 4 * i, src + 4 * i);
-}
+constexpr int kTm3 = 64;   // rows per CTA tile of the f32 kernels
+constexpr const char* kF32Route = "bf16x3";
 
 template <int HID, bool STORE>
-__global__ void __launch_bounds__(kThreads)
-embed_trunk_f32(Meta m, const float* __restrict__ x,
-                const float* __restrict__ aux,
-                const float* __restrict__ alpha_p,
-                const int* __restrict__ k0_p, const float* __restrict__ w,
-                const float* __restrict__ bias,
-                const float* __restrict__ wout,
-                const float* __restrict__ bout, float* __restrict__ out,
-                float* __restrict__ act_x, float* __restrict__ act_h, int n) {
-  constexpr int CPT = HID / 16;   // output columns per thread
-  const int row0 = blockIdx.x * kTmF32;
-  if (row0 < first_live_row(k0_p, n)) return;
+__global__ void __launch_bounds__(kWsThreads, 1)
+embed_trunk_x3(const __grid_constant__ Meta m, const float* __restrict__ x,
+               const float* __restrict__ aux,
+               const float* __restrict__ alpha_p,
+               const int* __restrict__ k0_p,
+               const __nv_bfloat16* __restrict__ w,
+               const float* __restrict__ bias,
+               const float* __restrict__ wout,
+               const float* __restrict__ bout, float* __restrict__ out,
+               __nv_bfloat16* __restrict__ act_x,
+               __nv_bfloat16* __restrict__ act_h, int n, int stages) {
+  constexpr int HPn = Shape<HID>::HPn;
+  constexpr uint32_t kChunk = Shape<HID>::kChunk;   // one piece of a chunk
+  constexpr int NH = HID / 2;                        // columns per warpgroup
+  const int XPn = x_panels(m);
+  const int XS = XPn * kPanel, HS = HPn * kPanel;   // piece strides
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(base);   // [3] pieces
+  __nv_bfloat16* Hs = Xs + 3 * XS;                                // [3] pieces
+  unsigned char* ring = reinterpret_cast<unsigned char*>(Hs + 3 * HS);
+  float* Wo = reinterpret_cast<float*>(ring + stages * kChunk);
+  float* win = Wo + kMaxOut * HID;                 // hann windows
+  float* hpart = win + kMaxFreq;                   // [64][kMaxOut] head sums
+  uint64_t* full = reinterpret_cast<uint64_t*>(hpart + kTm3 * kMaxOut);
+  uint64_t* empty = full + kMaxStages;
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int xstr = m.xw + 4, hstr = HID + 4;
-  float* Xs = reinterpret_cast<float*>(smem);
-  float* Hs = Xs + kTmF32 * xstr;
-  float* Ws = Hs + kTmF32 * hstr;                 // [2][KC][HID]
-  float* Wo = Ws + 2 * kKcF32 * HID;
-
-  const float alpha = *alpha_p;
-  for (int i = threadIdx.x; i < kTmF32 * m.xw; i += kThreads) {
-    const int r = i / m.xw, c = i - r * m.xw, row = row0 + r;
-    float v = 0.f;
-    if (row < n)
-      v = input_value(m, x + (size_t)row * m.x_stride,
-                      aux + (size_t)row * m.aux_stride, alpha, c);
-    Xs[r * xstr + c] = v;
-    if (STORE && row < n) act_x[(size_t)row * m.xw + c] = v;
+  const int tid = threadIdx.x;
+  {
+    uint4* z = reinterpret_cast<uint4*>(Xs);
+    const int nz = 3 * (XPn + HPn) * kPanelBytes / 16;
+    for (int i = tid; i < nz; i += kWsThreads) z[i] = make_uint4(0u, 0u, 0u, 0u);
   }
   if (!STORE)
-    for (int i = threadIdx.x; i < m.out_dim * HID; i += kThreads)
-      Wo[i] = wout[i];
-
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-
-  for (int l = 0; l < m.L; ++l) {
-    const Layer& ly = m.layer[l];
-    float acc[4][CPT];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
-
-    const int n_chunks = ly.K / kKcF32;
-    load_chunk_f32<HID>(Ws, w, ly, 0);
-    cp_async_commit();
-    for (int ch = 0; ch < n_chunks; ++ch) {
-      if (ch + 1 < n_chunks) {
-        load_chunk_f32<HID>(Ws + ((ch + 1) & 1) * kKcF32 * HID, w, ly,
-                            (ch + 1) * kKcF32);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const float* wb = Ws + (ch & 1) * kKcF32 * HID;
-      const int kg = ch * kKcF32;           // segments are 16-aligned
-      const int s = kg >= ly.width[0] ? 1 : 0;
-      const int col = ly.off[s] + kg - (s ? ly.width[0] : 0);
-      const float* A = (ly.buf[s] == 0 ? Xs : Hs) + col;
-      const int astr = ly.buf[s] == 0 ? xstr : hstr;
-#pragma unroll 4
-      for (int kk = 0; kk < kKcF32; ++kk) {
-        float a[4], b[CPT];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = A[(ty * 4 + i) * astr + kk];
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) b[j] = wb[kk * HID + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
+    for (int i = tid; i < m.out_dim * HID; i += kWsThreads) Wo[i] = wout[i];
+  if (tid < m.F) win[tid] = pe_window(m, *alpha_p, tid);
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);   // one arrival per consumer warp
     }
-    const float* bl = bias + l * HID;
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int n_tiles = (n + kTm3 - 1) / kTm3;
+  const int t_first = first_live_row(k0_p, n) / kTm3 + blockIdx.x;
+  const int wg = tid >> 7;
+  if (wg == 2) {
+    reg_dealloc<40>();
+    if (tid == 2 * 128) {
+      Ring rp{0, 0u, stages};
+      for (int t = t_first; t < n_tiles; t += gridDim.x)
+        for (int l = 0; l < m.L; ++l) {
+          const Layer& ly = m.layer[l];
+          const __nv_bfloat16* wl = w + 3 * (size_t)ly.w_off;
+          for (int ch = 0; ch < ly.K / 64; ++ch)
+            for (int pb = 2; pb >= 0; --pb) {   // lo, mid, hi
+              mbar_wait(empty + rp.stage, rp.phase ^ 1u);
+              mbar_expect_tx(full + rp.stage, kChunk);
+              bulk_g2s(ring + rp.stage * kChunk,
+                       wl + (size_t)(3 * ch + pb) * HID * 64, kChunk,
+                       full + rp.stage);
+              rp.next();
+            }
+        }
+    }
+  } else {
+    reg_alloc<232>();
+    const int wt = tid & 127, warp = wt >> 5, lane = tid & 31;
+    const int g = lane >> 2, q = lane & 3;
+    const uint32_t bhalf = wg * NH * 128;   // this warpgroup's weight rows
+    const unsigned char* xb = reinterpret_cast<const unsigned char*>(Xs);
+    const unsigned char* hb = reinterpret_cast<const unsigned char*>(Hs);
+    Ring rc{0, 0u, stages};
+    for (int t = t_first; t < n_tiles; t += gridDim.x) {
+      const int row0 = t * kTm3;
+      if (STORE && tid == 0) bulk_wait_read();
+      named_sync(1, 256);
+      input_stage<3, 256>(m, Xs, XS, x, aux, win, row0, n, tid);
+      fence_async();
+      named_sync(1, 256);
+      if (STORE && tid == 0)
+        bulk_s2g(act_x + (size_t)t * 3 * XS, Xs, 3 * XPn * kPanelBytes);
+
+      for (int l = 0; l < m.L; ++l) {
+        const Layer& ly = m.layer[l];
+        float acc[NH / 2], u[NH / 2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < NH / 2; ++i) acc[i] = 0.f;
+        int s = ly.step0;
+        const int s_end = s + ly.nsteps;
+        for (int ch = 0; ch < ly.K / 64; ++ch) {
+          const int c0 = s;
+          while (s < s_end && (m.step[s] >> 20) == ch) ++s;
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int c = tx + 16 * j, r = ty * 4 + i;
-        const float v = fmaxf(__fadd_rn(acc[i][j], bl[c]), 0.f);
-        Hs[r * hstr + c] = v;
-        if (STORE && row0 + r < n)
-          act_h[((size_t)l * n + row0 + r) * HID + c] = v;
+          for (int i = 0; i < NH / 2; ++i) u[i] = 0.f;
+          int prev = -1;
+          for (int pb = 2; pb >= 0; --pb) {   // weight piece: lo, mid, hi
+            mbar_wait(full + rc.stage, rc.phase);
+            wgmma_fence();
+            const uint64_t bd = sw128_desc(ring + rc.stage * kChunk + bhalf);
+            for (int pa = 2 - pb; pa >= 0; --pa)   // hi hi last
+              for (int k = c0; k < s; ++k) {
+                const int st = m.step[k];
+                const unsigned char* a =
+                    (st >> 16) & 1 ? hb + pa * 2 * HS : xb + pa * 2 * XS;
+                wgmma<NH, 0, 0>(u, sw128_desc(a + (st & 0xffff)),
+                                bd + (uint64_t)(((st >> 17) & 3) * 2));
+              }
+            wgmma_commit();
+            if (prev >= 0) {
+              wgmma_wait<1>();
+              if (lane == 0) mbar_arrive(empty + prev);
+            }
+            prev = rc.stage;
+            rc.next();
+          }
+          wgmma_wait<0>();
+          fence_regs(u);
+          if (lane == 0) mbar_arrive(empty + prev);
+#pragma unroll
+          for (int i = 0; i < NH / 2; ++i) acc[i] = __fadd_rn(acc[i], u[i]);
+        }
+
+        // epilogue: bias, ReLU, split into Hs in place (both warpgroups'
+        // products have read it); the head from the f32 values
+        if (STORE && tid == 0) bulk_wait_read();
+        named_sync(1, 256);
+        const bool head = !STORE && l == m.L - 1;
+        float hs[2][kMaxOut] = {};
+        const float* bl = bias + l * HID + wg * NH;
+#pragma unroll
+        for (int nt = 0; nt < NH / 8; ++nt) {
+          const int col = nt * 8 + 2 * q, gcol = wg * NH + col;
+          const float2 b = *reinterpret_cast<const float2*>(bl + col);
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const float v0 = fmaxf(__fadd_rn(acc[4 * nt + 2 * half], b.x), 0.f);
+            const float v1 =
+                fmaxf(__fadd_rn(acc[4 * nt + 2 * half + 1], b.y), 0.f);
+            put2<3>(Hs, HS, swz(warp * 16 + g + 8 * half, gcol), v0, v1);
+            if (head) {
+#pragma unroll
+              for (int o = 0; o < kMaxOut; ++o)
+                if (o < m.out_dim)
+                  hs[half][o] = __fadd_rn(
+                      hs[half][o],
+                      __fadd_rn(__fmul_rn(v0, Wo[o * HID + gcol]),
+                                __fmul_rn(v1, Wo[o * HID + gcol + 1])));
+            }
+          }
+        }
+        if (head) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+#pragma unroll
+            for (int o = 0; o < kMaxOut; ++o) {
+              float v = hs[half][o];
+              v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 1));
+              v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 2));
+              hs[half][o] = v;
+              if (wg == 1 && q == 0)
+                hpart[(warp * 16 + g + 8 * half) * kMaxOut + o] = v;
+            }
+          named_sync(1, 256);
+          if (wg == 0 && q == 0)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int r = warp * 16 + g + 8 * half, row = row0 + r;
+#pragma unroll
+              for (int o = 0; o < kMaxOut; ++o)
+                if (o < m.out_dim && row < n)
+                  out[(size_t)row * m.out_dim + o] = __fadd_rn(
+                      __fadd_rn(hs[half][o], hpart[r * kMaxOut + o]),
+                      bout[o]);
+            }
+        }
+        fence_async();
+        named_sync(1, 256);
+        if (STORE && tid == 0)
+          bulk_s2g(act_h + ((size_t)l * n_tiles + t) * 3 * HS, Hs,
+                   3 * HPn * kPanelBytes);
       }
-    __syncthreads();
-  }
-  if (STORE) return;
-
-  for (int i = threadIdx.x; i < kTmF32 * m.out_dim; i += kThreads) {
-    const int r = i / m.out_dim, o = i - r * m.out_dim, row = row0 + r;
-    if (row >= n) continue;
-    const float* h = Hs + r * hstr;
-    const float* wo = Wo + o * HID;
-    float s = 0.f;
-    for (int k = 0; k < HID; ++k) s = fmaf(h[k], wo[k], s);
-    out[(size_t)row * m.out_dim + o] = __fadd_rn(s, bout[o]);
+    }
+    if (STORE && tid == 0) bulk_wait_all();
   }
 }
 
-inline size_t f32_fwd_smem(const Meta& m, int hid) {
-  return sizeof(float) * (kTmF32 * (m.xw + 4) + kTmF32 * (hid + 4) +
-                          2 * kKcF32 * hid + m.out_dim * hid);
+// Shared memory of the f32 forward: the three-piece Xs and Hs images of a
+// 64-row tile, the ring of weight pieces, the head weights and sums, the
+// barriers, 1 KB of alignment slack. Canonical (xw 128, HID 256, 2
+// stages): 48 + 96 + 64 + 5 KB.
+inline size_t x3_fwd_smem(const Meta& m, int hid, int stages) {
+  const int hpn = hid < 64 ? 1 : hid / 64;
+  return 1024 + (size_t)3 * (x_panels(m) + hpn) * kPanelBytes +
+         (size_t)stages * hid * 128 +
+         sizeof(float) * (kMaxOut * hid + kMaxFreq + kTm3 * kMaxOut) +
+         2 * kMaxStages * sizeof(uint64_t);
 }
 
-// One forward launch (act_x/act_h null unless STORE). bf16: a persistent
-// grid of at most one CTA per SM.
+// One forward launch (act_x/act_h null unless STORE): a persistent grid of
+// at most one CTA per SM; bf16 weights `w` are chunk images, f32 ones
+// (bf16 pieces) three piece images per chunk, with f32 biases `b`.
 template <int HID, bool STORE>
 int launch_fwd(const Meta& m, int bf16, const float* x, const float* aux,
                const float* alpha, const int* k0, const void* w,
@@ -885,16 +1010,21 @@ int launch_fwd(const Meta& m, int bf16, const float* x, const float* aux,
         static_cast<__nv_bfloat16*>(act_x), static_cast<__nv_bfloat16*>(act_h),
         n, stages);
   } else {
-    const size_t smem = f32_fwd_smem(m, HID);
+    const int stages =
+        ring_depth([&](int st) { return x3_fwd_smem(m, HID, st); });
+    if (stages == 0) return (int)cudaErrorInvalidValue;
+    const size_t smem = x3_fwd_smem(m, HID, stages);
     cudaError_t e = cudaFuncSetAttribute(
-        embed_trunk_f32<HID, STORE>,
+        embed_trunk_x3<HID, STORE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    const dim3 grid((n + kTmF32 - 1) / kTmF32);
-    embed_trunk_f32<HID, STORE><<<grid, kThreads, smem, s>>>(
-        m, x, aux, alpha, k0, static_cast<const float*>(w),
+    const int tiles = (n + kTm3 - 1) / kTm3;
+    const dim3 grid(tiles < num_sms() ? tiles : num_sms());
+    embed_trunk_x3<HID, STORE><<<grid, kWsThreads, smem, s>>>(
+        m, x, aux, alpha, k0, static_cast<const __nv_bfloat16*>(w),
         static_cast<const float*>(b), wout, bout, out,
-        static_cast<float*>(act_x), static_cast<float*>(act_h), n);
+        static_cast<__nv_bfloat16*>(act_x), static_cast<__nv_bfloat16*>(act_h),
+        n, stages);
   }
   return (int)cudaGetLastError();
 }

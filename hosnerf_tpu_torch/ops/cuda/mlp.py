@@ -20,6 +20,7 @@ tensor to the kernel; it never falls back from one to the other.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -240,14 +241,11 @@ def _round16(v: int) -> int:
 PANEL = 64          # columns of a 128-byte-swizzled bf16 panel
 PANEL_BYTES = 8192  # one [64 rows][64 cols] bf16 panel
 MAX_STEPS = 320     # csrc/trunk_common.cuh kMaxSteps
-MAX_XW = 256        # bf16 Xs columns (4 panels)
-
-
-def _align(precision: str) -> int:
-    """Packed-column alignment of a layer's input segments: bf16 starts
-    each at a 64-column weight chunk (csrc/embed_trunk_bwd.cu routes the
-    input gradients chunk by chunk); f32 packs them back to back."""
-    return PANEL if precision == "bf16" else 16
+MAX_XW = 256        # Xs columns (4 panels)
+# f32 kernels at width 256: the three-piece Xs and Hs images of a 64-row
+# tile and two stages of weight pieces fill shared memory at 128 input
+# columns (csrc/trunk_common.cuh x3_fwd_smem)
+MAX_XW_F32_256 = 128
 
 
 # Layer plans and swizzle indices by their static key: building them
@@ -265,41 +263,41 @@ def _shapes(layers):
     return tuple(tuple(w.shape) for w, _ in layers)
 
 
-def _place(seg_cols, hid, w, i, align: int):
+def _place(seg_cols, hid, w, i):
     """Lay one layer's input segments out in packed weight columns.
     seg_cols: [((buf, off, width), [segment column of each original input
-    column of that segment])] in input order. Each segment starts at a
-    multiple of `align`; K is the padded total. Returns (segments [(buf,
+    column of that segment])] in input order. Each segment starts a
+    64-column weight chunk (the backward routes the input gradients chunk
+    by chunk); K is the padded total. Returns (segments [(buf,
     off, width, kpos)], K, cols: packed column of each original input
     column)."""
     segs, cols, k = [], [], 0
     for (buf, off, width), local in seg_cols:
-        k = _round_up(k, align)
+        k = _round_up(k, PANEL)
         segs.append((buf, off, width, k))
         cols += [k + j for j in local]
         k += width
     if tuple(w.shape) != (hid, len(cols)):
         raise ValueError(f"layer {i} weight {tuple(w.shape)} does not "
                          f"match the spec ({hid}, {len(cols)})")
-    return segs, _round_up(k, align), torch.tensor(cols, device=w.device)
+    return segs, _round_up(k, PANEL), torch.tensor(cols, device=w.device)
 
 
-def _layer_plan(layers, espec: EmbedSpec, skip_before, skip_source,
-                align: int = 16):
+def _layer_plan(layers, espec: EmbedSpec, skip_before, skip_source):
     """Per layer: (segments [(buf, off, width, kpos)], K, cols). Shared
     memory Xs holds [PE | pad | aux | pad] with each part padded to 16
     columns; a layer input is one or two 16-aligned segments of Xs (buf 0)
     / Hs (buf 1), placed from packed weight column kpos (a multiple of
-    `align`), K packed columns in all; cols[j] is the packed column of
-    original input column j (pad columns hold zeros)."""
+    64, `_place`), K packed columns in all; cols[j] is the packed column
+    of original input column j (pad columns hold zeros)."""
     key = ("embed", _shapes(layers), espec.kind, espec.multires,
-           espec.aux_width, espec.aux_first, skip_before, skip_source, align,
+           espec.aux_width, espec.aux_first, skip_before, skip_source,
            layers[0][0].device)
     return _memo(key, lambda: _build_layer_plan(layers, espec, skip_before,
-                                                skip_source, align))
+                                                skip_source))
 
 
-def _build_layer_plan(layers, espec, skip_before, skip_source, align):
+def _build_layer_plan(layers, espec, skip_before, skip_source):
     hid = int(layers[0][0].shape[0])
     A, ex_w = espec.aux_width, espec.ex_width
     exp_w = _round16(ex_w)
@@ -317,47 +315,68 @@ def _build_layer_plan(layers, espec, skip_before, skip_source, align):
             seg_cols = [((1, 0, hid), range(hid)), ((0, 0, exp_w), ex_cols)]
         else:
             seg_cols = [((1, 0, hid), range(hid))]
-        plan.append(_place(seg_cols, hid, w, i, align))
+        plan.append(_place(seg_cols, hid, w, i))
     return plan, hid, xw, exp_w
 
 
 def _swizzle128(wp: torch.Tensor) -> torch.Tensor:
-    """[R, K] (K a multiple of 64) -> the flat image of K / 64 chunks
-    [R][64] in wgmma's 128-byte swizzle: in row r, the 8-column group j is
-    stored at group j ^ (r % 8) (csrc/trunk_common.cuh `swz`)."""
-    R, K = wp.shape
-    t = wp.reshape(R, K // PANEL, 8, 8).permute(1, 0, 2, 3)
+    """[..., R, K] (K a multiple of 64) -> the flat images of K / 64 chunks
+    [R][64] in wgmma's 128-byte swizzle, [..., K / 64, R * 64]: in row r,
+    the 8-column group j is stored at group j ^ (r % 8)
+    (csrc/trunk_common.cuh `swz`)."""
+    *lead, R, K = wp.shape
+    t = wp.reshape(*lead, R, K // PANEL, 8, 8).transpose(-4, -3)
 
     def index():
         r = torch.arange(R, device=wp.device)
         return r[:, None], torch.arange(8, device=wp.device)[None, :] ^ \
             (r % 8)[:, None]
     r, src = _memo(("swizzle", R, wp.device), index)
-    return t[:, r, src, :].reshape(-1)
+    return t[..., r, src, :].reshape(*lead, K // PANEL, R * PANEL)
 
 
-def _packed_weights(layers, plan, hid, layout: str, dt):
-    """Every layer's weights scattered into its packed columns, flat:
-    'swizzled' (bf16 chunk images), 'k_major' ([K, HID], the f32
-    forward) or 'rows' ([HID, K], the f32 backward)."""
-    blocks = []
-    for (w, _), (_, K, cols) in zip(layers, plan):
-        wp = torch.zeros(hid, K, device=w.device)
-        wp[:, cols] = w.float()
-        if layout == "swizzled":
-            blocks.append(_swizzle128(wp))
-        else:
-            blocks.append((wp.T if layout == "k_major" else wp).reshape(-1))
-    return torch.cat(blocks).to(dt).contiguous()
+def split3(t: torch.Tensor) -> torch.Tensor:
+    """[3, *t.shape] bf16: f32 values as three bf16 pieces hi = bf16(v),
+    mid = bf16(v - hi), lo = bf16(v - hi - mid) (each difference exact in
+    f32), whose sum holds v to 2^-24 of it: the f32 kernels' operands
+    (csrc/trunk_common.cuh `split3`)."""
+    t = t.float()
+    hi = t.to(torch.bfloat16)
+    r = t - hi.float()
+    mid = r.to(torch.bfloat16)
+    return torch.stack([hi, mid, (r - mid.float()).to(torch.bfloat16)])
+
+
+def _packed_weights(layers, plan, hid, precision: str):
+    """Every layer's weights scattered into its packed columns [HID, K],
+    as flat 128-byte-swizzled chunk images [HID][64], layer after layer:
+    bf16 one image per chunk; highest three per chunk, the `split3` pieces
+    hi, mid, lo. Built on the device in a few operations for all layers
+    at once."""
+    dev = layers[0][0].device
+    k_all = sum(K for _, K, _ in plan)
+
+    def columns():
+        out, off = [], 0
+        for _, K, cols in plan:
+            out.append(cols + off)
+            off += K
+        return torch.cat(out)
+    wp = torch.zeros(hid, k_all, device=dev)
+    wp[:, _memo(("columns", id(plan)), columns)] = torch.cat(
+        [w.float() for w, _ in layers], dim=1)
+    if precision == "bf16":
+        return _swizzle128(wp).reshape(-1).to(torch.bfloat16)
+    return _swizzle128(split3(wp)).transpose(0, 1).reshape(-1)
 
 
 def _ksteps(segs):
-    """The bf16 forward's K-steps of one layer (csrc/trunk_common.cuh
+    """The forward's K-steps of one layer (csrc/trunk_common.cuh
     `Meta::step`): per 16 packed columns of each segment, the byte offset
     of its A slice in the warpgroup's Xs/Hs image (column panel * 8 KB +
     2 bytes per column inside the panel; the swizzle is applied by the
-    hardware from the address), the buffer, the step inside its weight
-    chunk and the chunk."""
+    hardware from the address; f32 adds the piece's offset), the buffer,
+    the step inside its weight chunk and the chunk."""
     steps = []
     for buf, off, width, kpos in segs:
         for j in range(0, width, 16):
@@ -375,19 +394,22 @@ def _pack_meta(layers, out, plan, hid, head, precision: str,
     layer its two segments (buf, off, width, kpos), K, weight offset and
     its K-steps' first index and count; the skip slice's offset in x, read
     by the raw-input kind; last the K-steps) and the packed weights and
-    biases. bf16 weights are the swizzled chunk images of [HID, K] (the
-    wgmma B operand), f32 weights [K, HID]."""
+    biases: `_packed_weights`' chunk images of [HID, K] (the wgmma B
+    operand), biases bf16 or f32."""
     bf16 = precision == "bf16"
-    if bf16 and head[0] > MAX_XW:
-        raise ValueError(f"bf16 kernels take at most {MAX_XW} input "
+    if head[0] > MAX_XW:
+        raise ValueError(f"the kernels take at most {MAX_XW} input "
                          f"columns, got {head[0]}")
+    if not bf16 and hid == 256 and head[0] > MAX_XW_F32_256:
+        raise ValueError(f"the f32 kernels take at most {MAX_XW_F32_256} "
+                         f"input columns at width 256, got {head[0]}")
     dt = torch.bfloat16 if bf16 else torch.float32
     meta = [len(layers), hid, int(out[0].shape[0])] + list(head)
     steps, w_off = [], 0
     for segs, K, _ in plan:
         for sg in segs + [(0, 0, 0, 0)] * (2 - len(segs)):
             meta += list(sg)
-        own = _ksteps(segs) if bf16 else []
+        own = _ksteps(segs)
         meta += [K, w_off, len(steps), len(own)]
         steps += own
         w_off += hid * K
@@ -395,8 +417,7 @@ def _pack_meta(layers, out, plan, hid, head, precision: str,
         raise ValueError(f"{len(steps)} K-steps, the kernels take "
                          f"{MAX_STEPS}")
     meta += [skip_off, len(steps)] + steps
-    w_all = _packed_weights(layers, plan, hid,
-                            "swizzled" if bf16 else "k_major", dt)
+    w_all = _packed_weights(layers, plan, hid, precision)
     b_all = torch.stack([b.float() for _, b in layers]).to(dt).contiguous()
     return (np.asarray(meta, np.int32), w_all, b_all,
             out[0].float().contiguous(), out[1].float().contiguous())
@@ -407,26 +428,26 @@ def _pack(layers, out, espec: EmbedSpec, skip_before, skip_source,
     """Host-side layout for the embed trunk kernels (`_layer_plan` gives
     the layout, `_pack_meta` the arrays)."""
     plan, hid, xw, exp_w = _layer_plan(layers, espec, skip_before,
-                                       skip_source, _align(precision))
+                                       skip_source)
     head = [xw, exp_w, espec.ex_width, 0 if espec.kind == "fourier" else 1,
             espec.multires, espec.aux_width, aux_stride]
     return _pack_meta(layers, out, plan, hid, head, precision)
 
 
 def _act_buffers(n, L, hid, xw, precision, dev):
-    """The backward's scratch (act_x, act_h, gc). bf16: 64-row tiles of
-    swizzled [64][64] panels (2 tiles per 128-row CTA tile, every tile
-    written); f32: [n, xw] and [L, n, HID] row-major."""
-    if precision != "bf16":
-        f = dict(device=dev, dtype=torch.float32)
-        return (torch.empty(n, xw, **f), torch.empty(L, n, hid, **f),
-                torch.empty(L, n, hid, **f))
-    t64 = 2 * -(-n // 128)
+    """The backward's scratch (act_x, act_h, gc): 64-row tiles of swizzled
+    bf16 [64][64] panels, every tile written. bf16: 2 tiles per 128-row
+    CTA tile; f32: one per 64-row tile, as three piece images each."""
+    if precision == "bf16":
+        t64, pieces = 2 * -(-n // 128), 1
+    else:
+        t64, pieces = -(-n // 64), 3
     xpn, hpn = -(-xw // PANEL), max(1, hid // PANEL)
     f = dict(device=dev, dtype=torch.bfloat16)
-    return (torch.empty(t64 * xpn * PANEL * PANEL, **f),
-            torch.empty(L * t64 * hpn * PANEL * PANEL, **f),
-            torch.empty(L * t64 * hpn * PANEL * PANEL, **f))
+    tile = pieces * PANEL * PANEL
+    return (torch.empty(t64 * xpn * tile, **f),
+            torch.empty(L * t64 * hpn * tile, **f),
+            torch.empty(L * t64 * hpn * tile, **f))
 
 
 def _check_weights(layers, out, dev) -> int:
@@ -543,11 +564,8 @@ def embed_trunk_bwd(x, aux, alpha, layers, out, gout, *, espec: EmbedSpec,
     aux_stride = _check_kernel_args(x, aux, layers, out, espec, precision)
     meta, w_all, b_all, wout, bout = _pack(
         layers, out, espec, skip_before, skip_source, precision, aux_stride)
-    plan, hid, xw, _ = _layer_plan(layers, espec, skip_before, skip_source,
-                                   _align(precision))
+    plan, hid, xw, _ = _layer_plan(layers, espec, skip_before, skip_source)
     bf16 = precision == "bf16"
-    wt_all = None if bf16 else _packed_weights(layers, plan, hid, "rows",
-                                               torch.float32)
     n, L, A = x.shape[0], len(layers), espec.aux_width
     out_dim = int(wout.shape[0])
     gout = gout.float().contiguous()
@@ -565,16 +583,16 @@ def embed_trunk_bwd(x, aux, alpha, layers, out, gout, *, espec: EmbedSpec,
     dx = f32(n, 3, zero=False)
     daux = f32(n, A, zero=False) if stream else f32(A)
     db, dwout, dbout = f32(L, hid), f32(out_dim, hid), f32(out_dim)
-    dw = f32(w_all.numel())
+    dw = f32(hid * sum(K for _, K, _ in plan))
     splits = max(1, min(16, n // 16384))
     lib = _bwd_lib()
     rc = lib.hosnerf_embed_trunk_bwd(
         meta.ctypes.data, int(bf16), int(stream), x.data_ptr(),
         aux.data_ptr(), alpha_t.data_ptr(), k0.data_ptr(), w_all.data_ptr(),
-        b_all.data_ptr(), 0 if bf16 else wt_all.data_ptr(), wout.data_ptr(),
-        gout.data_ptr(), act_x.data_ptr(), act_h.data_ptr(), gc.data_ptr(),
-        dx.data_ptr(), daux.data_ptr(), db.data_ptr(), dwout.data_ptr(),
-        dbout.data_ptr(), dw.data_ptr(), n, splits,
+        b_all.data_ptr(), wout.data_ptr(), gout.data_ptr(),
+        act_x.data_ptr(), act_h.data_ptr(), gc.data_ptr(), dx.data_ptr(),
+        daux.data_ptr(), db.data_ptr(), dwout.data_ptr(), dbout.data_ptr(),
+        dw.data_ptr(), n, splits,
         torch.cuda.current_stream(dev).cuda_stream)
     fused_embed_trunk_bwd.launches += 1
     _build.check(rc, lib, "fused_embed_trunk_bwd")
@@ -736,19 +754,19 @@ def fused_trunk_bwd_plain(x, layers, out, gout, *, spec: TrunkSpec,
     return dx, dlayers, dout
 
 
-def _trunk_plan(layers, spec: TrunkSpec, align: int = 16):
+def _trunk_plan(layers, spec: TrunkSpec):
     """Xs holds [x | pad] and, unless the skip slice already ends the
     16-aligned input from a 16-aligned offset, a copy of the slice [src |
     pad] after it (the kernels' aux columns, read from x itself at row
     stride din). Returns (plan as `_layer_plan`'s, hid, xw, exp_w, A = the
     copy's width or 0)."""
     key = ("trunk", _shapes(layers), spec.din, spec.skip_before,
-           spec.skip_order, spec.skip_off, spec.skip_width, align,
+           spec.skip_order, spec.skip_off, spec.skip_width,
            layers[0][0].device)
-    return _memo(key, lambda: _build_trunk_plan(layers, spec, align))
+    return _memo(key, lambda: _build_trunk_plan(layers, spec))
 
 
-def _build_trunk_plan(layers, spec: TrunkSpec, align: int):
+def _build_trunk_plan(layers, spec: TrunkSpec):
     hid = int(layers[0][0].shape[0])
     din, sw = spec.din, spec.skip_width
     exp_w, sw16 = _round16(din), _round16(sw)
@@ -767,7 +785,7 @@ def _build_trunk_plan(layers, spec: TrunkSpec, align: int):
             seg_cols = [hs, src]
         else:
             seg_cols = [hs]
-        plan.append(_place(seg_cols, hid, w, i, align))
+        plan.append(_place(seg_cols, hid, w, i))
     return plan, hid, exp_w + _round16(A), exp_w, A
 
 
@@ -783,7 +801,7 @@ def _trunk_args(x, layers, out, spec: TrunkSpec, precision: str):
     if spec.skip_before == 0:
         raise ValueError("the kernels take no skip before layer 0")
     _check_weights(layers, out, x.device)
-    plan, hid, xw, exp_w, A = _trunk_plan(layers, spec, _align(precision))
+    plan, hid, xw, exp_w, A = _trunk_plan(layers, spec)
     head = [xw, exp_w, spec.din, 2, 0, A, spec.din]
     return (plan, hid, *_pack_meta(layers, out, plan, hid, head, precision,
                                    spec.skip_off), A)
@@ -834,8 +852,6 @@ def trunk_bwd(x, layers, out, gout, *, spec: TrunkSpec,
     plan, hid, meta, w_all, b_all, wout, bout, _ = _trunk_args(
         x, layers, out, spec, precision)
     bf16 = precision == "bf16"
-    wt_all = None if bf16 else _packed_weights(layers, plan, hid, "rows",
-                                               torch.float32)
     n, L = x.shape[0], len(layers)
     out_dim = int(wout.shape[0])
     gout = gout.float().contiguous()
@@ -848,7 +864,7 @@ def trunk_bwd(x, layers, out, gout, *, spec: TrunkSpec,
     act_x, act_h, gc = _act_buffers(n, L, hid, int(meta[3]), precision, dev)
     dx = torch.empty(n, spec.din, device=dev, dtype=torch.float32)
     db, dwout, dbout = f32(L, hid), f32(out_dim, hid), f32(out_dim)
-    dw, unused = f32(w_all.numel()), f32(1)
+    dw, unused = f32(hid * sum(K for _, K, _ in plan)), f32(1)
     zero_i = _k0_tensor(None, dev)
     splits = max(1, min(16, n // 16384))
     lib = _bwd_lib()
@@ -856,7 +872,7 @@ def trunk_bwd(x, layers, out, gout, *, spec: TrunkSpec,
         meta.ctypes.data, int(bf16), 0, x.data_ptr(),
         x.data_ptr() + 4 * spec.skip_off, unused.data_ptr(),
         zero_i.data_ptr(), w_all.data_ptr(), b_all.data_ptr(),
-        0 if bf16 else wt_all.data_ptr(), wout.data_ptr(), gout.data_ptr(),
+        wout.data_ptr(), gout.data_ptr(),
         act_x.data_ptr(), act_h.data_ptr(), gc.data_ptr(), dx.data_ptr(),
         unused.data_ptr(), db.data_ptr(), dwout.data_ptr(), dbout.data_ptr(),
         dw.data_ptr(), n, splits, torch.cuda.current_stream(dev).cuda_stream)
@@ -928,19 +944,29 @@ def fused_trunk_bwd(x, layer_params, out_params, gout, *,
 fused_trunk_bwd.launches = 0
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("embed_trunk")
     p = ctypes.c_void_p
     _build.declare(lib, "hosnerf_embed_trunk",
                    [p, ctypes.c_int, p, p, p, p, p, p, p, p, p,
                     ctypes.c_int, p])
+    lib.hosnerf_trunk_f32_route.argtypes = []
+    lib.hosnerf_trunk_f32_route.restype = ctypes.c_char_p
     return lib
 
 
+@functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("embed_trunk_bwd")
     p = ctypes.c_void_p
     i = ctypes.c_int
     _build.declare(lib, "hosnerf_embed_trunk_bwd",
-                   [p, i, i] + [p] * 18 + [i, i, p])
+                   [p, i, i] + [p] * 17 + [i, i, p])
     return lib
+
+
+def f32_route() -> str:
+    """The route the built f32 ("highest") trunk kernels take (builds
+    csrc/embed_trunk.cu on first use)."""
+    return _lib().hosnerf_trunk_f32_route().decode()

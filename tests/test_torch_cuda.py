@@ -279,16 +279,20 @@ def test_embed_trunk_bwd_kernel_matches_plain(dev, name, width, prec, k0):
 @pytest.mark.parametrize("name,width", [("nonrigid", 32),
                                         ("nonrigid", 256),
                                         ("canonical", 128)])
-def test_trunk_bf16_kernels_ragged(dev, name, width, n, k0):
-    """The wgmma kernels (B2 forward, B3 backward) against the plain
-    versions run on the card, at ragged row counts (1,000 rows: one
-    partial tile; 262,143: the training shapes less one row), k0 at 0, at
-    a live block (7, clamped to 0 for 1,000 rows) and at the all-dead
-    clamp, on NaN-poisoned outputs, with the tolerances of the tests
-    above for the forward (1e-2 of the scale) and chip_smoke.py's for B3
-    at these row counts: relative L2 2e-2, and at most 0.1% of entries
-    beyond 1e-1 of the scale (one flipped bf16 rounding of gc moves a
-    whole row of dx or daux; 262,143 x 75 entries hold a few such rows)."""
+@pytest.mark.parametrize("prec", ["bf16", "highest"])
+def test_trunk_bf16_kernels_ragged(dev, prec, name, width, n, k0):
+    """The wgmma kernels (B2 forward, B3 backward; bf16, and f32 on bf16x3
+    pieces) against the plain versions run on the card, at ragged row
+    counts (1,000 rows: one partial tile; 262,143: the training shapes
+    less one row), k0 at 0, at a live block (7, clamped to 0 for 1,000
+    rows) and at the all-dead clamp, on NaN-poisoned outputs, with the
+    tolerances of the tests above for the forward (1e-2 of the scale in
+    bf16, 1e-5 in f32) and chip_smoke.py's for B3 at these row counts:
+    bf16 relative L2 2e-2, and at most 0.1% of entries beyond 1e-1 of the
+    scale (one flipped bf16 rounding of gc moves a whole row of dx or
+    daux; 262,143 x 75 entries hold a few such rows); f32 2e-3 and 1e-2
+    (a ReLU mask flipped by f32 noise moves its row)."""
+    bf16 = prec == "bf16"
     x, aux, alpha, layers, out, kw = mlp_case(name, seed=5, n=n, width=width)
     tl, to = torch_args(layers, out)
     tl = [(w.to(dev), b.to(dev)) for w, b in tl]
@@ -299,25 +303,26 @@ def test_trunk_bf16_kernels_ragged(dev, name, width, n, k0):
     first = min(k0, math.ceil(n / 1024) - 1) * 1024
     ref = cmlp.fused_embed_trunk_plain(
         xt, at, alpha, tl, to, espec=espec, skip_before=kw["skip_before"],
-        skip_source=kw["skip_source"])
+        skip_source=kw["skip_source"], precision=prec)
     _poison(512 << 20, dev)
-    got = cmlp.fused_embed_trunk(xt, at, alpha, tl, to, k0_blocks=k0, **kw)
+    got = cmlp.fused_embed_trunk(xt, at, alpha, tl, to, precision=prec,
+                                 k0_blocks=k0, **kw)
     torch.cuda.synchronize()
     g, r = got[first:], ref[first:]
     assert torch.isfinite(g).all()
     scale = float(r.abs().max())
     err = (g - r).abs()
-    assert float(err.max()) <= 1e-2 * scale
+    assert float(err.max()) <= (1e-2 if bf16 else 1e-5) * scale
     assert float((err > 1e-3 * scale).float().mean()) <= 0.05
     gout = torch.randn(n, to[0].shape[0], device=dev,
                        generator=torch.Generator(dev).manual_seed(6))
     dref = cmlp.fused_embed_trunk_bwd_plain(
         xt, at, alpha, tl, to, gout, espec=espec,
         skip_before=kw["skip_before"], skip_source=kw["skip_source"],
-        k0_blocks=k0)
+        precision=prec, k0_blocks=k0)
     _poison(1 << 30, dev)
     dgot = cmlp.fused_embed_trunk_bwd(xt, at, alpha, tl, to, gout,
-                                      k0_blocks=k0, **kw)
+                                      precision=prec, k0_blocks=k0, **kw)
     torch.cuda.synchronize()
     flat_g = [dgot[0], dgot[1]] + [t for p in dgot[2] for t in p] + \
         list(dgot[3])
@@ -327,8 +332,38 @@ def test_trunk_bf16_kernels_ragged(dev, name, width, n, k0):
         assert torch.isfinite(a).all(), i
         scale = float(b.abs().max()) + 1e-30
         l2 = float(torch.linalg.norm(a - b) / (torch.linalg.norm(b) + 1e-30))
-        beyond = float(((a - b).abs() > 1e-1 * scale).float().mean())
-        assert l2 <= 2e-2 and beyond <= 1e-3, (i, l2, beyond)
+        beyond = float(((a - b).abs() > (1e-1 if bf16 else 1e-2) * scale)
+                       .float().mean())
+        assert l2 <= (2e-2 if bf16 else 2e-3) and beyond <= 1e-3, \
+            (i, l2, beyond)
+    assert first == 0 or float(dgot[0][:first].abs().max()) == 0.0
+
+
+def test_f32_trunk_kernels_run_on_tensor_cores(dev):
+    """The f32 ("highest") trunk kernels as built do their products with
+    wgmma: the SASS of each (forward, recompute, rows, dW) holds HGMMA,
+    and no FMA-tile f32 trunk kernel is left in the libraries."""
+    import shutil
+    import subprocess
+
+    from hosnerf_tpu_torch.ops.cuda import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not shutil.which(tool):
+        pytest.skip("needs cuobjdump from the CUDA toolkit")
+    seen = set()
+    for lib in ("embed_trunk", "embed_trunk_bwd"):
+        _build.load(lib)
+        sass = subprocess.run([tool, "-sass", str(_build.target_path(lib))],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        for fn in sass.split("Function : ")[1:]:
+            name = fn.split(None, 1)[0]
+            assert "_f32" not in name, name
+            for kernel in ("embed_trunk_x3", "rows_bwd_x3", "dw_x3"):
+                if kernel in name:
+                    assert "HGMMA" in fn, name
+                    seen.add(kernel)
+    assert seen == {"embed_trunk_x3", "rows_bwd_x3", "dw_x3"}
 
 
 def test_autograd_routes_through_kernels(dev):

@@ -360,6 +360,18 @@ def _unswizzle(img, rows, K):
     return out.reshape(rows, K)
 
 
+def _weight_matrix(w_all, w_off, hid, K, bf16):
+    """[K, hid] from the kernels' weight images of one layer: bf16 chunk
+    images, or f32 as three bf16 piece images (hi, mid, lo) per chunk from
+    3 w_off on, summed in f32."""
+    if bf16:
+        return _unswizzle(w_all[w_off:w_off + hid * K].float(), hid, K).T
+    blk = w_all[3 * w_off:3 * (w_off + hid * K)].float().reshape(
+        K // 64, 3, hid * 64)
+    return sum(_unswizzle(blk[:, q].reshape(-1), hid, K)
+               for q in range(3)).T
+
+
 @pytest.mark.parametrize("prec", ["highest", "bf16"])
 @pytest.mark.parametrize("name", sorted(TRUNKS))
 def test_trunk_kernel_layout(name, prec):
@@ -397,9 +409,7 @@ def test_trunk_kernel_layout(name, prec):
         inp = torch.zeros(x.shape[0], K)
         for buf, off, w, kpos in segs:
             inp[:, kpos:kpos + w] = (xs if buf == 0 else hs)[:, off:off + w]
-        blk = w_all[w_off:w_off + hid * K].float()
-        z = rnd(inp @ (_unswizzle(blk, hid, K).T if bf16
-                       else blk.reshape(K, hid)))
+        z = rnd(inp @ _weight_matrix(w_all, w_off, hid, K, bf16))
         hs = torch.relu(rnd(z + b_all[i].float()))
     got = hs @ wout.T + bout
     scale = float(ref.abs().max())

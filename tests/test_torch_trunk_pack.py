@@ -80,7 +80,7 @@ def _embed_case(name, seed=0):
                            kw["aux_first"])
     stride = 0 if kw["aux_mode"] == "broadcast" else A
     plan, _, xw, _ = cmlp._layer_plan(layers, espec, kw["skip_before"],
-                                      kw["skip_source"], 64)
+                                      kw["skip_source"])
     meta, w_all, b_all, wout, bout = cmlp._pack(
         layers, out, espec, kw["skip_before"], kw["skip_source"], "bf16",
         stride)
