@@ -67,11 +67,28 @@ Phases, each of which fails the run:
             through the dense path with each inverse core against the
             sorted path on the same weights;
   profile   one dense training step under torch.profiler;
+  stage3    the stage-3 composed training step (`train/stage3.py`:
+            init_state + make_train_step, the scene's proposal sampler and
+            8 x 1024 NeRF MLP beside the human field on its sorted kernel
+            path, LPIPS with the random backbone) at bench.py's production
+            cell, Stage3Config(n_patches=2, compute_dtype="bf16"), on
+            composed_batch(2, 32) at iter 60,000: one warm-up step, then
+            STAGE3_STEPS timed steps with the kernels' launches counted
+            around them (B1-B5 as in the stage-2 step), the loss finite and
+            falling, the peak device memory (reset before the warm-up), and
+            the scene's forward and backward timed alone for its share;
+  profile   one more stage-3 step under torch.profiler, device time by
+            group (kernel records by name);
+  render stage3  2 composed 128 x 128 frames through render_human_image +
+            make_composed_render_fn (B1/B2 launches counted), rgb checked,
+            one frame profiled by group, one chunk held against the dense
+            plain path of the human field;
   gradcheck one step's gradients, the kernel path on the card against the
             same path through the kernels' plain versions on the CPU (f32
             trunks, same weights), parameter by parameter
-            (`train/gradcheck.py`), the sorted and the dense path, each
-            on the training batch.
+            (`train/gradcheck.py`), the sorted and the dense path of the
+            stage-2 step and the stage-3 step (without its LPIPS term, see
+            train/gradcheck.py), each on the training batch.
 
 Stdout ends with the card's name and power limit, one JSON line of kernel
 results and one JSON status line. The render kernels' entries report the
@@ -105,6 +122,10 @@ PER_STEP = {"inverse_core_pg_s": 1, "fused_embed_trunk": 4,
             "shared_blend_fwd": 1, "inverse_core_bwd": 1,
             "fused_embed_trunk_bwd": 4, "shared_blend_bwd": 1}
 DENSE_STEPS = 3
+# the stage-3 step (bench.py's cell) launches the human field's kernels as
+# the stage-2 step does; its render frames 1 B1 and 2 B2 launches a chunk
+STAGE3_STEPS = 5
+STAGE3_FRAMES = 2
 # per dense training step: the Morton-order inverse core and B4 once, the
 # trunks three times (non-rigid, canonical, and one forward non-rigid call
 # over both deform streams), the forward LBS once; lbs_impl='pallas_dense'
@@ -1760,20 +1781,23 @@ def train_phase(torch, device, kind, lp, cfg=None, steps=TRAIN_STEPS,
     return launches, ms, lambda: step(batch, TRAIN_ITER, jitter())
 
 
-def gradcheck_phase(torch, device, n_patches=2, patch_size=32, dense=False):
+def gradcheck_phase(torch, device, n_patches=2, patch_size=32, dense=False,
+                    stage3=False):
     """One step's gradients, the card's kernel path vs the same path (the
-    sorted one, or the dense one) on the kernels' plain versions on the
-    CPU, held to TOL_GRAD and TOL_GRAD_LOSS."""
+    sorted one, or the dense one; of the stage-3 step with `stage3`) on
+    the kernels' plain versions on the CPU, held to TOL_GRAD and
+    TOL_GRAD_LOSS."""
     import math
 
     from hosnerf_tpu_torch.train import gradcheck
-    what = "dense" if dense else "sorted"
+    what = ("stage-3 step, " if stage3 else "") + ("dense" if dense
+                                                   else "sorted")
     print(f"gradcheck ({what} path): kernel path on the card vs plain "
           f"versions on the CPU ({n_patches} patches of {patch_size}x"
           f"{patch_size} rays)", flush=True)
     t0 = time.time()
     res = gradcheck.compare_step_grads(device, n_patches, patch_size,
-                                       dense=dense)
+                                       dense=dense, stage3_step=stage3)
     worst_rel, _ = gradcheck.report(res, TOL_GRAD)
     print(f"phase gradcheck ({what}): {time.time() - t0:.1f} s", flush=True)
     check(all(math.isfinite(v) for pair in res["params"].values()
@@ -1786,6 +1810,296 @@ def gradcheck_phase(torch, device, n_patches=2, patch_size=32, dense=False):
           f"gradcheck: loss {k_loss} vs plain {p_loss}")
     check(worst_rel <= TOL_GRAD,
           f"gradcheck: worst rel L2 {worst_rel:.3e} (tol {TOL_GRAD})")
+
+
+# ---------------------------------------------------------------------------
+# stage 3: the composed step and the composed render
+# ---------------------------------------------------------------------------
+
+def composed_item(seed: int, G: int):
+    """A 128 x 128 frame item (frame_item's rays) with the background ray
+    keys and the smpl -> scaled-world transform that composed_batch
+    adds."""
+    from hosnerf_tpu_torch.data import synthetic
+    item = synthetic.composed_batch(RAYS // 64, 8, seed=seed, grid_size=G)
+    item.update(img_height=128, img_width=RAYS // 128)
+    return item
+
+
+def scene_alone_ms(torch, cfg, scene, batch, reps=3):
+    """Host-clock ms of the scene's forward and backward alone on the
+    step's rays (its loss: the last level's rgb and density against a
+    fixed random cotangent), mean of `reps` after a warm-up."""
+    bb = {"rays_o": batch["rays_o_bkg"], "rays_d": batch["rays_d_bkg"],
+          "viewdirs": batch["viewdirs_bkg"], "radii": batch["radii"]}
+    gen = torch.Generator(batch["rays_o"].device).manual_seed(5)
+
+    def once():
+        _, hist = scene(bb, 1.0, True, 0, cfg.near_bkg, cfg.far_bkg,
+                        generator=gen)
+        out = torch.cat([hist[-1]["rgb"], hist[-1]["density"][..., None]],
+                        -1)
+        (out * 1e-3).sum().backward()
+
+    once()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(reps):
+        once()
+    torch.cuda.synchronize()
+    scene.zero_grad(set_to_none=True)
+    return (time.time() - t0) * 1e3 / reps
+
+
+def stage3_phase(torch, device, kind, lp, cfg=None, steps=STAGE3_STEPS):
+    """bench.py's stage-3 cell (`cfg` unless given) through init_state +
+    make_train_step on one fixed composed batch: warm-up, `steps` timed
+    steps with every kernel's launches counted and held to PER_STEP, the
+    loss checked, peak device memory, the scene's share. Returns (cfg,
+    scene, human, ms/step, a function running one more step)."""
+    from hosnerf_tpu_torch.data import synthetic
+    from hosnerf_tpu_torch.models.state import state_index
+    from hosnerf_tpu_torch.train import stage3
+    cfg = cfg or stage3.Stage3Config(n_patches=2, compute_dtype="bf16")
+    scene, human, opt = stage3.init_state(cfg, seed=0, device=device)
+    step = stage3.make_train_step(cfg, scene, human, opt, lpips_apply=lp)
+    nb = synthetic.composed_batch(cfg.n_patches, cfg.patch_size,
+                                  grid_size=cfg.mweight_volume_size)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in nb.items()}
+    rays = cfg.n_patches * cfg.patch_size ** 2
+
+    def jitter():
+        return torch.Generator().manual_seed(11)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first = step(batch, TRAIN_ITER, jitter())
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(v)) for v in first.values()),
+          f"stage3 warm-up step: non-finite losses {first}")
+    wrappers = launch_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    losses = []
+    t0 = time.time()
+    for _ in range(steps):
+        losses.append(step(batch, TRAIN_ITER, jitter()))
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    ms = dt * 1e3 / steps
+    print(f"phase stage3: {steps} steps of {rays} rays x (human "
+          f"{cfg.n_samples}, scene {cfg.num_prop_samples}/"
+          f"{cfg.num_prop_samples}/{cfg.num_nerf_samples}) samples, "
+          f"nerf MLP 8x{cfg.nerf_netwidth}, {ms:.2f} ms/step, "
+          f"{rays * steps / dt:.0f} rays/s, peak device memory "
+          f"{peak / 2 ** 30:.3f} GiB ({peak} bytes) on {kind}; launches "
+          + " ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
+    for k, n in launches.items():
+        per = PER_STEP.get(k, 0)
+        check(n == per * steps, f"stage3: {k} launched {n} times in "
+              f"{steps} steps (expected {per} per step)")
+    for i, ls in enumerate(losses):
+        check(all(bool(torch.isfinite(v)) for v in ls.values()),
+              f"stage3 step {i}: non-finite losses {ls}")
+    with torch.no_grad():
+        after, _ = stage3.make_loss_fn(cfg, scene, human, lp)(
+            batch, TRAIN_ITER, state_index(batch["time"], None), jitter())
+    l0, l1 = float(first["loss"]), float(after)
+    parts = " ".join(f"{k}={float(v):.6f}" for k, v in first.items())
+    timed = " ".join(f"{float(x['loss']):.6f}" for x in losses)
+    print(f"stage3 losses: first {parts}; per timed step {timed}; after "
+          f"{l1:.6f}", flush=True)
+    check(l1 < l0, f"stage3: loss did not drop on a fixed batch ({l0} -> "
+          f"{l1})")
+    s_ms = scene_alone_ms(torch, cfg, scene, batch)
+    print(f"phase stage3: the scene's forward + backward alone {s_ms:.2f} "
+          f"ms, {s_ms / ms:.3f} of the step", flush=True)
+    return cfg, scene, human, ms, lambda: step(batch, TRAIN_ITER, jitter())
+
+
+# device-time groups of a stage-3 step or composed frame, by kernel name
+# (lower case): the human field's hand-written kernels first
+# (LBS_PROFILE_PARTS), then Adam's multi-tensor kernels, convolutions
+# (cuDNN / implicit GEMM: bf16 ones are the human's weight-volume decoder,
+# f32 ones LPIPS), the remaining GEMMs (the scene's MLPs, with the small
+# human pose-decoder and head products), and everything else (sampling,
+# sorting, compositing, elementwise glue)
+CONV_KEYS = ("conv", "implicit", "cudnn", "dgrad", "wgrad", "fprop")
+GEMM_KEYS = ("gemm", "nvjet", "cutlass", "xmma", "sm90_")
+GLUE = "sampling, compositing, glue"
+
+
+def stage3_groups(events):
+    """({group: device ms}, [(ms, kernel) of the glue group, largest
+    first]) of a profiled stage-3 step's or frame's kernel records."""
+    from torch.autograd import DeviceType
+    human = {k for parts in LBS_PROFILE_PARTS.values()
+             for _, ks in parts for k in ks}
+    groups = dict.fromkeys(("human kernels (B1-B5)", "Adam",
+                            "convolutions bf16 (decoder)",
+                            "convolutions f32 (LPIPS)",
+                            "GEMMs (scene MLPs, small human heads)", GLUE),
+                           0.0)
+    glue = []
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        name, ms = e.key.lower(), e.self_device_time_total / 1e3
+        if any(k.lower() in name for k in human):
+            g = "human kernels (B1-B5)"
+        elif "multi_tensor_apply" in name or "adam" in name:
+            g = "Adam"
+        elif any(k in name for k in CONV_KEYS):
+            g = ("convolutions bf16 (decoder)"
+                 if "bf16" in name or "bfloat16" in name
+                 else "convolutions f32 (LPIPS)")
+        elif any(k in name for k in GEMM_KEYS):
+            g = "GEMMs (scene MLPs, small human heads)"
+        else:
+            g = GLUE
+            glue.append((ms, e.key))
+        groups[g] += ms
+    return groups, sorted(glue, reverse=True)
+
+
+def profile_groups(torch, what: str, fn, ref_ms: float):
+    """fn under torch.profiler (the `profile` helper), then once more with
+    the device only: its device time by group and the glue group's
+    largest kernels."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+    busy, _ = profile(torch, what, fn, ref_ms)
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    groups, glue = stage3_groups(prof.key_averages())
+    total = sum(groups.values())
+    print(f"phase profile: {what}, device ms by group: "
+          + "; ".join(f"{g} {ms:.3f} ({ms / total:.3f})"
+                      for g, ms in groups.items())
+          + f"; sum {total:.3f} (busy in the first profile {busy:.3f})",
+          flush=True)
+    print(f"phase profile: {what}, largest {GLUE} kernels: "
+          + "; ".join(f"{ms:.3f} {name[:70]}" for ms, name in glue[:8]),
+          flush=True)
+
+
+def stage3_render_phase(torch, device, kind, cfg, scene, human):
+    """STAGE3_FRAMES composed 128 x 128 frames through the render entry
+    points, launches counted and the images checked; then one chunk on the
+    kernel path against the human field's dense plain path."""
+    import numpy as np
+
+    from hosnerf_tpu_torch.eval import renderers
+    from hosnerf_tpu_torch.ops.cuda import lbs as clbs
+    from hosnerf_tpu_torch.ops.cuda import mlp as cmlp
+    items = [composed_item(seed, cfg.mweight_volume_size)
+             for seed in range(STAGE3_FRAMES)]
+    render_fn = renderers.make_composed_render_fn(cfg, scene, human)
+    extra = ("newsmpl_to_scale_world",)
+
+    def frames(its):
+        return [renderers.render_human_image(render_fn, it, device, CHUNK,
+                                             extra_keys=extra) for it in its]
+
+    frames(items[:1])
+    torch.cuda.synchronize()
+    clbs.inverse_core_pg_s.launches = 0
+    cmlp.fused_embed_trunk.launches = 0
+    t0 = time.time()
+    images = frames(items)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    n_lbs = clbs.inverse_core_pg_s.launches
+    n_mlp = cmlp.fused_embed_trunk.launches
+    chunks = STAGE3_FRAMES * (-(-RAYS // CHUNK))
+    print(f"phase render stage3: {STAGE3_FRAMES} composed frames of "
+          f"128x128, {chunks} chunks, {dt * 1e3 / STAGE3_FRAMES:.2f} "
+          f"ms/frame, {STAGE3_FRAMES * RAYS / dt:.0f} rays/s on {kind}; "
+          f"launches inverse_core_pg_s={n_lbs} fused_embed_trunk={n_mlp}",
+          flush=True)
+    check(n_lbs == chunks and n_mlp == 2 * chunks,
+          f"kernel launches during the composed render: {n_lbs}, {n_mlp} "
+          f"for {chunks} chunks (expected 1 and 2 each)")
+    for img in images:
+        check(img.shape == (128, 128, 3), f"image shape {img.shape}")
+        check(bool(np.isfinite(img).all()), "composed: non-finite rgb")
+        check(float(img.min()) >= 0.0 and float(img.max()) <= 1.0 + 1e-6,
+              f"composed rgb outside [0, 1]: {img.min()} .. {img.max()}")
+    print(f"render stage3 image mean {float(np.mean(images)):.4f}",
+          flush=True)
+    profile_groups(torch, "one composed 128x128 frame",
+                   lambda: frames(items[:1]), dt * 1e3 / STAGE3_FRAMES)
+
+    # one chunk: the kernel path vs the human field's dense plain path
+    # (the scene runs the same code on both sides)
+    item = items[0]
+    keys = (renderers.HUMAN_SHARED_KEYS + renderers.HUMAN_RAY_KEYS
+            + renderers.BKG_RAY_KEYS + extra)
+    b = {k: torch.as_tensor(item[k], device=device) for k in keys}
+    for k in renderers.HUMAN_RAY_KEYS + renderers.BKG_RAY_KEYS:
+        b[k] = b[k][:CHUNK]
+    composed_chunk_check(torch, cfg, scene, human, b)
+
+
+def composed_chunk_check(torch, cfg, scene, human, b):
+    """The composed chunk `b` on the kernel path against the human field's
+    dense plain path, twice: with the scene as configured (the random scene
+    hides most of the human: the human field's own alpha and colour are
+    held there), and with the scene's near plane behind the human's far
+    plane, so that the human stands in front and its weights in the
+    composite are real (their sum per ray is held). Each placement must
+    show the human (maxima >= MIN_ALPHA, foreground rays); everything is
+    held over the foreground rays (idx_fg of the dense plain path), where
+    the human field takes part."""
+    import dataclasses
+
+    from hosnerf_tpu_torch.train import stage3
+    state = torch.zeros((), dtype=torch.int32)
+    behind = dataclasses.replace(cfg, near_bkg=float(b["far"].max()) + 0.1)
+    for where, c in (("scene as configured", cfg),
+                     ("scene behind the human", behind)):
+        with torch.no_grad():
+            comp_s, hum_s = stage3.composed_forward(c, scene, human, b, ITER,
+                                                    state)
+            human.lbs_impl, human.mlp_impl = "gather", "flax"
+            comp_d, hum_d = stage3.composed_forward(c, scene, human, b, ITER,
+                                                    state)
+            human.lbs_impl, human.mlp_impl = cfg.lbs_impl, cfg.mlp_impl
+        hw_s, hw_d = (x["human_weights"].sum(-1) for x in (comp_s, comp_d))
+        n_fg = int(comp_d["idx_fg"].sum())
+        shown = {"human alpha": float(hum_d["alpha"].max()),
+                 "human weight sum": float(hw_d.max())}
+        print(f"composed chunk, {where}: {n_fg} of {hw_d.shape[0]} rays in "
+              f"the foreground; dense plain path maxima: "
+              + ", ".join(f"{k} {v:.4e}" for k, v in shown.items()),
+              flush=True)
+        held = "human alpha" if c is cfg else "human weight sum"
+        check(n_fg > 0 and shown[held] >= MIN_ALPHA,
+              f"composed chunk, {where}: no human shows ({n_fg} foreground "
+              f"rays, {held} max {shown[held]} < {MIN_ALPHA})")
+        pairs = [("rgb", comp_s["rgb"], comp_d["rgb"])]
+        pairs += ([("human alpha", hum_s["alpha"], hum_d["alpha"]),
+                   ("human 1-rgb", 1.0 - hum_s["rgb"], 1.0 - hum_d["rgb"])]
+                  if c is cfg else [("human weight sum", hw_s, hw_d)])
+        fg = comp_d["idx_fg"]
+        for name, got, ref in pairs:
+            got, ref = got[fg], ref[fg]
+            scale = float(ref.abs().max())
+            diff = (got - ref).abs()
+            rmax = float(diff.max()) / scale
+            rmean = float(diff.mean()) / scale
+            print(f"composed chunk vs dense plain path, {where}, foreground "
+                  f"rays: {name} max {scale:.4e}, error max {rmax:.3e} mean "
+                  f"{rmean:.3e} of it "
+                  f"(tolerance {TOL_RENDER_MAX}, {TOL_RENDER_MEAN})",
+                  flush=True)
+            check(rmax <= TOL_RENDER_MAX and rmean <= TOL_RENDER_MEAN,
+                  f"composed chunk, {where}: {name} disagrees with the "
+                  "dense plain path")
 
 
 # ---------------------------------------------------------------------------
@@ -1978,8 +2292,19 @@ def run(torch, np) -> int:
         PER_PALLAS_DENSE_STEP, "dense pallas_dense")
     torch.cuda.empty_cache()
 
+    # ---- stage 3: the composed step (bench.py's cell) and render ----
+    cfg3, scene3, human3, s3_ms, one_step = stage3_phase(torch, device,
+                                                         kind, lp)
+    profile_groups(torch, "one stage-3 step", one_step, s3_ms)
+    del one_step
+    torch.cuda.empty_cache()
+    stage3_render_phase(torch, device, kind, cfg3, scene3, human3)
+    del scene3, human3
+    torch.cuda.empty_cache()
+
     gradcheck_phase(torch, device)
     gradcheck_phase(torch, device, dense=True)
+    gradcheck_phase(torch, device, stage3=True)
 
     def entry(name, source, replaces, n, parts):
         lib = [results[p].get("library_ms") for p in parts]

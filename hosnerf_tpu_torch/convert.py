@@ -1,10 +1,10 @@
 """JAX params -> this package's state_dicts, without importing jax.
 
-Takes the nested dict of arrays that `HumanObjectField.init` produces in
-the JAX package (leaves as numpy arrays, or anything `np.asarray` reads)
-and emits the reference torch keys, the same mapping as
-`hosnerf_tpu/train/checkpoints.py::export_human_params` with an empty
-prefix: Dense kernels [din, dout] become Linear weights [dout, din];
+Takes the nested dicts of arrays that `HumanObjectField.init` and
+`SceneField.init` produce in the JAX package (leaves as numpy arrays, or
+anything `np.asarray` reads) and emits the reference torch keys, the same
+mappings as `hosnerf_tpu/train/checkpoints.py::export_human_params` and
+`export_scene_params` with an empty prefix: Dense kernels [din, dout] become Linear weights [dout, din];
 DHWIO transposed-conv kernels become ConvTranspose3d weights
 [in, out, k, k, k] with the spatial taps flipped (the JAX kernel is used
 as a correlation over the dilated input, torch's as its transpose).
@@ -81,6 +81,39 @@ def human_state_dict(params: Dict[str, Any], device=None
     takes, built from JAX params."""
     return {k: torch.from_numpy(v.copy()).to(device)
             for k, v in human_params_to_numpy(params).items()}
+
+
+def scene_params_to_numpy(params: Dict[str, Any], num_levels: int = 3
+                          ) -> Dict[str, np.ndarray]:
+    """JAX SceneField params -> {reference key: float32 array}: level i is
+    `prop_mlp_{i}` (i < num_levels - 1) or `nerf_mlp`, under `mlps.{i}.`."""
+    sd: Dict[str, np.ndarray] = {}
+    for i in range(num_levels):
+        mlp = params[f"prop_mlp_{i}" if i < num_levels - 1 else "nerf_mlp"]
+        base = f"mlps.{i}."
+        j = 0
+        while f"pts_linear_{j}" in mlp:
+            _dense(sd, f"{base}pts_linear.{j}", mlp[f"pts_linear_{j}"])
+            j += 1
+        for layer in ("density_layer", "bottleneck_layer", "rgb_layer"):
+            if layer in mlp:
+                _dense(sd, base + layer, mlp[layer])
+        j = 0
+        while f"views_linear_{j}" in mlp:
+            _dense(sd, f"{base}views_linear.{j}", mlp[f"views_linear_{j}"])
+            j += 1
+        embeds = np.asarray(mlp["state_embeds"], np.float32)
+        for k in range(embeds.shape[0]):
+            sd[f"{base}bkgd_stateembeds.{k}"] = embeds[k]
+    return sd
+
+
+def scene_state_dict(params: Dict[str, Any], num_levels: int = 3,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """The state_dict `SceneField.load_state_dict(strict=True)` takes,
+    built from JAX params."""
+    return {k: torch.from_numpy(v.copy()).to(device)
+            for k, v in scene_params_to_numpy(params, num_levels).items()}
 
 
 def lpips_params_to_numpy(params: Dict[str, Any]) -> Dict[str, np.ndarray]:

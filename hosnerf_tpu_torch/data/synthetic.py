@@ -1,5 +1,6 @@
-"""Synthetic stage-2 batches in numpy (counterpart of
-`hosnerf_tpu/data/synthetic.py::human_batch`; same seed, same arrays)."""
+"""Synthetic batches in numpy (counterpart of `hosnerf_tpu/data/
+synthetic.py::human_batch`, `composed_batch` and `scene_ray_batch`; same
+seed, same arrays)."""
 
 from __future__ import annotations
 
@@ -74,4 +75,65 @@ def human_batch(n_patches: int = 2, patch_size: int = 8, seed: int = 0,
         "newsmpl_to_camera_prev": np.eye(4, dtype=np.float32),
         "intrinsics_prev": np.array(
             [[64.0, 0, 32], [0, 64.0, 32], [0, 0, 1]], np.float32),
+    }
+
+
+def composed_batch(n_patches: int = 2, patch_size: int = 8, seed: int = 0,
+                   time: float = 0.5, grid_size: int = 16
+                   ) -> Dict[str, np.ndarray]:
+    """A fabricated stage-3 item: the human item plus background rays for
+    the same pixels in scaled-world coordinates. The smpl -> scaled-world
+    transform is the identity, so the background rays are the human
+    rays."""
+    b = human_batch(n_patches, patch_size, seed=seed, time=time,
+                    grid_size=grid_size)
+    R = b["rays_o"].shape[0]
+    b["newsmpl_to_scale_world"] = np.eye(4, dtype=np.float32)
+    b["rays_o_bkg"] = b["rays_o"].copy()
+    b["rays_d_bkg"] = b["rays_d"].copy()
+    b["viewdirs_bkg"] = b["rays_d"].copy()
+    b["radii"] = np.full((R, 1), 0.002, np.float32)
+    return b
+
+
+def scene_ray_batch(n_rays: int, seed: int = 0,
+                    time: float = 0.0) -> Dict[str, np.ndarray]:
+    """Random rays from cameras on a ring through a synthetic scene of two
+    solid-colour gaussian blobs over a white background, with targets
+    rendered by marching a fine fixed grid: rays_o, rays_d, viewdirs
+    [N, 3], radii [N, 1], times [N], target [N, 3]."""
+    rng = np.random.default_rng(seed)
+    theta = rng.uniform(0, 2 * np.pi, n_rays)
+    cam = np.stack([3.0 * np.cos(theta), 3.0 * np.sin(theta),
+                    rng.uniform(-0.5, 0.5, n_rays)], -1)
+    aim = rng.normal(scale=0.4, size=(n_rays, 3))
+    d = aim - cam
+    viewdirs = d / np.linalg.norm(d, axis=-1, keepdims=True)
+
+    blobs = np.array([[0.5, 0.0, 0.0], [-0.4, 0.3, 0.1]])
+    blob_rgb = np.array([[0.9, 0.2, 0.1], [0.1, 0.3, 0.8]])
+    sigma = 0.25
+    ts = np.linspace(0.5, 6.0, 96)
+    pts = cam[:, None, :] + viewdirs[:, None, :] * ts[None, :, None]
+    dens = np.zeros(pts.shape[:2])
+    rgb = np.zeros(pts.shape)
+    for b, c in zip(blobs, blob_rgb):
+        g = np.exp(-np.sum((pts - b) ** 2, -1) / (2 * sigma ** 2)) * 8.0
+        dens += g
+        rgb += g[..., None] * c
+    rgb = rgb / np.maximum(dens[..., None], 1e-8)
+    dt = ts[1] - ts[0]
+    alpha = 1.0 - np.exp(-dens * dt)
+    trans = np.cumprod(np.concatenate(
+        [np.ones((n_rays, 1)), 1.0 - alpha + 1e-10], -1), -1)[:, :-1]
+    w = alpha * trans
+    target = (w[..., None] * rgb).sum(1) + (1 - w.sum(1))[:, None]
+
+    return {
+        "rays_o": cam.astype(np.float32),
+        "rays_d": viewdirs.astype(np.float32),
+        "viewdirs": viewdirs.astype(np.float32),
+        "radii": np.full((n_rays, 1), 0.002, np.float32),
+        "times": np.full((n_rays,), time, np.float32),
+        "target": target.astype(np.float32),
     }

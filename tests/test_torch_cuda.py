@@ -780,3 +780,52 @@ def test_proto_pairgrid_kernel(dev):
         _close(out[:rows].cpu(), torch.from_numpy(ref[:rows]), 1e-5, "out")
         assert torch.isnan(out[rows:]).all()
         assert torch.equal(dvol.cpu(), torch.from_numpy(ref_dvol))
+
+
+# ---------------------------------------------------------------------------
+# the stage-3 composed step
+# ---------------------------------------------------------------------------
+
+def test_stage3_step_on_the_card_matches_cpu_plain_path(dev):
+    """The stage-3 loss and backward at a small width (1 patch of 16 x 16
+    rays, 32 human samples, scene 16/16/8 samples, widths 32-64, f32
+    trunks, LPIPS on its random backbone) on the card's kernel path
+    against the same sorted path on the plain versions on the CPU, same
+    weights and batch: the loss within 1e-3 relative (the kernels'
+    summation order and the bf16 taps it moves across rounding
+    boundaries), and one loss evaluation plus its backward launches B1,
+    B4, B5 forward and backward once each and B2, B3 four times each."""
+    from hosnerf_tpu_torch.models import lpips
+    from hosnerf_tpu_torch.models.state import state_index
+    from hosnerf_tpu_torch.train import stage3
+    cfg = stage3.Stage3Config(
+        n_patches=1, patch_size=16, n_samples=32, cnl_mlp_width=32,
+        nr_mlp_width=32, num_prop_samples=16, num_nerf_samples=8,
+        nerf_netwidth=64, prop_netwidth=32, perturb=0.0, lbs_impl="pallas",
+        mlp_impl="fused")
+    nb = synthetic.composed_batch(1, 16, grid_size=cfg.mweight_volume_size)
+    scene, human = stage3.make_models(cfg, device="cpu")
+    sds = (scene.state_dict(), human.state_dict())
+    wrappers = (clbs.inverse_core_pg_s, clbs.inverse_core_bwd,
+                clbs.shared_blend_fwd, clbs.shared_blend_bwd,
+                cmlp.fused_embed_trunk, cmlp.fused_embed_trunk_bwd)
+    losses, launches = [], None
+    for device in ("cpu", dev):
+        sc, hu = stage3.make_models(cfg, device=device)
+        sc.load_state_dict(sds[0], strict=True)
+        hu.load_state_dict(sds[1], strict=True)
+        batch = {k: torch.as_tensor(v, device=device) for k, v in nb.items()}
+        lp = lpips.load_weights(lpips.LPIPS(device=device), quiet=True
+                                ).requires_grad_(False)
+        before = [w.launches for w in wrappers]
+        total, _ = stage3.make_loss_fn(cfg, sc, hu, lp)(
+            batch, 60_000, state_index(batch["time"], None))
+        total.backward()
+        if device != "cpu":
+            torch.cuda.synchronize()
+            launches = [w.launches - b for w, b in zip(wrappers, before)]
+        losses.append(float(total.detach()))
+        assert all(torch.isfinite(p.grad).all() for p in hu.parameters()
+                   if p.grad is not None)
+    assert launches == [1, 1, 1, 1, 4, 4]
+    assert abs(losses[1] - losses[0]) <= 1e-3 * abs(losses[0]), losses
