@@ -83,6 +83,48 @@ Phases, each of which fails the run:
             make_composed_render_fn (B1/B2 launches counted), rgb checked,
             one frame profiled by group, one chunk held against the dense
             plain path of the human field;
+  data      the host pipeline: a 16-frame 512 x 512 mini capture written by
+            the port's `write_mini_dataset` (PNG by `data/imgproc.py`) into
+            a temporary directory, its PNGs then re-encoded with Average
+            and Paeth rows as an adaptive encoder writes photographs (the
+            decode must give the same pixels), loaded by
+            `scene_loader.load_nerf_360_v2` (which writes
+            cameras_scaleworld.pkl) and by `HumanDataset` (train mode, and
+            with scaled-world background rays); the ms per PNG decode in
+            both encodings, the scene load's seconds, the ms per 4,096-ray
+            `ScenePipeline.sample_train_batch` with the image's rays built
+            (as in a capture with more train images than the 8-image ray
+            cache) and from the cache, per HumanDataset train item and per
+            `to_device`, with shape and finiteness checks;
+  stage1    the stage-1 trainer (`train/stage1.py`: init_state +
+            make_train_step, clipped Adam on warmup_log_lerp) configured
+            as the JAX CLI configures it from configs/Backpack.gin, read by
+            the port's ginlite (from the file: 4,096 rays, single_image
+            sampler, grad_max_norm 0.001, near, far; the CLI's defaults,
+            which the file does not set: NeRF MLP 8x1024, proposal MLPs
+            256, 64/64/32 samples; two states from the capture's
+            transition), bf16 trunks as in the stage-3 cell: one warm-up
+            and STAGE1_STEPS timed steps, each on a fresh pipeline batch
+            with its image's rays built, moved by to_device (ms/step and
+            rays/s with and without the batches' host time, peak device
+            memory), every loss finite, a fixed batch's loss lower after
+            the steps than before, one
+            profiled step (device busy ms, idle share, device time by
+            group; the batch's host work inside it), and make_eval_step
+            on one 4,096-ray eval chunk (rgb finite, within the colour
+            padding of [0, 1]);
+  stage2 data  the stage-2 step configured as the JAX CLI configures it
+            from configs/default.yaml, read by the port's yamlcfg (from the
+            file: 2 patches of 32, 128 samples; the CLI's defaults: G = 32,
+            CanonicalMLP 256, NonRigidMLP 128; bf16 trunks) on fresh
+            HumanDataset items: one warm-up and STAGE2_DATA_STEPS timed
+            steps, B1-B5 launches held to PER_STEP, losses finite;
+  stage3 data  Stage3Config(n_patches=2, compute_dtype="bf16") with the
+            capture's two states, its scene warm-started from the stage-1
+            phase's weights, on HumanDataset(use_scaleworld=True) items (the
+            background rays from the loader): one warm-up and
+            STAGE3_DATA_STEPS timed steps, launches as in stage 3, losses
+            finite;
   gradcheck one step's gradients, the kernel path on the card against the
             same path through the kernels' plain versions on the CPU (f32
             trunks, same weights), parameter by parameter
@@ -106,6 +148,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 RAYS = 128 * 128           # one frame
@@ -126,6 +169,13 @@ DENSE_STEPS = 3
 # the stage-2 step does; its render frames 1 B1 and 2 B2 launches a chunk
 STAGE3_STEPS = 5
 STAGE3_FRAMES = 2
+# the data-fed phases: a 16-frame 512 x 512 mini capture on disk, stage 1
+# at configs/Backpack.gin's sizes, stages 2 and 3 on HumanDataset items
+DATA_FRAMES, DATA_RES = 16, 512
+STAGE1_STEPS = 5
+STAGE2_DATA_STEPS = 5
+STAGE3_DATA_STEPS = 3
+REPO = os.path.dirname(os.path.abspath(__file__))
 # per dense training step: the Morton-order inverse core and B4 once, the
 # trunks three times (non-rigid, canonical, and one forward non-rigid call
 # over both deform streams), the forward LBS once; lbs_impl='pallas_dense'
@@ -2103,6 +2153,339 @@ def composed_chunk_check(torch, cfg, scene, human, b):
 
 
 # ---------------------------------------------------------------------------
+# the host data pipeline and the three trainers it feeds
+# ---------------------------------------------------------------------------
+
+def mean_ms(fn, reps: int) -> float:
+    """Host-clock ms per call of fn over `reps` calls."""
+    t0 = time.time()
+    for _ in range(reps):
+        fn()
+    return (time.time() - t0) * 1e3 / reps
+
+
+def write_png_avg_paeth(path, img):
+    """`img` (uint8 [H, W] gray or [H, W, 3] BGR) as a PNG whose rows
+    alternate filters 3 (Average) and 4 (Paeth), the filters an adaptive
+    encoder (libpng, so cv2.imwrite) picks for most rows of a photograph.
+    One such row sends imgproc's reader down its anti-diagonal sweep."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    from hosnerf_tpu_torch.data import imgproc
+    px = img[..., None] if img.ndim == 2 else img[..., ::-1]   # RGB
+    h, w, bpp = px.shape
+    x = px.reshape(h, w * bpp).astype(np.int32)
+    left = np.pad(x, ((0, 0), (bpp, 0)))[:, :-bpp]
+    up = np.pad(x, ((1, 0), (0, 0)))[:-1]
+    upleft = np.pad(up, ((0, 0), (bpp, 0)))[:, :-bpp]
+    paeth = imgproc._paeth(left, up, upleft)
+    kind = np.where(np.arange(h) % 2 == 0, 3, 4)[:, None]
+    filt = (x - np.where(kind == 3, (left + up) >> 1, paeth)) & 255
+    rows = np.concatenate([kind, filt], 1).astype(np.uint8)
+    hdr = struct.pack(">IIBBBBB", w, h, 8, 0 if bpp == 1 else 2, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(imgproc.PNG_SIGNATURE + imgproc._chunk(b"IHDR", hdr)
+                + imgproc._chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                + imgproc._chunk(b"IEND", b""))
+
+
+def data_phase(torch, device, root, frames=DATA_FRAMES, res=DATA_RES):
+    """Write a mini capture with the port's writer, re-encode its PNGs with
+    Average and Paeth rows as a real capture's are, load it with the scene
+    loader (which writes cameras_scaleworld.pkl) and HumanDataset (train
+    mode, and with scaled-world background rays), and time the per-batch
+    host costs a training loop pays: a PNG decode (both encodings), the
+    scene load, a ScenePipeline batch of LitData.batch_size rays (with the
+    image's rays built, as on nearly every batch of a capture with more
+    train images than the pipeline's 8-image ray cache, and from that
+    cache), a HumanDataset item and to_device. Returns the capture's
+    objects."""
+    import json
+
+    import numpy as np
+
+    from hosnerf_tpu_torch.config import ginlite
+    from hosnerf_tpu_torch.data import (batches, human_dataset, imgproc,
+                                        scene_loader, scene_pipeline,
+                                        synthetic)
+    gin = ginlite.parse_config_files_and_bindings(
+        [os.path.join(REPO, "configs", "Backpack.gin")], warn_unknown=False)
+    rays = int(gin["LitData.batch_size"])
+    path = os.path.join(root, "cap")
+    t0 = time.time()
+    synthetic.write_mini_dataset(path, n_frames=frames, res=res,
+                                 n_transitions=1, seed=0)
+    write_s = time.time() - t0
+    png_ms = {}
+    for d, shape in (("images", (res, res, 3)), ("masks", (res, res))):
+        files = [os.path.join(path, d, f)
+                 for f in sorted(os.listdir(os.path.join(path, d)))]
+        t0 = time.time()
+        decoded = [imgproc.imread_png(f) for f in files]
+        png_ms[d, 0] = (time.time() - t0) * 1e3 / len(files)
+        check(len(files) == frames
+              and all(x.shape == shape for x in decoded),
+              f"data: decoded {d}: {len(files)} of {decoded[0].shape}")
+        for f, x in zip(files, decoded):
+            write_png_avg_paeth(f, x)
+        t0 = time.time()
+        again = [imgproc.imread_png(f) for f in files]
+        png_ms[d, 34] = (time.time() - t0) * 1e3 / len(files)
+        check(all(np.array_equal(a, b) for a, b in zip(again, decoded)),
+              f"data: {d} re-encoded with Average/Paeth rows decode to "
+              "other pixels")
+    t0 = time.time()
+    scene = scene_loader.load_nerf_360_v2(
+        root, "cap", near=gin.get("LitDataNeRF360V2.near", 0.1),
+        far=gin.get("LitDataNeRF360V2.far", 1e6))
+    load_s = time.time() - t0
+    check(scene.images.shape == (frames, res, res, 3)
+          and os.path.exists(os.path.join(path, "cameras_scaleworld.pkl")),
+          f"data: scene images {scene.images.shape}, scaled-world cameras")
+    with open(os.path.join(path, "transitions_times.json")) as f:
+        transitions = np.array([v["time"] for v in json.load(f).values()],
+                               np.float32)
+    pipe = scene_pipeline.ScenePipeline(
+        scene, rays, seed=0,
+        batch_sampler=str(gin.get("LitData.batch_sampler", "single_image")))
+    def uncached():
+        pipe._ray_cache.clear()
+        return pipe.sample_train_batch()
+
+    batch_ms = mean_ms(uncached, 10)
+    nb = pipe.sample_train_batch()
+    cached_ms = mean_ms(pipe.sample_train_batch, 20)
+    check(nb["rays_o"].shape == (rays, 3) and nb["target"].shape == (rays, 3)
+          and all(np.isfinite(v).all() for v in nb.values()),
+          "data: ScenePipeline batch")
+    ds = human_dataset.HumanDataset(path, mode="train", seed=0)
+    ds3 = human_dataset.HumanDataset(path, mode="train", seed=0,
+                                     use_scaleworld=True)
+    item_ms = mean_ms(lambda: ds[0], 4)
+    item3_ms = mean_ms(lambda: ds3[0], 4)
+    item = ds3[1]
+    check(item["rays_o_bkg"].shape == item["rays_o"].shape == (2048, 3)
+          and all(np.isfinite(v).all() for v in item.values()
+                  if isinstance(v, np.ndarray)),
+          "data: HumanDataset item with scaled-world rays")
+    torch.cuda.synchronize()
+    to_dev_ms = mean_ms(lambda: batches.to_device(nb, device), 10)
+    item_dev_ms = mean_ms(lambda: batches.to_device(item, device), 10)
+    torch.cuda.synchronize()
+    print(f"phase data: wrote a {frames}-frame {res}x{res} capture in "
+          f"{write_s:.2f} s; PNG decode per {res}x{res} RGB image "
+          f"{png_ms['images', 34]:.2f} ms with Average/Paeth rows (as "
+          f"captures are written; {png_ms['images', 0]:.2f} ms with row "
+          f"filter 0), per gray mask {png_ms['masks', 34]:.2f} ms "
+          f"({png_ms['masks', 0]:.2f} ms), {frames} each; the capture "
+          f"re-encoded with Average/Paeth rows for what follows; scene "
+          f"load {load_s:.2f} s; ScenePipeline.sample_train_batch "
+          f"{batch_ms:.2f} ms per {rays} rays ({pipe.batch_sampler}, the "
+          f"image's rays built: a capture with more train images than the "
+          f"8-image ray cache; {cached_ms:.2f} ms from the cache); "
+          f"HumanDataset train item {item_ms:.2f} ms ({ds.n_patches} "
+          f"patches of {ds.patch_size}x{ds.patch_size}), with scaled-world "
+          f"rays {item3_ms:.2f} ms; to_device {to_dev_ms:.3f} ms (stage-1 "
+          f"batch), {item_dev_ms:.3f} ms (human item); transitions "
+          f"{transitions.tolist()}", flush=True)
+    return {"gin": gin, "scene": scene, "pipe": pipe, "ds": ds, "ds3": ds3,
+            "transitions": transitions}
+
+
+def fed_steps(torch, steps: int, next_batch, run_step):
+    """`steps` steps, each on a fresh batch from next_batch() (host work:
+    sampling or loading, then to_device), after a synchronisation and up
+    to one. Returns (wall s, host s spent in next_batch, outputs)."""
+    torch.cuda.synchronize()
+    t0, host, outs = time.time(), 0.0, []
+    for i in range(steps):
+        tb = time.time()
+        batch = next_batch()
+        host += time.time() - tb
+        outs.append(run_step(batch, i))
+    torch.cuda.synchronize()
+    return time.time() - t0, host, outs
+
+
+def stage1_phase(torch, device, kind, cap, cfg=None, steps=STAGE1_STEPS):
+    """The stage-1 trainer (`train/stage1.py`) configured as the JAX CLI
+    configures it from configs/Backpack.gin, read by the port's ginlite:
+    from the file the rays per batch, sampler, near, far, max_steps and
+    grad_max_norm; the MLP widths and sample counts, which the file does
+    not set, are the CLI's defaults (NeRF 1024, proposal 256, 64 and 32
+    samples). bf16 trunks: one warm-up step, then `steps` timed steps on
+    fresh pipeline batches, each with the image's rays built (the ray
+    cache cleared, as a capture with more than 8 train images misses it),
+    one profiled step, the loss on a fixed batch before and after, and the
+    eval step on one chunk. Returns the model."""
+    from hosnerf_tpu_torch.data import batches
+    from hosnerf_tpu_torch.models.scene import RGB_PADDING
+    from hosnerf_tpu_torch.train import stage1
+    gin, pipe, trans = cap["gin"], cap["pipe"], cap["transitions"]
+    cfg = cfg or stage1.Stage1Config(
+        max_steps=int(gin.get("run.max_steps", 500_000)),
+        near=float(gin.get("LitDataNeRF360V2.near", 0.1)),
+        far=float(gin.get("LitDataNeRF360V2.far", 1e6)),
+        grad_max_norm=float(gin.get("run.grad_max_norm", 0.001)),
+        num_states=len(trans) + 1,
+        nerf_netwidth=int(gin.get("NeRFMLP.netwidth", 1024)),
+        prop_netwidth=int(gin.get("PropMLP.netwidth", 256)),
+        num_prop_samples=int(gin.get("MipNeRF360.num_prop_samples", 64)),
+        num_nerf_samples=int(gin.get("MipNeRF360.num_nerf_samples", 32)),
+        compute_dtype="bf16")
+    rays = pipe.batch_size
+    model, opt = stage1.init_state(cfg, seed=0, device=device)
+    step = stage1.make_train_step(cfg, model, opt, trans)
+    loss_fn = stage1.make_loss_fn(cfg, model, trans)
+    gen = torch.Generator(device).manual_seed(7)
+    fixed = batches.to_device(pipe.sample_train_batch(), device)
+
+    def next_batch():
+        pipe._ray_cache.clear()
+        return batches.to_device(pipe.sample_train_batch(), device)
+
+    with torch.no_grad():
+        before = float(loss_fn(fixed, 0)[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first = step(next_batch(), 0, gen)
+    wall, host, outs = fed_steps(torch, steps, next_batch,
+                                 lambda b, i: step(b, i + 1, gen))
+    peak = torch.cuda.max_memory_allocated()
+    for i, aux in enumerate([first] + outs):
+        check(all(bool(torch.isfinite(v)) for v in aux.values()),
+              f"stage1 step {i}: non-finite losses {aux}")
+    with torch.no_grad():
+        after = float(loss_fn(fixed, 0)[0])
+    ms, fed_ms = wall * 1e3 / steps, (wall - host) * 1e3 / steps
+    print(f"phase stage1: {steps} steps of {rays} rays x "
+          f"{cfg.num_prop_samples}/{cfg.num_prop_samples}/"
+          f"{cfg.num_nerf_samples} samples, NeRF MLP 8x{cfg.nerf_netwidth}, "
+          f"proposal MLPs 4x{cfg.prop_netwidth}, {cfg.num_levels} levels, "
+          f"{cfg.num_states} states, grad_max_norm {cfg.grad_max_norm}, "
+          f"compute_dtype bf16 (as the stage-3 cell), sampler "
+          f"{pipe.batch_sampler} (Backpack.gin; widths and samples the "
+          f"CLI's defaults), each batch's image rays built: {ms:.2f} "
+          f"ms/step, {rays * steps / wall:.0f} rays/s on {kind}; without "
+          f"the batches' host time ({host * 1e3:.2f} ms in all) "
+          f"{fed_ms:.2f} ms/step, "
+          f"{rays * steps / (wall - host):.0f} rays/s; peak device memory "
+          f"{peak / 2 ** 30:.3f} GiB ({peak} bytes)", flush=True)
+    print("stage1 losses: " + " ".join(f"{float(a['loss']):.6f}"
+                                       for a in [first] + outs)
+          + f"; fixed batch before {before:.6f} after {after:.6f}",
+          flush=True)
+    check(after < before, f"stage1: the fixed batch's loss did not drop "
+          f"({before} -> {after})")
+    profile_groups(torch, "one stage-1 step",
+                   lambda: step(next_batch(), steps + 1, gen), ms)
+
+    i = int(pipe.scene.i_split[2][0])
+    chunk = batches.to_device(next(pipe.eval_image_batches(i, rays)),
+                              device)
+    rgb = stage1.make_eval_step(cfg, model, trans)(chunk)
+    torch.cuda.synchronize()
+    lo, hi = float(rgb.min()), float(rgb.max())
+    print(f"stage1 eval chunk of image {i}: {tuple(rgb.shape)} rgb in "
+          f"[{lo:.4f}, {hi:.4f}]", flush=True)
+    check(rgb.shape == (rays, 3) and bool(torch.isfinite(rgb).all())
+          and lo >= -RGB_PADDING and hi <= 1.0 + RGB_PADDING,
+          f"stage1 eval: rgb {tuple(rgb.shape)} in [{lo}, {hi}] (the MLP's "
+          f"colour padding {RGB_PADDING} allows that much outside [0, 1])")
+    return model
+
+
+def stage2_data_step(torch, device, lp, cap, cfg=None):
+    """The stage-2 step configured as the JAX CLI configures it from
+    configs/default.yaml, read by the port's yamlcfg: the patches (2 of
+    32) and samples (128) from the file; G = 32, CanonicalMLP 256 and
+    NonRigidMLP 128, which the file does not set, are the CLI's defaults.
+    bf16 trunks, the capture's states: (cfg, step, dataset, jitter
+    generator factory)."""
+    from hosnerf_tpu_torch.config import yamlcfg
+    from hosnerf_tpu_torch.train import stage2
+    trans = cap["transitions"]
+    y = yamlcfg.load_yaml(os.path.join(REPO, "configs", "default.yaml"))
+    cfg = cfg or stage2.Stage2Config(
+        num_states=len(trans) + 1,
+        n_patches=int(y.get("patch", {}).get("N_patches", 2)),
+        patch_size=int(y.get("patch", {}).get("size", 32)),
+        n_samples=int(y.get("N_samples", 128)),
+        cnl_mlp_width=int(y.get("canonical_mlp", {}).get("mlp_width", 256)),
+        nr_mlp_width=int(y.get("non_rigid_motion_mlp", {}).get("mlp_width",
+                                                               128)),
+        mweight_volume_size=int(y.get("mweight_volume", {}).get(
+            "volume_size", 32)),
+        compute_dtype="bf16")
+    model, opt = stage2.init_state(cfg, seed=0, device=device)
+    step = stage2.make_train_step(cfg, model, opt, trans, lp)
+    return cfg, step, cap["ds"], lambda: torch.Generator(device).manual_seed(
+        11)
+
+
+def stage3_data_step(torch, device, lp, cap, scene_sd=None, cfg=None):
+    """The stage-3 cell's step, Stage3Config(n_patches=2,
+    compute_dtype="bf16") with the capture's states, its scene
+    warm-started from `scene_sd`: (cfg, step, scaled-world dataset, CPU
+    jitter generator factory)."""
+    from hosnerf_tpu_torch.train import stage3
+    trans = cap["transitions"]
+    cfg = cfg or stage3.Stage3Config(n_patches=2, compute_dtype="bf16",
+                                     num_states=len(trans) + 1)
+    scene, human, opt = stage3.init_state(cfg, seed=0, device=device)
+    if scene_sd is not None:
+        scene.load_state_dict(scene_sd, strict=True)
+    step = stage3.make_train_step(cfg, scene, human, opt, trans, lp)
+    return cfg, step, cap["ds3"], lambda: torch.Generator().manual_seed(11)
+
+
+def data_train_phase(torch, device, kind, label, built, steps, note=""):
+    """A stage-2 or stage-3 step (`built`: cfg, step, dataset, jitter) on
+    HumanDataset train items moved by to_device: one warm-up step, then
+    `steps` timed steps on fresh items with B1-B5's launches counted and
+    held to PER_STEP, every loss finite."""
+    from hosnerf_tpu_torch.data import batches
+    cfg, step, ds, jitter = built
+    check(ds.n_patches == cfg.n_patches and ds.patch_size == cfg.patch_size,
+          f"{label}: items of {ds.n_patches} patches of {ds.patch_size}, "
+          f"config {cfg.n_patches} of {cfg.patch_size}")
+    rays = cfg.n_patches * cfg.patch_size ** 2
+    order = iter(range(1, 10 ** 6))
+
+    def next_batch():
+        return batches.to_device(ds[next(order) % len(ds)], device)
+
+    first = step(next_batch(), TRAIN_ITER, jitter())
+    torch.cuda.synchronize()
+    wrappers = launch_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    wall, host, outs = fed_steps(
+        torch, steps, next_batch, lambda b, i: step(b, TRAIN_ITER, jitter()))
+    launches = {k: w.launches for k, w in wrappers.items()}
+    ms, fed_ms = wall * 1e3 / steps, (wall - host) * 1e3 / steps
+    print(f"phase {label}: {steps} steps of {rays} rays x {cfg.n_samples} "
+          f"samples on fresh HumanDataset items{note}, bf16 trunks: "
+          f"{ms:.2f} ms/step, {rays * steps / wall:.0f} rays/s on {kind}; "
+          f"without the items' host time ({host * 1e3:.2f} ms in all) "
+          f"{fed_ms:.2f} ms/step; launches "
+          + " ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
+    for k, n in launches.items():
+        per = PER_STEP.get(k, 0)
+        check(n == per * steps, f"{label}: {k} launched {n} times in "
+              f"{steps} steps (expected {per} per step)")
+    for i, ls in enumerate([first] + outs):
+        check(all(bool(torch.isfinite(v)) for v in ls.values()),
+              f"{label} step {i}: non-finite losses {ls}")
+    print(f"{label} losses: " + " ".join(f"{float(x['loss']):.6f}"
+                                         for x in [first] + outs),
+          flush=True)
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_name(mangled: str) -> str:
     """A kernel's innermost name and integer template arguments from its
@@ -2301,6 +2684,25 @@ def run(torch, np) -> int:
     stage3_render_phase(torch, device, kind, cfg3, scene3, human3)
     del scene3, human3
     torch.cuda.empty_cache()
+
+    # ---- the host data pipeline and the three trainers it feeds ----
+    with tempfile.TemporaryDirectory() as root:
+        cap = data_phase(torch, device, root)
+        scene1 = stage1_phase(torch, device, kind, cap)
+        scene_sd = scene1.state_dict()
+        del scene1
+        torch.cuda.empty_cache()
+        data_train_phase(torch, device, kind, "stage2 data",
+                         stage2_data_step(torch, device, lp, cap),
+                         STAGE2_DATA_STEPS)
+        torch.cuda.empty_cache()
+        data_train_phase(torch, device, kind, "stage3 data",
+                         stage3_data_step(torch, device, lp, cap, scene_sd),
+                         STAGE3_DATA_STEPS,
+                         " (scaled-world background rays, the scene "
+                         "warm-started from the stage-1 phase)")
+        del cap, scene_sd
+        torch.cuda.empty_cache()
 
     gradcheck_phase(torch, device)
     gradcheck_phase(torch, device, dense=True)

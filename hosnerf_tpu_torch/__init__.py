@@ -1,11 +1,12 @@
 """HOSNeRF in PyTorch for NVIDIA Hopper: the stage-2 human-object field
-(render and training), the scene stack and the stage-3 composed step.
+(render and training), the scene stack, the stage-1 and stage-3 trainers
+and the host data pipeline that feeds them.
 
 Mirrors the module layout of `hosnerf_tpu` (the JAX reference), so each
 counterpart sits at the same relative path:
 
   core/      body/skeleton math (torch + jax-free numpy helpers), ray and
-             step-function math, the geodesic basis, compositing
+             step-function math, the geodesic basis, compositing, SMPL
   models/    embedders, state selection, init helpers, the human components
              and `HumanObjectField`, the scene's `SceneField`, LPIPS and
              the stage-3 composition
@@ -15,9 +16,13 @@ counterpart sits at the same relative path:
              (inverse LBS, fused embed+trunk, fused forward LBS, forward
              and backward) with their plain versions
   csrc/      CUDA C++ sources of those kernels, built at first use
-  data/      synthetic stage-2 and stage-3 batches (numpy)
+  config/    the gin and yaml config readers (no PyYAML)
+  data/      the host pipeline in numpy: PNG and image operations in
+             place of cv2 (`imgproc`), cameras and rays, the scene loader
+             and its batch pipeline, the human dataset, the mini capture
+             and synthetic batches, `to_device`
   eval/      chunked image rendering (human field, composed model)
-  train/     the stage-2 and stage-3 steps, the gradient check
+  train/     the stage-1, stage-2 and stage-3 steps, the gradient check
   convert    JAX human, scene and LPIPS params -> this package's
              state_dicts
 

@@ -1,14 +1,19 @@
-"""Synthetic batches in numpy (counterpart of `hosnerf_tpu/data/
-synthetic.py::human_batch`, `composed_batch` and `scene_ray_batch`; same
-seed, same arrays)."""
+"""Synthetic batches in numpy and the mini capture on disk (counterpart of
+`hosnerf_tpu/data/synthetic.py::human_batch`, `composed_batch`,
+`scene_ray_batch` and `write_mini_dataset`; same seed, same arrays)."""
 
 from __future__ import annotations
 
+import json
+import os
+import pickle
 from typing import Dict
 
 import numpy as np
 
 from hosnerf_tpu_torch.core import body
+from hosnerf_tpu_torch.data.cameras import get_camrot
+from hosnerf_tpu_torch.data.imgproc import imwrite_png
 
 
 def human_batch(n_patches: int = 2, patch_size: int = 8, seed: int = 0,
@@ -76,6 +81,113 @@ def human_batch(n_patches: int = 2, patch_size: int = 8, seed: int = 0,
         "intrinsics_prev": np.array(
             [[64.0, 0, 32], [0, 64.0, 32], [0, 0, 1]], np.float32),
     }
+
+
+def write_mini_dataset(path: str, n_frames: int = 8, res: int = 48,
+                       n_transitions: int = 1, seed: int = 0) -> str:
+    """Write a mini capture with the original HOSNeRF datasets' layout
+    (images/, masks/, images_flow/*_bwd.npz, canonical_joints.pkl,
+    mesh_infos.pkl, cameras.pkl, poses_bounds.npy, transitions_times.json)
+    under `path`, so that the loaders and all three training stages run
+    without capture data. The same files as the JAX package's writer from
+    the same seed; the PNGs hold the same pixels, written by
+    `imgproc.imwrite_png`."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(path, "images"), exist_ok=True)
+    os.makedirs(os.path.join(path, "masks"), exist_ok=True)
+    os.makedirs(os.path.join(path, "images_flow"), exist_ok=True)
+
+    # 24 SMPL joints in a rough standing pose whose x/z spread matches the
+    # painted subject's extent, so that rays through subject pixels pass
+    # near bone volumes and stage 2 has a gradient path to the images
+    joints = np.zeros((24, 3), np.float32)
+    joints[:, 1] = np.linspace(-0.8, 0.6, 24)
+    joints[:, 0] = rng.normal(scale=0.25, size=24)
+    joints[:, 2] = rng.normal(scale=0.25, size=24)
+
+    with open(os.path.join(path, "canonical_joints.pkl"), "wb") as f:
+        pickle.dump({"joints": joints}, f)
+
+    focal = 1.2 * res
+    K = np.array([[focal, 0, res / 2], [0, focal, res / 2], [0, 0, 1]],
+                 np.float64)
+
+    mesh_infos, cameras = {}, {}
+    poses_bounds = np.zeros((n_frames, 17), np.float64)
+    frame_names = [f"frame_{i:06d}" for i in range(n_frames)]
+    parents24 = np.array(
+        [0, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16,
+         17, 18, 19, 20, 21])
+    for i, fn in enumerate(frame_names):
+        # camera orbiting the subject
+        th = 2 * np.pi * i / n_frames * 0.2
+        campos = np.array([2.5 * np.sin(th), 0.0, -2.5 * np.cos(th)])
+        Rm = get_camrot(campos.astype(np.float32),
+                        np.zeros(3, np.float32)).astype(np.float64)
+        E = np.eye(4)
+        E[:3, :3] = Rm
+        E[:3, 3] = -Rm @ campos
+
+        # image: a coloured gradient background and a solid-colour subject
+        # painted along the projected skeleton; mask = the subject
+        yy, xx = np.mgrid[0:res, 0:res]
+        img = np.stack([xx / res, yy / res, np.full_like(xx, 0.5,
+                                                         dtype=float)], -1)
+        blob = np.zeros((res, res), bool)
+        rad = max(2, res // 14)
+        for j in range(24):
+            for t in np.linspace(0.0, 1.0, 6):
+                p3 = joints[j] * (1 - t) + joints[parents24[j]] * t
+                cam = Rm @ p3 + E[:3, 3]
+                if cam[2] <= 1e-3:
+                    continue
+                pix = K @ (cam / cam[2])
+                cx, cy = int(round(pix[0])), int(round(pix[1]))
+                blob |= ((xx - cx) ** 2 + (yy - cy) ** 2) < rad ** 2
+        img[blob] = [0.9, 0.3, 0.2]
+        imwrite_png(os.path.join(path, "images", fn + ".png"),
+                    (img * 255).astype(np.uint8)[..., ::-1])
+        imwrite_png(os.path.join(path, "masks", fn + ".png"),
+                    (blob * 255).astype(np.uint8))
+        np.savez(os.path.join(path, "images_flow", fn + "_bwd.npz"),
+                 flow=rng.normal(scale=0.5, size=(res, res, 2)).astype(
+                     np.float32),
+                 mask=np.ones((res, res), bool))
+        cameras[fn] = {
+            "intrinsics": K.astype(np.float32),
+            "smpl_to_camera": E.astype(np.float32),
+            "smpl_to_world": np.eye(4, dtype=np.float32),
+        }
+        mesh_infos[fn] = {
+            "poses": rng.normal(scale=0.05, size=72).astype(np.float32),
+            "tpose_joints": joints,
+            "joints": joints + rng.normal(scale=0.01, size=joints.shape
+                                          ).astype(np.float32),
+            "Rh": rng.normal(scale=0.02, size=3).astype(np.float32),
+            "Th": rng.normal(scale=0.02, size=3).astype(np.float32),
+        }
+        # poses_bounds row: 3x5 [R|t|hwf] + near/far in LLFF layout; the
+        # loader maps stored columns [s0 s1 s2] to OpenCV's [s1, s0, -s2],
+        # so store the inverse mapping
+        c2w = np.linalg.inv(E)
+        stored = np.stack(
+            [c2w[:3, 1], c2w[:3, 0], -c2w[:3, 2], c2w[:3, 3]], axis=1)
+        hwf = np.array([[res], [res], [focal]])
+        poses_bounds[i, :15] = np.concatenate([stored, hwf], 1).reshape(-1)
+        poses_bounds[i, 15:] = [0.5, 10.0]
+
+    np.save(os.path.join(path, "poses_bounds.npy"), poses_bounds)
+    with open(os.path.join(path, "mesh_infos.pkl"), "wb") as f:
+        pickle.dump(mesh_infos, f)
+    with open(os.path.join(path, "cameras.pkl"), "wb") as f:
+        pickle.dump(cameras, f)
+    if n_transitions > 0:
+        tt = {frame_names[(k + 1) * n_frames // (n_transitions + 1)]:
+              {"time": float((k + 1) / (n_transitions + 1))}
+              for k in range(n_transitions)}
+        with open(os.path.join(path, "transitions_times.json"), "w") as f:
+            json.dump(tt, f)
+    return path
 
 
 def composed_batch(n_patches: int = 2, patch_size: int = 8, seed: int = 0,

@@ -829,3 +829,73 @@ def test_stage3_step_on_the_card_matches_cpu_plain_path(dev):
                    if p.grad is not None)
     assert launches == [1, 1, 1, 1, 4, 4]
     assert abs(losses[1] - losses[0]) <= 1e-3 * abs(losses[0]), losses
+
+
+# ---------------------------------------------------------------------------
+# the trainers fed by the host pipeline
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def capture(dev, tmp_path_factory):
+    """A mini capture (16 frames of 64 x 64, one transition) written and
+    loaded by the port, with its scaled-world cameras."""
+    import os
+
+    from hosnerf_tpu_torch.data import scene_loader
+    root = str(tmp_path_factory.mktemp("capture"))
+    synthetic.write_mini_dataset(os.path.join(root, "cap"), 16, 64)
+    return root, scene_loader.load_nerf_360_v2(root, "cap")
+
+
+def test_stage1_step_on_the_card(capture):
+    """One stage-1 step (bf16 trunks, 1,024 jittered rays pooled from all
+    train images, so that both states' rays are in the batch) on the
+    card: every loss finite, and every parameter moved."""
+    from hosnerf_tpu_torch.data import batches, scene_pipeline
+    from hosnerf_tpu_torch.train import stage1
+    _, scene = capture
+    cfg = stage1.Stage1Config(num_prop_samples=16, num_nerf_samples=8,
+                              nerf_netwidth=128, prop_netwidth=64,
+                              num_states=2, compute_dtype="bf16")
+    pipe = scene_pipeline.ScenePipeline(scene, 1024, seed=0,
+                                        batch_sampler="all_images")
+    batch = batches.to_device(pipe.sample_train_batch())
+    assert batch["times"].min() < 0.5 < batch["times"].max()
+    model, opt = stage1.init_state(cfg)
+    before = [p.detach().clone() for p in model.parameters()]
+    step = stage1.make_train_step(cfg, model, opt, [0.5])
+    aux = step(batch, 100, torch.Generator(batch["rays_o"].device
+                                           ).manual_seed(0))
+    assert all(bool(torch.isfinite(v)) for v in aux.values()), aux
+    assert all(not torch.equal(a, p) for a, p in zip(before,
+                                                     model.parameters()))
+
+
+def test_data_fed_stage2_step_on_the_card(capture):
+    """One stage-2 step on a HumanDataset train item moved by to_device
+    (1 patch of 16 x 16 rays, 32 samples, widths 32): finite losses, and
+    B1, B4, B5 forward and backward launched once each and B2, B3 four
+    times each, as on the synthetic batch."""
+    import os
+
+    from hosnerf_tpu_torch.data import batches, human_dataset
+    from hosnerf_tpu_torch.train import stage2
+    root, _ = capture
+    ds = human_dataset.HumanDataset(os.path.join(root, "cap"), n_patches=1,
+                                    patch_size=16)
+    cfg = stage2.Stage2Config(n_patches=1, patch_size=16, n_samples=32,
+                              cnl_mlp_width=32, nr_mlp_width=32,
+                              num_states=len(ds.transitions) + 1,
+                              lbs_impl="pallas", mlp_impl="fused")
+    model, opt = stage2.init_state(cfg)
+    step = stage2.make_train_step(cfg, model, opt, ds.transitions)
+    wrappers = (clbs.inverse_core_pg_s, clbs.inverse_core_bwd,
+                clbs.shared_blend_fwd, clbs.shared_blend_bwd,
+                cmlp.fused_embed_trunk, cmlp.fused_embed_trunk_bwd)
+    before = [w.launches for w in wrappers]
+    losses = step(batches.to_device(ds[1]), 60_000,
+                  torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [
+        1, 1, 1, 1, 4, 4]
+    assert all(bool(torch.isfinite(v)) for v in losses.values()), losses
