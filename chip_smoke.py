@@ -125,6 +125,25 @@ Phases, each of which fails the run:
             background rays from the loader): one warm-up and
             STAGE3_DATA_STEPS timed steps, launches as in stage 3, losses
             finite;
+  cli       the port's command line (`cli/run.py::main`, in-process) on
+            the data phase's capture at the production widths (stage 1
+            from configs/Backpack.gin, stages 2 and 3 from
+            configs/default.yaml; the CLI's defaults for the rest): per
+            stage a training run with prefetch 2 (the scene's val_fn once
+            at step CLI_VAL, the human's progress eval once at CLI_DUMP
+            and steps CLI_PROFILE traced), a --resume_training run to more
+            steps with prefetch 0, and --run_mode eval (results.json;
+            freeview_frames 0 and 4 tpose views at 256: no video, the card
+            machine has no encoder); stage 3 warm-started from the two
+            stages' ckpt/last.pt. Checked: every restored train state
+            equals the saved file bit for bit, every loss in
+            metrics.jsonl finite (the first resumed one too), B1-B5
+            launched per step as in phase train, best.pt and the
+            progress eval written, every PSNR/SSIM/LPIPS of the
+            results files finite. Printed: each stage's ms/step with and
+            without prefetch (metrics.jsonl's sec_per_step) beside the
+            data phases' numbers, the prefetched stage-2 step's device
+            idle share, ms per 512 x 512 eval frame (human, composed);
   gradcheck one step's gradients, the kernel path on the card against the
             same path through the kernels' plain versions on the CPU (f32
             trunks, same weights), parameter by parameter
@@ -200,11 +219,12 @@ TOL_MLP = {"highest": 1e-5, "bf16": 1e-2}
 # Backward kernels, (relative L2, max error over the output's scale). The
 # sums over samples (dvol, drg, drmat, dW, broadcast daux) come in atomic
 # order: 1e-4 for the LBS backwards (B4, B5) and the forward LBS (1e-5).
-# In bf16 the LBS backwards round a gradient factor (gw hz in B4, gw =
-# bf16(dw) in B5) that kernel and plain version sum in another f32 order;
-# where it lands on a rounding boundary the two round apart by one bf16
-# ulp (2^-7 relative) of that term -> max 1e-2 of the scale (H100, B5 at
-# the training shapes: 3.7e-4), L2 unchanged.
+# In bf16 B4 rounds a gradient factor (gw hz) that kernel and plain
+# version sum in another f32 order; where it lands on a rounding boundary
+# the two round apart by one bf16 ulp (2^-7 relative) of that term -> max
+# 1e-2 of the scale, L2 unchanged. (B5's gw = bf16(dw) took the same
+# flips, 3.7e-4 of the scale at the training shapes, until both sides
+# computed dw exactly and rounded it once.)
 # Trunk backward (B3), (relative L2, threshold over the scale, share of
 # entries allowed beyond it): highest sums in another f32 order, and among
 # the ~2e8-5e8 pre-activations of a call some sit within f32 noise of 0
@@ -241,9 +261,11 @@ TOL_GRAD_LOSS = 1e-4
 ITERS = 10                 # timed launches per kernel measurement
 # B5 backward on one training step's own inputs (capture_blend_bwd); B1
 # and B4: kernel device time (profiler), the corner image's, the entry at
-# k0 = 0, the live pairs and the k0 timed
+# k0 = 0, the live pairs and the k0 timed; row 12: its kernel's device
+# time and its output's zero fill's
 EXTRA_KEYS = ("step_grad_ms", "step_random_grad_ms", "step_rows",
-              "device_ms", "image_ms", "k0_zero_ms", "live_pairs", "k0")
+              "device_ms", "image_ms", "k0_zero_ms", "live_pairs", "k0",
+              "fill_ms")
 
 # H100 SXM peaks (NVIDIA data sheet), for the bounds: HBM bytes/s, dense
 # bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
@@ -1552,12 +1574,22 @@ def check_proto(torch, device, results, iters):
             pms = time_ms(torch, lambda: pp.run_plain(7, *args, pp.N_TILES),
                           1)
             bms, by = bound(nbytes(*args, out, dvol))
-            results[("proto", "f32")] = dict(err=err, rel=rel, ms=ms,
-                                             plain_ms=pms, bound_ms=bms,
-                                             bound_by=by)
+            # the entry's time split: the kernel's and dvol's zero fill's
+            # device time (profiler records), the rest host-side entry
+            # work between launches (checks, allocation, the ctypes call)
+            dev = device_ms(torch, lambda: pp.run(count, *args, pp.N_TILES),
+                            (("kernel", ("pairgrid_kernel",)),
+                             ("fill", ("fill", "Memset", "elementwise"))),
+                            reps=iters)
+            results[("proto", "f32")] = dict(
+                err=err, rel=rel, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by, device_ms=dev["kernel"], fill_ms=dev["fill"])
             print(f"kernel proto_pairgrid: n_pairs=7 max_abs_err={err:.3e} "
                   f"ms={ms:.4f} plain_ms={pms:.4f} bound_ms={bms:.6f} "
-                  f"({by}); n_pairs=2 unvisited rows unwritten", flush=True)
+                  f"({by}); n_pairs=2 unvisited rows unwritten; entry "
+                  f"split: kernel device {dev['kernel']:.4f} ms, zero fill "
+                  f"{dev['fill']:.4f} ms, entry overhead "
+                  f"{ms - dev['kernel'] - dev['fill']:.4f} ms", flush=True)
 
 
 def entry_point_runs(torch, ti, batch, device):
@@ -2320,7 +2352,8 @@ def stage1_phase(torch, device, kind, cap, cfg=None, steps=STAGE1_STEPS):
     fresh pipeline batches, each with the image's rays built (the ray
     cache cleared, as a capture with more than 8 train images misses it),
     one profiled step, the loss on a fixed batch before and after, and the
-    eval step on one chunk. Returns the model."""
+    eval step on one chunk. Returns (the model, (ms/step with the
+    batches' host time, without))."""
     from hosnerf_tpu_torch.data import batches
     from hosnerf_tpu_torch.models.scene import RGB_PADDING
     from hosnerf_tpu_torch.train import stage1
@@ -2395,7 +2428,7 @@ def stage1_phase(torch, device, kind, cap, cfg=None, steps=STAGE1_STEPS):
           and lo >= -RGB_PADDING and hi <= 1.0 + RGB_PADDING,
           f"stage1 eval: rgb {tuple(rgb.shape)} in [{lo}, {hi}] (the MLP's "
           f"colour padding {RGB_PADDING} allows that much outside [0, 1])")
-    return model
+    return model, (ms, fed_ms)
 
 
 def stage2_data_step(torch, device, lp, cap, cfg=None):
@@ -2446,7 +2479,8 @@ def data_train_phase(torch, device, kind, label, built, steps, note=""):
     """A stage-2 or stage-3 step (`built`: cfg, step, dataset, jitter) on
     HumanDataset train items moved by to_device: one warm-up step, then
     `steps` timed steps on fresh items with B1-B5's launches counted and
-    held to PER_STEP, every loss finite."""
+    held to PER_STEP, every loss finite. Returns (ms/step with the items'
+    host time, without)."""
     from hosnerf_tpu_torch.data import batches
     cfg, step, ds, jitter = built
     check(ds.n_patches == cfg.n_patches and ds.patch_size == cfg.patch_size,
@@ -2483,6 +2517,305 @@ def data_train_phase(torch, device, kind, label, built, steps, note=""):
     print(f"{label} losses: " + " ".join(f"{float(x['loss']):.6f}"
                                          for x in [first] + outs),
           flush=True)
+    return ms, fed_ms
+
+
+# ---------------------------------------------------------------------------
+# the command line: train, checkpoint, resume and evaluate all three stages
+# ---------------------------------------------------------------------------
+
+# steps of each stage's first run (prefetch 2) and of its resumed run
+# (prefetch 0); progress.dump_interval of the stage-2 run; val_every of
+# the stage-1 run; metrics.jsonl every CLI_LOG_EVERY steps; the profiled
+# steps of the prefetched stage-2 run
+CLI_STEPS = {"scene": (30, 45), "human": (30, 45), "hosnerf": (20, 30)}
+CLI_DUMP, CLI_VAL, CLI_LOG_EVERY = 25, 20, 5
+CLI_PROFILE = (10, 12)
+
+
+class cli_hooks:
+    """Inside the block: every `loop.run_training` call of the CLI takes
+    `overrides` (log_every, prefetch, val_every, profile_steps);
+    `restore_train_state` packs what it restored and holds it to the file
+    it read, bit for bit (models, Adam's state, opt.updates, the
+    generator); `render_human_image` is timed per image (synchronised by
+    its copy to the host) into `render_ms`, by image size."""
+
+    def __init__(self, torch):
+        from hosnerf_tpu_torch.eval import renderers
+        from hosnerf_tpu_torch.train import checkpoints as ck
+        from hosnerf_tpu_torch.train import loop
+        self.torch, self.loop, self.ck, self.rend = torch, loop, ck, renderers
+        self.overrides, self.restored, self.render_ms = {}, [], {}
+
+    def __enter__(self):
+        self.saved = (self.loop.run_training, self.ck.restore_train_state,
+                      self.rend.render_human_image)
+        run_training, restore, render = self.saved
+
+        def run_training_hook(**kw):
+            return run_training(**{**kw, **self.overrides})
+
+        def restore_hook(ckpt_dir, name, models, optimizer=None,
+                         generator=None):
+            step = restore(ckpt_dir, name, models, optimizer, generator)
+            state = self.ck.pack_train_state(models, optimizer, step,
+                                             generator)
+            self.restored.append((name, same_state(
+                self.torch, state, self.ck.restore_checkpoint(ckpt_dir,
+                                                              name))))
+            return step
+
+        def render_hook(render_fn, item, device, *a, **kw):
+            t0 = time.time()
+            img = render(render_fn, item, device, *a, **kw)
+            self.render_ms.setdefault(img.shape[:2], []).append(
+                (time.time() - t0) * 1e3)
+            return img
+
+        self.loop.run_training = run_training_hook
+        self.ck.restore_train_state = restore_hook
+        self.rend.render_human_image = render_hook
+        return self
+
+    def __exit__(self, *exc):
+        (self.loop.run_training, self.ck.restore_train_state,
+         self.rend.render_human_image) = self.saved
+
+
+def same_state(torch, a, b) -> bool:
+    """Two train states (nested dicts, lists and tuples of tensors and
+    Python values) equal bit for bit, tensors compared on the CPU."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(same_state(torch, a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(same_state(torch, x, y) for x, y in zip(a, b)))
+    if torch.is_tensor(a):
+        return (torch.is_tensor(b) and a.dtype == b.dtype
+                and torch.equal(a.cpu(), b.cpu()))
+    return a == b
+
+
+def metrics_records(logdir: str):
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def cli_ms_per_step(records, lo: int, hi: int, evals=(),
+                    profiled=()) -> float:
+    """Mean ms/step of the logged intervals of the run over steps
+    [lo, hi): the record of step r covers steps r - CLI_LOG_EVERY + 1 ..
+    r and what ran after the log of step r - CLI_LOG_EVERY. Left out: the
+    run's first record (start-up and its first step), those holding an
+    eval (run after the log of a step in `evals`) or a profiled step."""
+    L = CLI_LOG_EVERY
+    recs = [r for r in records if lo < r["step"] < hi
+            and not any(r["step"] - L <= k < r["step"] for k in evals)
+            and not any(r["step"] - L < k <= r["step"] for k in profiled)]
+    check(recs, f"no timed interval in steps {lo}..{hi}")
+    return 1e3 * sum(r["sec_per_step"] for r in recs) / len(recs)
+
+
+def trace_busy_ms(path: str) -> float:
+    """Device time (kernels, copies, fills) in a chrome trace, ms."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(e.get("dur", 0) for e in events
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+               ) / 1e3
+
+
+def finite_results(path: str, what: str):
+    """The results*.json at `path`, every psnr/ssim/lpips entry a finite
+    number."""
+    import math
+    with open(path) as f:
+        res = json.load(f)
+    vals = []
+    for entry in res:   # stage 1: a dict by split per metric
+        if set(entry) & {"train", "val", "test"}:
+            vals += list(entry.values())
+        vals += [entry[k] for k in ("psnr", "ssim", "lpips") if k in entry]
+    check(vals and all(isinstance(v, (int, float)) and math.isfinite(v)
+                       for v in vals), f"{what}: results {res}")
+    return res
+
+
+def cli_phase(torch, kind, root, fed, extra_args=(), yaml_extra=""):
+    """The port's CLI in-process (`cli.run.main`) on the data phase's
+    capture (<root>/cap, 16 frames of 512 x 512, Average/Paeth PNGs) at
+    the production widths: stage 1 from configs/Backpack.gin, stages 2
+    and 3 from configs/default.yaml, both with the CLI's defaults for
+    what the files do not set. Scene: train (val once), resume with
+    prefetch 0, eval; human: train (a progress eval once, steps profiled),
+    resume with prefetch 0, eval; hosnerf: train from the two stages'
+    last.pt, resume with prefetch 0, eval. `fed`: the data phases'
+    {stage: (ms/step with the items, without)}. A CPU rehearsal adds
+    `extra_args` to every command (--device cpu, --ginb size bindings)
+    and `yaml_extra` to the two yaml files (smaller sizes)."""
+    import math
+
+    from hosnerf_tpu_torch.cli import run as cli
+    t_phase = time.time()
+    logbase = os.path.join(root, "logs")
+    gin = os.path.join(REPO, "configs", "Backpack.gin")
+    default_yaml = os.path.join(REPO, "configs", "default.yaml")
+    render_block = ("render:\n  freeview_frames: 0\n  tpose_views: 4\n"
+                    "  tpose_resolution: 256\n")
+    for name, dump in (("human", CLI_DUMP), ("hosnerf", 10 ** 6)):
+        with open(os.path.join(root, f"{name}.yaml"), "w") as f:
+            f.write(f"basedir: '{root}'\nprogress:\n  dump_interval: "
+                    f"{dump}\n" + render_block + yaml_extra)
+    common = ["--scene_name", "cap", "--logbase", logbase]
+    args = {
+        "scene": ["--stage", "scene", "--ginc", gin, "--ginb",
+                  f'run.datadir = "{root}"'] + common,
+        "human": ["--stage", "human", "--cfg",
+                  os.path.join(root, "human.yaml"), "--default_cfg",
+                  default_yaml] + common,
+        "hosnerf": ["--stage", "hosnerf", "--ginc", gin, "--ginb",
+                    f'run.datadir = "{root}"', "--cfg",
+                    os.path.join(root, "hosnerf.yaml"), "--default_cfg",
+                    default_yaml] + common}
+    wrappers = launch_counts()
+    hooks = cli_hooks(torch)
+    times, launches = {}, {}
+
+    def main(stage, *extra, overrides=None):
+        hooks.overrides = {"log_every": CLI_LOG_EVERY, **(overrides or {})}
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.time()
+        cli.main(args[stage] + list(extra) + list(extra_args))
+        torch.cuda.synchronize()
+        return time.time() - t0, {k: w.launches for k, w in
+                                  wrappers.items()}
+
+    with hooks:
+        for stage in ("scene", "human", "hosnerf"):
+            first, second = CLI_STEPS[stage]
+            extra = []
+            if stage == "hosnerf":
+                extra = ["--bkgd_path", os.path.join(
+                    logbase, "scene_cap", "ckpt", "last.pt"),
+                    "--human_path", os.path.join(
+                        logbase, "human_cap", "ckpt", "last.pt")]
+            over = {"prefetch": 2}
+            if stage == "scene":
+                over["val_every"] = CLI_VAL
+            if stage == "human":
+                over["profile_steps"] = CLI_PROFILE
+            times[stage, "train"], launches[stage, "train"] = main(
+                stage, "--run_mode", "train", "--max_steps", str(first),
+                *extra, overrides=over)
+            n_restored = len(hooks.restored)
+            times[stage, "resume"], launches[stage, "resume"] = main(
+                stage, "--run_mode", "train", "--max_steps", str(second),
+                "--resume_training", "true", overrides={"prefetch": 0})
+            check(len(hooks.restored) == n_restored + 1
+                  and hooks.restored[-1][1],
+                  f"cli {stage}: the restored train state differs from "
+                  "the saved one")
+            hooks.render_ms.clear()
+            times[stage, "eval"], launches[stage, "eval"] = main(
+                stage, "--run_mode", "eval")
+            times[stage, "frames"] = dict(hooks.render_ms)
+
+    logdir = {s: os.path.join(logbase, f"{s}_cap") for s in CLI_STEPS}
+    ms = {}
+    for stage, (first, second) in CLI_STEPS.items():
+        recs = metrics_records(logdir[stage])
+        check(all(math.isfinite(r["loss"]) for r in recs),
+              f"cli {stage}: a non-finite loss in metrics.jsonl")
+        resumed = [r for r in recs if r["step"] == first]
+        check(resumed and math.isfinite(resumed[0]["loss"]),
+              f"cli {stage}: the first resumed step's loss")
+        evals = {"scene": (CLI_VAL,), "human": (CLI_DUMP,)}.get(stage, ())
+        profiled = (range(CLI_PROFILE[0], CLI_PROFILE[1] + 1)
+                    if stage == "human" else ())
+        ms[stage] = (cli_ms_per_step(recs, 0, first, evals, profiled),
+                     cli_ms_per_step(recs, first, second))
+        state = hooks.ck.restore_checkpoint(
+            os.path.join(logdir[stage], "ckpt"), "last")
+        check(state["step"] == second and state["updates"] == second,
+              f"cli {stage}: last.pt at step {state['step']}, "
+              f"{state['updates']} updates (expected {second})")
+    for stage in ("human", "hosnerf"):
+        first, second = CLI_STEPS[stage]
+        got = launches[stage, "resume"]
+        for k, per in PER_STEP.items():
+            check(got[k] == per * (second - first),
+                  f"cli {stage} resumed run: {k} launched {got[k]} times in "
+                  f"{second - first} steps (expected {per} per step)")
+        got = launches[stage, "train"]
+        for k in ("inverse_core_bwd", "fused_embed_trunk_bwd",
+                  "shared_blend_fwd", "shared_blend_bwd"):
+            check(got[k] == PER_STEP[k] * first,
+                  f"cli {stage} first run: {k} launched {got[k]} times in "
+                  f"{first} steps")
+    check(os.path.exists(os.path.join(logdir["scene"], "ckpt", "best.pt")),
+          "cli scene: val_fn saved no best.pt")
+    check(os.path.exists(os.path.join(
+        logdir["human"], f"results_prog_{CLI_DUMP:06d}.json")),
+        "cli human: no progress eval")
+    finite_results(os.path.join(logdir["scene"], "results.json"),
+                   "cli scene eval")
+    finite_results(os.path.join(logdir["human"],
+                                f"results_prog_{CLI_DUMP:06d}.json"),
+                   "cli human progress eval")
+    for stage in ("human", "hosnerf"):
+        res = finite_results(os.path.join(logdir[stage], "results.json"),
+                             f"cli {stage} eval")
+        check(len(res) == 2 and all(e["lpips"] is not None for e in res),
+              f"cli {stage} eval: {res}")
+    busy = trace_busy_ms(os.path.join(logdir["human"], "profile",
+                                      "trace.json"))
+    busy_step = busy / (CLI_PROFILE[1] - CLI_PROFILE[0] + 1)
+
+    print(f"phase cli: the port's CLI in-process on the {DATA_FRAMES}-frame "
+          f"{DATA_RES}x{DATA_RES} capture, {kind}; ms/step from "
+          f"metrics.jsonl's sec_per_step (every {CLI_LOG_EVERY} steps, the "
+          "first interval and those holding an eval left out):", flush=True)
+    for stage, label in (("scene", "stage 1"), ("human", "stage 2"),
+                         ("hosnerf", "stage 3")):
+        first, second = CLI_STEPS[stage]
+        note = ""
+        if stage in fed:
+            note = (f"; the data phase's fed steps {fed[stage][0]:.2f} "
+                    f"ms/step with the items, {fed[stage][1]:.2f} without")
+        print(f"phase cli: {label} ({stage}) {ms[stage][0]:.2f} ms/step "
+              f"with prefetch 2 (steps 0-{first - 1}), {ms[stage][1]:.2f} "
+              f"with prefetch 0 (resumed, steps {first}-{second - 1})"
+              f"{note}; runs {times[stage, 'train']:.1f} s + "
+              f"{times[stage, 'resume']:.1f} s, eval "
+              f"{times[stage, 'eval']:.1f} s", flush=True)
+    print(f"phase cli: prefetched stage-2 steps {CLI_PROFILE[0]}-"
+          f"{CLI_PROFILE[1]} profiled: device busy {busy_step:.2f} ms/step, "
+          f"idle share {1 - busy_step / ms['human'][0]:.3f} of the "
+          f"prefetched {ms['human'][0]:.2f} ms/step", flush=True)
+    for stage in ("human", "hosnerf"):
+        frames = times[stage, "frames"]
+        full = frames.get((DATA_RES, DATA_RES), [])
+        check(full, f"cli {stage} eval: no {DATA_RES}x{DATA_RES} frame")
+        print(f"phase cli: {stage} eval render {sum(full) / len(full):.2f} "
+              f"ms per {DATA_RES}x{DATA_RES} frame ({len(full)} frames, "
+              "render_human_image by host clock, the image on the host); "
+              + ", ".join(f"{len(v)} frames of {h}x{w} at "
+                          f"{sum(v) / len(v):.2f} ms"
+                          for (h, w), v in frames.items()
+                          if (h, w) != (DATA_RES, DATA_RES)), flush=True)
+    print("phase cli: restored train states equal the saved ones bit for "
+          f"bit ({len(hooks.restored)} resumes: models, Adam exp_avg/"
+          "exp_avg_sq/step, opt.updates, generator); B1-B5 launched in "
+          "the resumed runs: "
+          + "; ".join(f"{s} " + " ".join(f"{k}={launches[s, 'resume'][k]}"
+                                         for k in PER_STEP)
+                      for s in ("human", "hosnerf"))
+          + "; no video written: freeview_frames 0 and 4 tpose views (the "
+          "card machine has no video encoder, neither imageio nor cv2); "
+          f"phase wall {time.time() - t_phase:.1f} s", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2552,6 +2885,7 @@ def run(torch, np) -> int:
     from hosnerf_tpu_torch.ops.cuda import lbs as clbs
     from hosnerf_tpu_torch.ops.cuda import mlp as cmlp
 
+    t_start = time.time()
     device = torch.device("cuda", 0)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -2688,20 +3022,23 @@ def run(torch, np) -> int:
     # ---- the host data pipeline and the three trainers it feeds ----
     with tempfile.TemporaryDirectory() as root:
         cap = data_phase(torch, device, root)
-        scene1 = stage1_phase(torch, device, kind, cap)
+        fed = {}
+        scene1, fed["scene"] = stage1_phase(torch, device, kind, cap)
         scene_sd = scene1.state_dict()
         del scene1
         torch.cuda.empty_cache()
-        data_train_phase(torch, device, kind, "stage2 data",
-                         stage2_data_step(torch, device, lp, cap),
-                         STAGE2_DATA_STEPS)
+        fed["human"] = data_train_phase(
+            torch, device, kind, "stage2 data",
+            stage2_data_step(torch, device, lp, cap), STAGE2_DATA_STEPS)
         torch.cuda.empty_cache()
-        data_train_phase(torch, device, kind, "stage3 data",
-                         stage3_data_step(torch, device, lp, cap, scene_sd),
-                         STAGE3_DATA_STEPS,
-                         " (scaled-world background rays, the scene "
-                         "warm-started from the stage-1 phase)")
+        fed["hosnerf"] = data_train_phase(
+            torch, device, kind, "stage3 data",
+            stage3_data_step(torch, device, lp, cap, scene_sd),
+            STAGE3_DATA_STEPS, " (scaled-world background rays, the scene "
+            "warm-started from the stage-1 phase)")
         del cap, scene_sd
+        torch.cuda.empty_cache()
+        cli_phase(torch, kind, root, fed)
         torch.cuda.empty_cache()
 
     gradcheck_phase(torch, device)
@@ -2816,6 +3153,7 @@ def run(torch, np) -> int:
               "tools/proto_pairgrid.py:60",
               entry_launches["proto_pairgrid"], [("proto", "f32")]),
     ]
+    print(f"chip_smoke wall: {time.time() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

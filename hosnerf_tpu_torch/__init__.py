@@ -1,6 +1,7 @@
 """HOSNeRF in PyTorch for NVIDIA Hopper: the stage-2 human-object field
-(render and training), the scene stack, the stage-1 and stage-3 trainers
-and the host data pipeline that feeds them.
+(render and training), the scene stack, the stage-1 and stage-3 trainers,
+the host data pipeline that feeds them, and the training loop,
+checkpoints, evaluation and command line that run them.
 
 Mirrors the module layout of `hosnerf_tpu` (the JAX reference), so each
 counterpart sits at the same relative path:
@@ -21,8 +22,12 @@ counterpart sits at the same relative path:
              place of cv2 (`imgproc`), cameras and rays, the scene loader
              and its batch pipeline, the human dataset, the mini capture
              and synthetic batches, `to_device`
-  eval/      chunked image rendering (human field, composed model)
-  train/     the stage-1, stage-2 and stage-3 steps, the gradient check
+  eval/      chunked image rendering (scene, human field, composed
+             model), the evaluation sweeps, metrics and image output
+  train/     the stage-1, stage-2 and stage-3 steps, the training loop,
+             checkpoints, the gradient check
+  cli/       the command line (`python -m hosnerf_tpu_torch.cli.run`)
+  utils/     file helpers and the TensorBoard event writer
   convert    JAX human, scene and LPIPS params -> this package's
              state_dicts
 

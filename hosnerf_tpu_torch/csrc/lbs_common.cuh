@@ -52,6 +52,22 @@ __device__ __forceinline__ float round_tap(float w, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(w));
 }
 
+// The same rounding of a value computed in f64, done once: to f32 (round to
+// nearest), or to bf16 straight from f64 (keep the 8 leading significand
+// bits, round to nearest, ties to even; rounding through f32 first could
+// round twice). A result no summation order can move.
+__device__ __forceinline__ float round_exact(double x, const float*) {
+  return __double2float_rn(x);
+}
+
+__device__ __forceinline__ float round_exact(double x,
+                                             const __nv_bfloat16*) {
+  unsigned long long b = static_cast<unsigned long long>(
+      __double_as_longlong(x));
+  b = (b + 0x0FFFFFFFFFFFull + ((b >> 45) & 1ull)) & ~0x1FFFFFFFFFFFull;
+  return __double2float_rn(__longlong_as_double(static_cast<long long>(b)));
+}
+
 struct Taps {
   float h[2];   // hat weights
   int i[2];     // grid index (valid only where v)

@@ -70,9 +70,11 @@
 // per-(sample, bone) sum keeps the order of the plain versions
 // (hosnerf_tpu_torch/ops/cuda/lbs.py::shared_core_plain,
 // shared_core_bwd_plain, shared_blend_plain and shared_blend_bwd_plain),
-// without FMA contraction, and so does the forward blend over bones; B5's
-// dw = q rmat^T, a matmul there, fuses its multiply-adds in j order as a
-// GEMM accumulates. The backward sums over bones (by shuffles) and over
+// without FMA contraction, and so does the forward blend over bones. B5's
+// dw = q rmat^T + g_w, the one input of a rounding point that the plain
+// version computes in another order (a matmul there), is computed exactly
+// on both sides (f64 products and sums of the f32 inputs) and rounded
+// once, so no order moves gw. The backward sums over bones (by shuffles) and over
 // samples (in shared memory, then atomics) in another order, and B5's
 // drmat and direct term, f32 sums with no rounding point after them, fuse
 // their multiply-adds.
@@ -528,20 +530,22 @@ tap_bwd_kernel(const float* __restrict__ pts, const VT* __restrict__ img,
         }
       }
       // gw_b = bf16(dw_b): row 7 takes it, B5 computes dw = q rmat_b + g_w
-      // and folds w_b q into drmat. q rmat_b is the plain version's matmul:
-      // one fused multiply-add per j, in j order, as a GEMM's inner loop
-      // accumulates (one f32 ulp of dw can flip gw's bf16 rounding); e = this bone's share of the direct term
-      // sum_kc g_kc A[12k+4c+j] = w_b sum_kc g_kc rmat_b[12k+4c+j]. drmat
-      // and e are f32 sums that no rounding point follows, so they fuse
-      // their multiply-adds (half of this kernel's time went to this
-      // block before).
+      // and folds w_b q into drmat. dw is exact: q = g_kc P_j (a product
+      // of two f32, exact in f64) times rmat_b, summed in f64 (error
+      // ~1e-16 of dw), then rounded once (`round_exact`), as the plain
+      // version does; an f32 sum in any order can land one ulp across a
+      // bf16 rounding boundary and move gw by a bf16 ulp. e = this bone's
+      // share of the direct term sum_kc g_kc A[12k+4c+j] = w_b sum_kc g_kc
+      // rmat_b[12k+4c+j]. drmat and e are f32 sums that no rounding point
+      // follows, so they fuse their multiply-adds (half of this kernel's
+      // time went to this block before).
       float gw = 0.f, e[3] = {0.f, 0.f, 0.f};
       if constexpr (K == 0) {
         if (live) gw = grad[(size_t)row * B + b];
       } else {
         const float* g = grad + (size_t)row * (3 * K + 1);
         const float wb = bone_weight(zc[0], zc[1], tz, img);
-        float dw = 0.f;
+        double dw = 0.0;
 #pragma unroll
         for (int k = 0; k < K; ++k) {
 #pragma unroll
@@ -551,8 +555,9 @@ tap_bwd_kernel(const float* __restrict__ pts, const VT* __restrict__ img,
             const int j = 12 * k + 4 * c;
 #pragma unroll
             for (int jj = 0; jj < 4; ++jj) {
-              const float q = jj < 3 ? __fmul_rn(gc, P[jj]) : gc;
-              dw = __fmaf_rn(q, r[j + jj], dw);
+              const double q = jj < 3 ? static_cast<double>(gc) * P[jj]
+                                      : static_cast<double>(gc);
+              dw = fma(q, static_cast<double>(r[j + jj]), dw);
               if (jj < 3) {
                 drm[j + jj] = __fmaf_rn(wg, P[jj], drm[j + jj]);
                 e[jj] = __fmaf_rn(gc, r[j + jj], e[jj]);
@@ -564,7 +569,7 @@ tap_bwd_kernel(const float* __restrict__ pts, const VT* __restrict__ img,
         }
 #pragma unroll
         for (int jj = 0; jj < 3; ++jj) e[jj] = __fmul_rn(wb, e[jj]);
-        if (live) gw = __fadd_rn(dw, g[3 * K]);
+        if (live) gw = round_exact(dw + g[3 * K], img);
       }
       gw = round_tap(gw, img);
       float d[2];

@@ -260,8 +260,21 @@ class MotionWeightVolumeDecoder(nn.Module):
         self.decoder = ConvDecoder3D(
             embedding_size, volume_size, total_bones + 1, compute_dtype,
             generator=generator, device=device)
+        self._decoded = None   # (weights' key, output) of `decoded`
+
+    def decoded(self) -> torch.Tensor:
+        """The decoder's output for the constant, [C, D, H, W]. It depends
+        on the weights alone, so without autograd it is computed once per
+        version of the weights and reused: a render's chunks and frames
+        share it."""
+        if torch.is_grad_enabled():
+            return self.decoder(self.const_embedding[None])[0]
+        key = (self.decoder.compute_dtype,
+               *((p.data_ptr(), p._version) for p in self.parameters()))
+        if self._decoded is None or self._decoded[0] != key:
+            self._decoded = (key, self.decoder(self.const_embedding[None])[0])
+        return self._decoded[1]
 
     def forward(self, motion_weights_priors):
-        decoded = self.decoder(self.const_embedding[None])[0]  # [C, D, H, W]
-        return torch.softmax(decoded + torch.log(motion_weights_priors),
+        return torch.softmax(self.decoded() + torch.log(motion_weights_priors),
                              dim=0)

@@ -91,11 +91,13 @@ def blockwise_transposed_conv_init(weight: torch.Tensor, gain: float,
     cin, cout, kd, kh, kw = weight.shape
     ksize_eff = kd * kh * kw // 8
     std = gain * math.sqrt(2.0 / ((cin + cout) * ksize_eff))
-    base = torch.empty((cin, cout, (kd + 1) // 2, (kh + 1) // 2,
-                        (kw + 1) // 2))
+    hd, hh, hw = (kd + 1) // 2, (kh + 1) // 2, (kw + 1) // 2
+    base = torch.empty((cin, cout, hd, hh, hw))
     uniform_(base, std * math.sqrt(3.0), gen)
-    full = base.repeat_interleave(2, 2).repeat_interleave(2, 3) \
-        .repeat_interleave(2, 4)[:, :, :kd, :kh, :kw]
+    # each value over a 2x2x2 cell: one copy of the broadcast
+    full = base[:, :, :, None, :, None, :, None].expand(
+        cin, cout, hd, 2, hh, 2, hw, 2).reshape(
+        cin, cout, 2 * hd, 2 * hh, 2 * hw)[:, :, :kd, :kh, :kw]
     with torch.no_grad():
         weight.copy_(full)
     return weight

@@ -207,8 +207,18 @@ def _vol_for(vol, precision: str):
     raise ValueError(f"unknown precision {precision!r}")
 
 
-def _rounder(precision: str):
+def _round_bf16_f64(t):
+    """f64 -> the nearest bf16 value (ties to even), kept in f64: rounded
+    once, where `.to(torch.bfloat16)` of an f64 tensor rounds through f32
+    first."""
+    m, e = torch.frexp(t)
+    return torch.ldexp(torch.round(m * 256.0) / 256.0, e)
+
+
+def _rounder(precision: str, dtype=torch.float32):
     if precision == "bf16":
+        if dtype == torch.float64:
+            return _round_bf16_f64
         return lambda t: t.to(torch.bfloat16).float()
     if precision == "highest":
         return lambda t: t
@@ -678,7 +688,7 @@ def _shared_taps(pts_g, G: int, B: int, rnd, vol):
     """Shared-tap sampling at grid points: the 4 xy taps (bf16(hx hy)
     weight, mask, q = y*G + x, and the x/y tap pieces), the 2 z taps, and
     per bone zc[b][dz] = sum_xy w_xy vol[q, b*G + z] (0 off-grid)."""
-    fx, fy, fz = pts_g.float().unbind(-1)
+    fx, fy, fz = pts_g.to(vol.dtype).unbind(-1)
     tx, ty, tz = _taps(fx, G), _taps(fy, G), _taps(fz, G)
     BG = B * G
     xy = []
@@ -715,7 +725,7 @@ def _tap_grads(xy, tz, zc, gw, vol, G: int, B: int, rnd):
       dvol[q_xy, b*G+z] += bf16(hx hy) bf16(gw_b hz);
       U_xy = sum_{b,z} bf16(gw_b hz) bf16(vol); dfx = sum_xy dhat(fx) hy U,
       dfy = sum_xy hx dhat(fy) U, dfz = sum_b gw_b sum_z dhat(fz) zc."""
-    dvol = torch.zeros(G * G * B * G, device=gw.device)
+    dvol = torch.zeros(G * G * B * G, device=gw.device, dtype=gw.dtype)
     flat = vol.reshape(-1)
     U = [torch.zeros_like(gw[:, 0]) for _ in xy]
     dfz = torch.zeros_like(gw[:, 0])
@@ -989,39 +999,57 @@ def shared_blend_plain(pts_g, vol_all, rmat, precision: str = "bf16"):
 
 
 def shared_blend_bwd_plain(pts_g, vol_all, rmat, k0, gout,
-                           precision: str = "bf16"):
+                           precision: str = "bf16", dtype=torch.float32):
     """Plain version of the fused forward-LBS backward
     (`_shared_blend_bwd_kernel`, lbs.py:1820-1883), on rows from the
     clamped k0 * 512 on (the rows below get dpts 0 and add nothing):
       q[12k+4c+j] = g_kc P_j (P_3 = 1); drmat = w^T q (f32);
-      dw = q rmat^T + g_w; gw = bf16(dw) (the `expand` matmul);
+      dw = q rmat^T + g_w computed exactly (f64 from the f32 inputs) and
+      rounded once, gw = bf16(dw) (the `expand` matmul's rounding point;
+      no summation order can move it);
       dvol[q_xy, b*G+z] += bf16(hx hy) bf16(gw_b hz);
       U_xy = sum_{b,z} bf16(gw_b hz) bf16(vol); dfx = sum_xy dhat(fx) hy U,
       dfy = sum_xy hx dhat(fy) U, dfz = sum_b gw_b sum_z dhat(fz) zc;
       dpts = (dfx, dfy, dfz) + sum_kc g_kc A[12k+4c+j].
-    Returns (dpts [N, 3], dvol [G*G, B*G], drmat [B, 12K])."""
+    dtype=torch.float64 evaluates the same contract in f64 arithmetic,
+    each bf16 rounding point rounding its f64 value once: the oracle
+    that tells which side's summation order flips a rounding.
+    Returns (dpts [N, 3], dvol [G*G, B*G], drmat [B, 12K]) in dtype."""
     G, B, K = _blend_dims(vol_all, rmat)
-    rnd = _rounder(precision)
+    rnd = _rounder(precision, dtype)
     n = pts_g.shape[0]
     first = first_live_row(0 if k0 is None else k0, n, TILE_SH)
-    vol = _vol_for(vol_all, precision).float()
-    rm = rmat.float()
+    vol = _vol_for(vol_all, precision).to(dtype)
+    rm = rmat.to(dtype)
     P, xy, tz, zc = _shared_taps(pts_g[first:], G, B, rnd, vol)
     w = _blend_weights(zc, tz, rnd)
     A = w @ rm
-    g = gout[first:].float()
+    g = gout[first:].to(dtype)
     ones = torch.ones_like(P[0])
     q = torch.stack([g[:, 3 * k + c] * pj for k in range(K)
                      for c in range(3) for pj in (*P, ones)], 1)
     drmat = w.T @ q
-    gw = rnd(q @ rm.T + g[:, 3 * K:3 * K + 1])
+    gw = _exact_dw(g, P, rm, K, precision).to(dtype)
     direct = [sum(g[:, 3 * k + c] * A[:, 12 * k + 4 * c + j]
                   for k in range(K) for c in range(3)) for j in range(3)]
     (dfx, dfy, dfz), dvol = _tap_grads(xy, tz, zc, gw, vol, G, B, rnd)
-    dpts = torch.zeros(n, 3, device=pts_g.device)
+    dpts = torch.zeros(n, 3, device=pts_g.device, dtype=dtype)
     dpts[first:] = torch.stack([dfx + direct[0], dfy + direct[1],
                                 dfz + direct[2]], 1)
     return dpts, dvol, drmat
+
+
+def _exact_dw(g, P, rm, K: int, precision: str):
+    """B5's dw = q rmat^T + g_w in f64 from its f32 inputs (each q = g_kc
+    P_j and each product exact or within 1e-16), rounded once to the
+    precision (bf16 straight from f64; 'highest' keeps f64, which the
+    caller's dtype rounds): what the kernel computes."""
+    g64, rm64 = g.double(), rm.double()
+    q = torch.stack([g64[:, 3 * k + c] * pj.double()
+                     for k in range(K) for c in range(3)
+                     for pj in (*P, torch.ones_like(P[0]))], 1)
+    dw = q @ rm64.T + g64[:, 3 * K:3 * K + 1]
+    return _round_bf16_f64(dw) if precision == "bf16" else dw
 
 
 def _check_blend(pts_g, vol_all, rmat):

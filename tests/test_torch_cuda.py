@@ -18,6 +18,7 @@ from hosnerf_tpu_torch.data import synthetic
 from hosnerf_tpu_torch.models.human import HumanObjectField
 from hosnerf_tpu_torch.ops.cuda import lbs as clbs
 from hosnerf_tpu_torch.ops.cuda import mlp as cmlp
+from hosnerf_tpu_torch.tools import blend_bwd_f64
 
 # shared with tests/test_torch_kernels.py (which holds the plain versions
 # against JAX); this file imports no JAX so it runs where JAX is absent
@@ -578,49 +579,10 @@ def test_shared_core_kernels_match_plain(lbs_inputs, prec):
 
 
 # Edge cases of the shared-tap kernels (rows 5 and 7): (n, B, K, where the
-# samples lie, k0[, G = 32]). "mixed": in, partly off and off the grid;
-# "hot": every sample in one voxel (one brick split over many CTAs); "off":
-# every sample off the grid; "faces": coordinates on the grid's faces (0 and
-# G - 1). G = 96 has more bricks than the binning's shared histogram holds.
-TAP_CASES = {
-    "n1": (1, 26, 2, "mixed", 0),
-    "n511": (511, 26, 2, "mixed", 0),
-    "n513_live": (513, 26, 2, "mixed", 1),
-    "n513_clamped": (513, 26, 2, "mixed", 10 ** 6),
-    "n262143": (262_143, 26, 2, "mixed", 0),
-    "n262143_live": (262_143, 26, 2, "mixed", 100),
-    "hot": (20_000, 26, 2, "hot", 0),
-    "off": (4_000, 26, 2, "off", 0),
-    "faces": (4_000, 26, 2, "faces", 0),
-    "B1_K1": (3_000, 1, 1, "mixed", 0),
-    "B32_K1": (3_000, 32, 1, "mixed", 1),
-    "B32_K2": (3_000, 32, 2, "mixed", 0),
-    "G96": (2_000, 2, 2, "mixed", 0, 96),
-}
-
-
-def _tap_case(dev, n, B, K, kind, G=32, seed=0):
-    gen = torch.Generator(dev).manual_seed(seed)
-    vol_all = torch.rand(G * G, B * G, device=dev, generator=gen)
-    u = torch.rand(n, 3, device=dev, generator=gen)
-    if kind == "hot":
-        pts = 13.25 + 0.5 * u
-    elif kind == "off":
-        pts = -3.0 - 40.0 * u
-        pts[::2] += G + 44.0
-    else:
-        pts = -1.5 + (G + 2.0) * u
-        if kind == "faces":
-            pts[0::3, 0] = G - 1
-            pts[1::3, 1] = 0.0
-            pts[2::3, 2] = G - 1
-            pts[::5] = G - 1
-    rmat = torch.randn(B, 12 * K, device=dev, generator=gen) * 0.1
-    gout = torch.randn(n, 3 * K + 1, device=dev, generator=gen)
-    gw = torch.randn(n, B, device=dev, generator=gen)
-    gout[::3] = 0.0                        # gradient rows that are zero
-    gw[::3] = 0.0
-    return pts.contiguous(), vol_all, rmat, gout, gw
+# samples lie, k0[, G = 32]), shared with tools/blend_bwd_f64.py, which
+# measures B5's backward on them against the contract in f64.
+TAP_CASES = blend_bwd_f64.TAP_CASES
+_tap_case = blend_bwd_f64.tap_case
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -648,7 +610,18 @@ def test_shared_tap_kernels_edge_cases(dev, case, prec):
     the scale (sums over bones and samples in another order; in bf16 a
     gradient factor rounded apart by one ulp, see chip_smoke.TOL_BWD).
     One launch count per entry call; dpts rows below the clamped k0 * 512
-    exactly 0."""
+    exactly 0.
+
+    B5's gw = bf16(dw) once took dw = q rmat^T + g_w in f32, the kernel
+    and the plain version (a cuBLAS matmul) each in its own order, so
+    `B32_K1-bf16` and `G96-bf16` failed. Measured against the same
+    contract in f64 (`tools/blend_bwd_f64.py`, H100, relative L2): in
+    B32_K1 the kernel was the further side (dvol 1.0891e-4 against the
+    plain version's 4.2172e-5, dpts 9.2064e-5 against 4.8858e-5; the two
+    1.0041e-4 apart), in G96 the plain version (dpts 1.6116e-4 against the
+    kernel's 8.3816e-8). So both sides now compute dw exactly (f64
+    products and sums of its f32 inputs) and round it once, and the bound
+    stays 1e-4."""
     n, B, K, kind, k0, *G = TAP_CASES[case]
     pts, vol_all, rmat, gout, gw = _tap_case(dev, n, B, K, kind, *G)
     first = clbs.first_live_row(k0, n, clbs.TILE_SH)

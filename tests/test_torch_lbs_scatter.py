@@ -132,7 +132,12 @@ def emulate_bwd(pts_g, vol_all, grad, rmat=None, k0=0):
                              for c in range(3)
                              for pj in (P[:, 0], P[:, 1], P[:, 2],
                                         torch.ones(len(rws)))], 1)
-            gw = q @ rmat.float().T + g[:, 3 * K:]
+            # dw exact (f64 of the f32 inputs), rounded once to f32
+            q64 = torch.stack([g[:, 3 * k + c].double() * pj.double()
+                               for k in range(K) for c in range(3)
+                               for pj in (P[:, 0], P[:, 1], P[:, 2],
+                                          torch.ones(len(rws)))], 1)
+            gw = (q64 @ rmat.double().T + g[:, 3 * K:].double()).float()
             drmat += w_b.T @ q
             for j in range(3):
                 e[:, :, j] = w_b * sum(
