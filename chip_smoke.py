@@ -144,6 +144,22 @@ Phases, each of which fails the run:
             without prefetch (metrics.jsonl's sec_per_step) beside the
             data phases' numbers, the prefetched stage-2 step's device
             idle share, ms per 512 x 512 eval frame (human, composed);
+  ddp       data parallelism (`parallel/`, `entry.dryrun_multidevice`
+            size "cell"): DDP_RANKS processes on the one card over gloo
+            (NCCL refuses two ranks on one device) take bench.py's stage-3
+            cell, Stage3Config(n_patches=2, compute_dtype="bf16") on
+            composed_batch(2, 32, grid_size=32), each rank its 1,024 of
+            the 2,048 rays: the sharded gradient step against the one-rank
+            step with the same weights, batch and generator (loss within
+            TOL_GRAD_LOSS, every parameter's gradient within rel L2
+            TOL_GRAD), every rank's parameters equal after the update,
+            then 1 + 3 sharded steps with B1-B5 launched per rank as
+            PER_STEP and ms/step by utils/benchtools, and one sharded
+            composed-render chunk against the one-rank chunk (the render
+            tolerances); then one NCCL world-size-1 initialize and
+            all-reduce on the card, and one human render chunk with
+            lbs_impl="xla" (the one-hot LBS form) against the gather form
+            on CUDA tensors; the phase's wall time;
   gradcheck one step's gradients, the kernel path on the card against the
             same path through the kernels' plain versions on the CPU (f32
             trunks, same weights), parameter by parameter
@@ -164,6 +180,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -194,6 +211,8 @@ DATA_FRAMES, DATA_RES = 16, 512
 STAGE1_STEPS = 5
 STAGE2_DATA_STEPS = 5
 STAGE3_DATA_STEPS = 3
+# phase ddp: ranks on the one card, and the worker's time limit (s)
+DDP_RANKS, DDP_TIMEOUT = 2, 300
 REPO = os.path.dirname(os.path.abspath(__file__))
 # per dense training step: the Morton-order inverse core and B4 once, the
 # trunks three times (non-rigid, canonical, and one forward non-rigid call
@@ -2820,6 +2839,101 @@ def cli_phase(torch, kind, root, fed, extra_args=(), yaml_extra=""):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# data parallelism: ranks over gloo on the one card, NCCL at world size 1
+# ---------------------------------------------------------------------------
+
+def ddp_phase(torch, device, kind, card, ranks=DDP_RANKS, cfg=None,
+              worker_device="cuda:0"):
+    """Phase ddp (module docstring). `cfg`: Stage3Config field overrides
+    for the workers (a CPU rehearsal: worker_device='cpu', PER_STEP
+    zeroed)."""
+    import torch.distributed as dist
+
+    from hosnerf_tpu_torch import entry
+    from hosnerf_tpu_torch.parallel import distributed
+    t0 = time.time()
+    reps = entry.dryrun_multidevice(
+        ranks, backend="gloo", device=worker_device, size="cell",
+        timeout=DDP_TIMEOUT, tol_loss=TOL_GRAD_LOSS, tol_grad=TOL_GRAD,
+        tol_render=[TOL_RENDER_MAX, TOL_RENDER_MEAN], cfg=cfg or {})
+    for r, rep in enumerate(reps):
+        c, rd = rep["check"], rep["render"]
+        print(f"phase ddp rank {r}: sharded vs one-rank stage-3 step loss "
+              f"{c['loss_n']:.6f} vs {c['loss_1']:.6f} (|delta| "
+              f"{c['loss_delta']:.3e}, tolerance {TOL_GRAD_LOSS}), worst "
+              f"gradient rel L2 {c['max_grad_rel']:.3e} ({c['worst_param']}"
+              f", tolerance {TOL_GRAD}), parameters equal on every rank "
+              f"{c['params_equal']}; {rep['rays_per_rank']} rays per rank, "
+              f"{rep['ms_per_step']:.2f} ms/step over 3 steps "
+              f"(utils/benchtools.timeit_chain; the gradient all-reduce of "
+              f"{rep['grad_numel']} values alone {rep['allreduce_ms']:.2f} "
+              f"ms) on {kind} ({card}), "
+              f"{ranks} ranks over gloo on one card; launches "
+              + " ".join(f"{k}={v}" for k, v in rep["launches"].items())
+              + f"; render chunk of {rd['rays']} rays error max "
+              f"{rd['max_err']:.3e} mean {rd['mean_err']:.3e}", flush=True)
+        check(c["params_equal"], f"ddp rank {r}: parameters differ")
+        check(all(math.isfinite(v) for v in rep["losses"]),
+              f"ddp rank {r}: non-finite losses {rep['losses']}")
+        for k, n in rep["launches"].items():
+            check(n == PER_STEP.get(k, 0) * 3, f"ddp rank {r}: {k} "
+                  f"launched {n} times in 3 steps (expected "
+                  f"{PER_STEP.get(k, 0)} per step)")
+
+    # NCCL at world size 1: init and one all-reduce on the card
+    if device.type == "cuda":
+        with tempfile.TemporaryDirectory() as tmp:
+            distributed.initialize(f"file://{tmp}/init", 1, 0,
+                                   backend="nccl", device=device)
+            try:
+                x = torch.arange(1 << 20, device=device, dtype=torch.float32)
+                dist.all_reduce(x)
+                torch.cuda.synchronize()
+                ok = (dist.get_backend() == "nccl" and bool(torch.equal(
+                    x, torch.arange(1 << 20, device=device,
+                                    dtype=torch.float32))))
+            finally:
+                distributed.shutdown()
+        print(f"phase ddp: NCCL world-size-1 initialize + all-reduce of "
+              f"{1 << 20} f32 on {device}: {'ok' if ok else 'WRONG'}",
+              flush=True)
+        check(ok, "NCCL world-size-1 all-reduce")
+
+    xla_chunk_check(torch, device)
+    print(f"phase ddp: {time.time() - t0:.1f} s wall on {kind} ({card})",
+          flush=True)
+    return reps
+
+
+def xla_chunk_check(torch, device, G=32):
+    """One human render chunk with lbs_impl='xla' (the one-hot LBS form)
+    against the gather form, same model and tensors on `device`."""
+    from hosnerf_tpu_torch.models.human import HumanObjectField
+    from hosnerf_tpu_torch.models.state import state_index
+    model = HumanObjectField(mweight_volume_size=G, compute_dtype="bf16",
+                             lbs_impl="xla", seed=0, device=device).eval()
+    b = chunk_batch(torch, frame_item(0, G), device)
+    state = state_index(torch.tensor(0.5), None)
+    with torch.no_grad():
+        t0 = time.time()
+        x = model(b, ITER, state)
+        torch.cuda.synchronize() if device.type == "cuda" else None
+        t_x = time.time() - t0
+        model.lbs_impl = "gather"
+        g = model(b, ITER, state)
+    err = {k: float((x[k] - g[k]).abs().max())
+           / max(float(g[k].abs().max()), 1e-30) for k in ("rgb", "alpha")}
+    print(f"human render chunk of {b['rays_o'].shape[0]} rays, lbs_impl "
+          f"'xla' (one-hot, {t_x * 1e3:.1f} ms) vs 'gather': error max "
+          + " ".join(f"{k} {v:.3e}" for k, v in err.items())
+          + f" of the largest value (tolerance {TOL_RENDER_MAX})",
+          flush=True)
+    check(all(v <= TOL_RENDER_MAX for v in err.values()),
+          f"xla LBS render chunk disagrees with the gather form: {err}")
+    del model
+
+
 def kernel_name(mangled: str) -> str:
     """A kernel's innermost name and integer template arguments from its
     mangled name (enough to tell the trunk kernels apart)."""
@@ -3040,6 +3154,9 @@ def run(torch, np) -> int:
         torch.cuda.empty_cache()
         cli_phase(torch, kind, root, fed)
         torch.cuda.empty_cache()
+
+    ddp_phase(torch, device, kind, card)
+    torch.cuda.empty_cache()
 
     gradcheck_phase(torch, device)
     gradcheck_phase(torch, device, dense=True)

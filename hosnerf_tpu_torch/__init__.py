@@ -1,7 +1,8 @@
 """HOSNeRF in PyTorch for NVIDIA Hopper: the stage-2 human-object field
 (render and training), the scene stack, the stage-1 and stage-3 trainers,
-the host data pipeline that feeds them, and the training loop,
-checkpoints, evaluation and command line that run them.
+the host data pipeline that feeds them, the training loop, checkpoints,
+evaluation and command line that run them, on one card or data-parallel
+over several (torchrun).
 
 Mirrors the module layout of `hosnerf_tpu` (the JAX reference), so each
 counterpart sits at the same relative path:
@@ -11,8 +12,8 @@ counterpart sits at the same relative path:
   models/    embedders, state selection, init helpers, the human components
              and `HumanObjectField`, the scene's `SceneField`, LPIPS and
              the stage-3 composition
-  ops/       trilinear sampling, gather-form LBS (the dense path), the
-             stage-3 sample merge
+  ops/       trilinear sampling, the gather and one-hot ('xla') LBS forms
+             (the dense path), the stage-3 sample merge
   ops/cuda/  the sorted-domain glue and the hand-written Hopper kernels
              (inverse LBS, fused embed+trunk, fused forward LBS, forward
              and backward) with their plain versions
@@ -26,8 +27,14 @@ counterpart sits at the same relative path:
              model), the evaluation sweeps, metrics and image output
   train/     the stage-1, stage-2 and stage-3 steps, the training loop,
              checkpoints, the gradient check
-  cli/       the command line (`python -m hosnerf_tpu_torch.cli.run`)
-  utils/     file helpers and the TensorBoard event writer
+  cli/       the command line (`python -m hosnerf_tpu_torch.cli.run`,
+             or under torchrun over N cards)
+  parallel/  the process group (`distributed`) and the ray-axis sharding
+             of batches, draws, gradients and eval chunks (`mesh`)
+  utils/     file helpers, the TensorBoard event writer, device timing
+             (`benchtools`)
+  entry      the dry-run entry: the tiny eval step, and N processes
+             holding each stage's sharded step to the one-process step
   convert    JAX human, scene and LPIPS params -> this package's
              state_dicts
 

@@ -14,8 +14,20 @@ checkpoints, `train/checkpoints.py`), results*.json and the rendered
 images and videos. --bkgd_path, --human_path and a --ckpt_path ending in
 .ckpt take reference Lightning checkpoints too. --device picks the
 device (default: the CUDA card, which must exist; `cpu` for the CPU):
-the port's counterpart of the JAX package's platform pin. Single device:
-each batch goes to it by `data/batches.py::to_device`.
+the port's counterpart of the JAX package's platform pin.
+
+Data parallel over N cards, one process each:
+
+  torchrun --nproc_per_node N -m hosnerf_tpu_torch.cli.run --stage ...
+
+Each rank joins the process group (`parallel/distributed.py::initialize`:
+NCCL on the cards, gloo with --device cpu), `--device cuda` meaning its
+own card (cuda:LOCAL_RANK). Every rank builds the same batch from the
+same seed and keeps its share of the rays (`parallel/mesh.py::
+shard_batch`) before `data/batches.py::to_device`; the render and eval
+callables render each chunk split over the ranks (`shard_eval_fn`), as
+the JAX CLI shards over its data mesh. Rank 0 writes the logs,
+checkpoints, results and images.
 """
 
 from __future__ import annotations
@@ -27,6 +39,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from hosnerf_tpu_torch.parallel import distributed, mesh
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -65,11 +79,20 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _device(args) -> torch.device:
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass --device cpu to run on "
-                           "the CPU")
-    return device
+    """This rank's device (--device; 'cuda' is cuda:LOCAL_RANK)."""
+    return distributed.rank_device(args.device)
+
+
+def _report(*args) -> None:
+    """Print on rank 0 only."""
+    if distributed.is_primary():
+        print(*args)
+
+
+def _shard(batch):
+    """This rank's share of a host batch's rays (the batch unchanged for
+    one rank)."""
+    return mesh.shard_batch(batch, keys=mesh.RAY_KEYS)
 
 
 def _load_lpips(args, patch_size: int, device):
@@ -138,8 +161,9 @@ def run_scene(args) -> None:
     gin = ginlite.parse_config_files_and_bindings(args.ginc, args.ginb)
     run_cfg = ginlite.scoped(gin, "run")
     logdir = _logdir(args)
-    with open(os.path.join(logdir, "config.gin"), "w") as f:
-        f.write(ginlite.dumps(gin))
+    if distributed.is_primary():
+        with open(os.path.join(logdir, "config.gin"), "w") as f:
+            f.write(ginlite.dumps(gin))
 
     datadir = run_cfg.get("datadir", ".")
     scene = scene_loader.load_nerf_360_v2(
@@ -187,7 +211,8 @@ def run_scene(args) -> None:
             opt, loop_gen)
 
     step_fn = stage1.make_train_step(cfg, model, opt, transitions)
-    eval_step = stage1.make_eval_step(cfg, model, transitions)
+    eval_step = mesh.shard_eval_fn(stage1.make_eval_step(cfg, model,
+                                                         transitions))
 
     if args.run_mode == "train":
         def val_fn(step):
@@ -200,7 +225,7 @@ def run_scene(args) -> None:
         loop.run_training(
             num_steps=max_steps,
             sample_batch=lambda: batches.to_device(
-                pipe.sample_train_batch(), device),
+                _shard(pipe.sample_train_batch()), device),
             step_fn=step_fn, models=models, optimizer=opt, logdir=logdir,
             rays_per_step=batch_size,
             log_every=int(run_cfg.get("log_every_n_steps", 100)),
@@ -211,11 +236,11 @@ def run_scene(args) -> None:
         results = renderers.evaluate_scene(
             eval_step, pipe, logdir, lpips_metric=_lpips_metric(lp),
             lpips_backbone=lp_backbone, device=device)
-        print(results)
+        _report(results)
     else:  # render: the interpolated camera path (reference `predict`)
         path = renderers.render_scene_path(eval_step, pipe, logdir,
                                            device=device)
-        print(f"wrote {path}")
+        _report(f"wrote {path}")
 
 
 def _human_sizes(cfg_yaml):
@@ -239,13 +264,14 @@ def _human_sizes(cfg_yaml):
 
 
 def _make_batch(ds, device):
-    """make_batch(i=None): item i (a random one without i) of the dataset
-    on the device (the frame name dropped)."""
+    """make_batch(i=None): item i (a random one without i) of the dataset,
+    this rank's share of its rays, on the device (the frame name
+    dropped)."""
     from hosnerf_tpu_torch.data import batches
 
     def make_batch(i=None):
         idx = np.random.randint(len(ds)) if i is None else i
-        return batches.to_device(ds[idx], device)
+        return batches.to_device(_shard(ds[idx]), device)
 
     return make_batch
 
@@ -268,12 +294,12 @@ def _eval_or_render(args, cfg_yaml, render_fn, factory, logdir, device,
                                            tpose_resolution)),
             freeview_frames=frames, tpose_views=rnd_y.get("tpose_views"),
             device=device)
-        print(out)
+        _report(out)
     else:
         out = renderers.render_freeview(
             render_fn, factory(mode="freeview", render_frames=frames),
             logdir, extra_keys=extra_keys, device=device)
-        print(f"{len(out)} frames")
+        _report(f"{len(out)} frames")
 
 
 def _factory(cfg_yaml, datadir, vol_size, **fixed):
@@ -331,7 +357,7 @@ def run_human(args) -> None:
 
     trans = (torch.as_tensor(ds.transitions, dtype=torch.float32)
              if ds.transitions is not None else None)
-    render_fn = renderers.make_render_fn(model, trans)
+    render_fn = mesh.shard_eval_fn(renderers.make_render_fn(model, trans))
 
     if args.run_mode == "train":
         # in-training progress eval + empty-render trap
@@ -420,7 +446,8 @@ def run_hosnerf(args) -> None:
     lp, lp_backbone = _load_lpips(args, cfg.patch_size, device)
     trans = (torch.as_tensor(ds.transitions, dtype=torch.float32)
              if ds.transitions is not None else None)
-    render_fn = renderers.make_composed_render_fn(cfg, scene, human, trans)
+    render_fn = mesh.shard_eval_fn(
+        renderers.make_composed_render_fn(cfg, scene, human, trans))
     extra = ("newsmpl_to_scale_world",)
 
     if args.run_mode == "train":
@@ -453,19 +480,23 @@ def run_hosnerf(args) -> None:
                                  use_scaleworld=True), logdir, device,
                         ds.transitions, lp, lp_backbone, 512,
                         extra_keys=extra,
-                        tpose_render_fn=renderers.make_render_fn(human,
-                                                                 trans))
+                        tpose_render_fn=mesh.shard_eval_fn(
+                            renderers.make_render_fn(human, trans)))
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
     np.random.seed(args.seed)
-    if args.stage == "scene":
-        run_scene(args)
-    elif args.stage == "human":
-        run_human(args)
-    else:
-        run_hosnerf(args)
+    distributed.initialize(device=args.device)   # no-op for one process
+    try:
+        if args.stage == "scene":
+            run_scene(args)
+        elif args.stage == "human":
+            run_human(args)
+        else:
+            run_hosnerf(args)
+    finally:
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

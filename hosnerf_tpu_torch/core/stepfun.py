@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 
 from hosnerf_tpu_torch.core.rays import EPS
+from hosnerf_tpu_torch.parallel import mesh
 
 
 def searchsorted(a: torch.Tensor, v: torch.Tensor):
@@ -155,8 +156,7 @@ def sample(generator: Optional[torch.Generator], randomized: bool, t,
         max_jitter = (1.0 - u_max) / (num_samples - 1) - EPS
         d = 1 if single_jitter else num_samples
         if u is None:
-            u = torch.rand(t.shape[:-1] + (d,), generator=generator,
-                           dtype=t.dtype, device=generator.device)
+            u = mesh.rand_rows(t.shape[:-1] + (d,), generator, t.dtype)
         u = (torch.linspace(0.0, 1.0 - u_max, num_samples, **kw)
              + u.to(t.device) * max_jitter)
     return invert_cdf(u, t, w_logits)

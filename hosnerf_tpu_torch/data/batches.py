@@ -1,5 +1,6 @@
-"""Host batches to device tensors: the one-device counterpart of
-`hosnerf_tpu/parallel/mesh.py::shard_batch`."""
+"""Host batches to device tensors (with `parallel/mesh.py::shard_batch`
+before it, the counterpart of `hosnerf_tpu/parallel/mesh.py::
+shard_batch`'s device put)."""
 
 from __future__ import annotations
 
@@ -18,10 +19,11 @@ def to_device(batch: Dict[str, Any], device=None) -> Dict[str, Any]:
     and shape, copied from pinned host memory with non_blocking=True on
     a CUDA device; strings (`frame_name`) are dropped, as the CLI drops
     them before `shard_batch`; other Python values (`n_valid`,
-    `img_height`, `img_width`) pass through unchanged.
+    `img_height`, `img_width`, a `parallel/mesh.py::shard_batch` mark)
+    pass through unchanged.
 
-    One device only: the data-parallel slice (torch DDP) splits each
-    batch's ray axis across ranks before this call."""
+    One device: under a process group each rank calls this on its share
+    of the batch (`shard_batch` first), with its own device."""
     device = resolve_device(device)
     cuda = device.type == "cuda"
     out = {}

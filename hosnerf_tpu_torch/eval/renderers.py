@@ -8,7 +8,10 @@ sweep chunk by chunk through `render_fn(chunk_batch)`. The port's models
 hold their weights, so neither callable takes a params argument. Sweeps
 score each image (PSNR, SSIM, optionally LPIPS) on the render device,
 write PNGs and results*.json, and flag all-background renders (the
-reference's empty-image trap).
+reference's empty-image trap). Under a process group every rank renders
+(the render callables are `parallel/mesh.py::shard_eval_fn`-wrapped, so
+each renders its block of every chunk and gets the whole chunk back) and
+scores, and rank 0 alone writes the images, videos and results files.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from hosnerf_tpu_torch.eval import io as eio
 from hosnerf_tpu_torch.eval import metrics as M
 from hosnerf_tpu_torch.models.layers import resolve_device
 from hosnerf_tpu_torch.models.state import state_index
+from hosnerf_tpu_torch.parallel import distributed
 
 HUMAN_SHARED_KEYS = (
     "dst_Rs", "dst_Ts", "dst_posevec", "cnl_gtfms", "motion_weights_priors",
@@ -164,6 +168,8 @@ def evaluate_scene(eval_step, pipe, logdir: str, lpips_metric=None,
         results["lpips"][split] = (float(np.mean(lpipss)) if lpipss
                                    else None)
 
+    if not distributed.is_primary():
+        return results
     os.makedirs(logdir, exist_ok=True)
     if save_images and rendered_all:
         eio.store_image(os.path.join(logdir, "render_model"), rendered_all)
@@ -194,6 +200,8 @@ def render_scene_path(eval_step, pipe, logdir: str, chunk: int = 4096,
             outs.append(eval_step(batches.to_device(b, device))
                         .float().cpu().numpy())
         frames.append(np.concatenate(outs).reshape(int(h), int(w), 3))
+    if not distributed.is_primary():
+        return os.path.join(logdir, "render_video", "images.mp4")
     return eio.store_video(os.path.join(logdir, "render_video"), frames,
                            fps=fps)
 
@@ -233,7 +241,8 @@ def evaluate_human(render_fn, dataset, logdir: str, tag: str,
         if save_images:
             images.append(np.concatenate(
                 [eio.to_8b_image(rgb), eio.to_8b_image(tgt)], axis=1))
-    if save_images and images:
+    primary = distributed.is_primary()
+    if save_images and images and primary:
         os.makedirs(logdir, exist_ok=True)
         eio.store_image(os.path.join(logdir, f"{tag}_vis"), images)
     out = {
@@ -244,7 +253,8 @@ def evaluate_human(render_fn, dataset, logdir: str, tag: str,
     }
     if lpips_metric is not None:
         out["lpips_backbone"] = lpips_backbone or "unknown"
-    eio.write_stats(os.path.join(logdir, f"results_{tag}.json"), out)
+    if primary:
+        eio.write_stats(os.path.join(logdir, f"results_{tag}.json"), out)
     return out
 
 
@@ -276,8 +286,9 @@ def full_human_eval(render_fn, dataset_factory, logdir: str,
                  dataset_factory(mode="tpose", **tpose_kw), logdir,
                  transitions=transitions, resolution=tpose_resolution,
                  n_views=tpose_views, chunk=chunk, device=device)
-    eio.write_stats(os.path.join(logdir, "results.json"),
-                    results["testimgs"], results["allimgs"])
+    if distributed.is_primary():
+        eio.write_stats(os.path.join(logdir, "results.json"),
+                        results["testimgs"], results["allimgs"])
     return results
 
 
@@ -289,7 +300,7 @@ def render_freeview(render_fn, dataset, logdir: str, chunk: int = 8192,
     device = resolve_device(device)
     frames = [render_human_image(render_fn, dataset[i], device, chunk,
                                  extra_keys) for i in range(len(dataset))]
-    if save_video and frames:
+    if save_video and frames and distributed.is_primary():
         eio.store_video(os.path.join(logdir, "freeview"), frames)
     return frames
 
@@ -312,6 +323,7 @@ def render_tpose(render_fn, dataset, logdir: str, transitions=None,
     mp4 per state of more than 8 views, and a contact sheet of up to 8
     views per state in tpose_vis/*.png."""
     device = resolve_device(device)
+    primary = distributed.is_primary()
     frames = []
     per_state = n_views or getattr(dataset, "render_frames", 4)
     for si, t in enumerate(tpose_midpoint_times(transitions)):
@@ -321,12 +333,13 @@ def render_tpose(render_fn, dataset, logdir: str, transitions=None,
             state_frames.append(render_human_image(render_fn, item, device,
                                                    chunk))
         if len(state_frames) > 8:
-            eio.store_video(os.path.join(logdir, f"tpose_state{si}"),
-                            state_frames)
+            if primary:
+                eio.store_video(os.path.join(logdir, f"tpose_state{si}"),
+                                state_frames)
             step = max(len(state_frames) // 8, 1)
             frames.extend(state_frames[::step][:8])
         else:
             frames.extend(state_frames)
-    if frames:
+    if frames and primary:
         eio.store_image(os.path.join(logdir, "tpose_vis"), frames)
     return frames

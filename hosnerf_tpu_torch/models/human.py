@@ -14,10 +14,11 @@ Two per-sample pipelines with one selection rule, as in the JAX package:
   kernel writes them as exact zeros, and every fused embed+trunk and
   forward-LBS kernel call skips whole blocks of that prefix; the default
   for points on a CUDA device, unless `sparse` is False.
-`lbs_impl` ('auto' | 'gather' | 'pallas' | 'pallas_dense') and `mlp_impl`
-('auto' | 'flax' | 'fused') keep the JAX package's names: 'pallas' /
-'pallas_dense' / 'fused' force the hand-written kernels (or their plain
-versions for CPU tensors), 'gather' / 'flax' the plain module path.
+`lbs_impl` ('auto' | 'gather' | 'xla' | 'pallas' | 'pallas_dense') and
+`mlp_impl` ('auto' | 'flax' | 'fused') keep the JAX package's names:
+'pallas' / 'pallas_dense' / 'fused' force the hand-written kernels (or
+their plain versions for CPU tensors), 'gather' / 'xla' (the one-hot LBS
+form) / 'flax' the plain module path.
 `sparse` and `pg_impl` stand for the JAX package's environment variables
 HOSNERF_SPARSE and HOSNERF_PG_IMPL; the port reads no environment.
 """
@@ -40,6 +41,7 @@ from hosnerf_tpu_torch.models.layers import (normal_, resolve_compute_dtype,
 from hosnerf_tpu_torch.ops import lbs as lbs_ops
 from hosnerf_tpu_torch.ops.cuda import lbs as cuda_lbs
 from hosnerf_tpu_torch.ops.cuda import mlp as cuda_mlp
+from hosnerf_tpu_torch.parallel import mesh
 
 
 class HumanObjectField(nn.Module):
@@ -366,8 +368,7 @@ class HumanObjectField(nn.Module):
             mids = 0.5 * (z[..., 1:] + z[..., :-1])
             upper = torch.cat([mids, z[..., -1:]], -1)
             lower = torch.cat([z[..., :1], mids], -1)
-            u = torch.rand(z.shape, generator=generator,
-                           device=generator.device, dtype=z.dtype)
+            u = mesh.rand_rows(z.shape, generator, z.dtype)
             si["z_vals"] = z = lower + (upper - lower) * u.to(z.device)
             si["pts"] = (batch["rays_o"][:, None, :]
                          + batch["rays_d"][:, None, :] * z[..., None])

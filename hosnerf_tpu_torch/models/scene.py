@@ -33,6 +33,7 @@ from hosnerf_tpu_torch.models.human_components import linear_cdt
 from hosnerf_tpu_torch.models.layers import (normal_, resolve_compute_dtype,
                                              resolve_device, resolve_remat,
                                              uniform_)
+from hosnerf_tpu_torch.parallel import mesh
 
 # MipMLP's fixed architecture (the JAX module's defaults; no config sets
 # them): IPE degrees 0-11 over the icosahedron-2 basis, a 64-d state
@@ -220,12 +221,10 @@ class SceneField(nn.Module):
         if mlp.density_noise <= 0.0 and (mlp.disable_rgb
                                          or mlp.bottleneck_noise <= 0.0):
             return None
-        u = [torch.rand(shape, generator=generator,
-                        device=generator.device).to(device)]
+        u = [mesh.rand_rows(shape, generator).to(device)]
         if not mlp.disable_rgb:
-            u.append(torch.rand(shape + (BOTTLENECK_WIDTH,),
-                                generator=generator,
-                                device=generator.device).to(device))
+            u.append(mesh.rand_rows(shape + (BOTTLENECK_WIDTH,),
+                                    generator).to(device))
         return u
 
     def _apply_mlp(self, i_level: int, lifted, viewdirs, state_idx, noise):

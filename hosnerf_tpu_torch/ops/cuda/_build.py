@@ -4,12 +4,17 @@ libraries with a plain C interface, and load them with ctypes.
 Each `<name>.cu` becomes `_build/<name>-<hash>.so`, where the hash covers
 the source, the shared headers (`csrc/*.cuh`) and the flags, so an edited
 source rebuilds and an unchanged one is reused. Nothing is compiled at import: `load(name)` builds on first
-use, and `build_all()` starts one `nvcc` per source in parallel.
+use, and `build_all()` starts one `nvcc` per source in parallel. Builds
+hold a file lock on `_build/.lock`, so that ranks started together
+(torchrun, `entry.dryrun_multidevice`) build each library once and load
+it whole.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -54,11 +59,28 @@ def target_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock on _build/.lock, across processes."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     """Compile every missing library, one nvcc process per source, all
-    started together. Returns {name: ptxas report} for what was built;
-    raises RuntimeError with the compiler output if any build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    started together, under the build lock. Returns {name: ptxas report}
+    for what was built; raises RuntimeError with the compiler output if
+    any build fails."""
+    with _build_lock():
+        return _build_missing(names)
+
+
+def _build_missing(names: Iterable[str]) -> Dict[str, str]:
     procs: List = []
     for name in names:
         out = target_path(name)

@@ -17,6 +17,12 @@ The port's models hold their weights, so the loop carries no params: the
 step updates them in place and the checkpoints read them from `models`.
 The JAX loop's per-step key split becomes a CPU `torch.Generator` that
 the loop owns and hands to every step.
+
+Under a process group (`parallel/`) every rank runs this loop on its
+share of the same global batch (checked on the first step), with the same
+generator state; rank 0 alone writes the logs, TensorBoard events,
+profile and checkpoints, and the ranks wait for each checkpoint to be
+written.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from hosnerf_tpu_torch.parallel import distributed, mesh
 from hosnerf_tpu_torch.train import checkpoints as ckpt_lib
 from hosnerf_tpu_torch.utils.tb_writer import TBWriter
 
@@ -81,6 +88,16 @@ class MetricLogger:
     def close(self):
         self._f.close()
         self._tb.close()
+
+
+class _Silent:
+    """The logger of a rank other than 0: logs nothing."""
+
+    def log(self, *args, **kwargs):
+        pass
+
+    def close(self):
+        pass
 
 
 def check_finite(step: int, loss) -> None:
@@ -176,25 +193,39 @@ def run_training(
     saved step is the next one to run. progress_fn(step) -> dict (may
     hold 'is_empty_img') runs at PROGRESS_STEPS and every
     `progress_every`. profile_steps=(a, b) traces steps a..b with
-    torch.profiler into <logdir>/profile/trace.json. Returns the
-    generator."""
+    torch.profiler into <logdir>/profile/trace.json. Under a process
+    group every rank calls this (val_fn and progress_fn render on every
+    rank) and rank 0 writes. Returns the generator."""
     gen = generator if generator is not None else torch.Generator()
     if generator is None:
         gen.manual_seed(0)
-    logger = MetricLogger(logdir, log_every)
+    primary = distributed.is_primary()
+    logger = MetricLogger(logdir, log_every) if primary else _Silent()
     ckptr = ckpt_lib.BestLastCheckpointer(os.path.join(logdir, "ckpt"))
 
     def train_state(next_step):
         return ckpt_lib.pack_train_state(models, optimizer, next_step, gen)
+
+    def save_last(next_step):
+        if primary:
+            ckptr.save_last(train_state(next_step))
+        distributed.barrier()
+
+    def save_best(next_step, monitored):
+        if primary:
+            ckptr.maybe_save_best(train_state(next_step), monitored)
+        distributed.barrier()
 
     fetcher = (BatchPrefetcher(sample_batch, prefetch) if prefetch
                else None)
     prof = None
     try:
         for step in range(start_step, num_steps):
-            if profile_steps and step == profile_steps[0]:
+            if primary and profile_steps and step == profile_steps[0]:
                 prof = _start_profile()
             batch = fetcher.get() if fetcher else sample_batch()
+            if step == start_step:
+                mesh.check_same_batch(batch)
             aux = step_fn(batch, step, gen)
             if prof is not None and step == profile_steps[1]:
                 if torch.cuda.is_available():
@@ -211,15 +242,14 @@ def run_training(
             if step % 500 == 0:
                 check_finite(step, aux["loss"])
             if checkpoint_every and step and step % checkpoint_every == 0:
-                ckptr.save_last(train_state(step + 1))
+                save_last(step + 1)
             if val_fn is not None and step and step % val_every == 0:
-                monitored = val_fn(step)
-                ckptr.maybe_save_best(train_state(step + 1), monitored)
+                save_best(step + 1, val_fn(step))
             if progress_fn is not None and step and (
                     step in PROGRESS_STEPS
                     or (progress_every and step % progress_every == 0)):
                 prog = progress_fn(step)
-                if prog:
+                if prog and primary:
                     print(f"[progress {step}] " + " ".join(
                         f"{k}={v}" for k, v in prog.items()
                         if v is not None), flush=True)
@@ -229,13 +259,14 @@ def run_training(
                            "images.')")
                     if abort_on_empty:
                         raise EmptyRenderError(msg)
-                    print("WARNING: " + msg, flush=True)
+                    if primary:
+                        print("WARNING: " + msg, flush=True)
     finally:
         if fetcher:
             fetcher.close()
         if prof is not None:
             prof.stop()
 
-    ckptr.save_last(train_state(num_steps))
+    save_last(num_steps)
     logger.close()
     return gen

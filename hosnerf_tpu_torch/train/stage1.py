@@ -7,6 +7,12 @@ level's colour. The optimizer is optax's chain(clip_by_global_norm,
 adam(warmup_log_lerp)) written out: the gradients scaled by max_norm /
 global norm only where the norm reaches max_norm (no epsilon), then one
 Adam update at the schedule's rate for the count of updates made so far.
+
+On a batch split over ranks (`parallel/mesh.py`) the charbonnier term
+takes the global mse (each rank's mean over its rays / world, summed over
+the ranks), the proposal and distortion terms are this rank's means /
+world (their sum over the ranks is the global mean), and the gradients
+are summed over the ranks before the clip and Adam.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 
 from hosnerf_tpu_torch.models import scene
 from hosnerf_tpu_torch.models.state import state_index
+from hosnerf_tpu_torch.parallel import mesh
 from hosnerf_tpu_torch.train.schedules import warmup_log_lerp
 
 
@@ -111,13 +118,22 @@ def apply_updates(cfg: Stage1Config, model: torch.nn.Module,
     opt.updates += 1
 
 
-def compute_losses(cfg: Stage1Config, renderings, ray_history, target):
-    """(loss, {'mse', 'psnr'}) of the last level's rgb against `target`."""
+def compute_losses(cfg: Stage1Config, renderings, ray_history, target,
+                   shard: mesh.RayShard = mesh.ONE):
+    """(loss, {'mse', 'psnr'}) of the last level's rgb against `target`.
+    On this rank's share of a split batch, `loss` is this rank's share of
+    the objective (summed over the ranks: the global loss; its gradient
+    summed over the ranks: the global gradient) and mse, psnr are the
+    global ones."""
     rgb = renderings[-1]["rgb"]
     mse = torch.mean((rgb - target) ** 2)
+    if shard.world > 1:
+        mse = shard.total(mse / shard.world)
     loss = torch.sqrt(mse + cfg.charb_padding ** 2) * cfg.data_loss_mult
     loss = loss + scene.interlevel_loss(ray_history) * cfg.interlevel_loss_mult
     loss = loss + scene.distortion_loss(ray_history) * cfg.distortion_loss_mult
+    if shard.world > 1:
+        loss = loss / shard.world
     psnr = -10.0 * torch.log(mse) / math.log(10.0)
     return loss, {"mse": mse, "psnr": psnr}
 
@@ -138,36 +154,58 @@ def make_loss_fn(cfg: Stage1Config, model: scene.SceneField,
                  transitions=None):
     """loss_fn(batch, step, generator=None) -> (loss, aux): the scene at
     train_fraction(step), randomized with the generator's jitter when one
-    is given, each ray's state from its `times`."""
+    is given (on a rank's share of a batch: the whole batch's draws, this
+    rank's rows), each ray's state from its `times`."""
     trans = _transitions(transitions)
 
     def loss_fn(batch: Dict[str, torch.Tensor], step: int,
                 generator: Optional[torch.Generator] = None):
+        shard = mesh.shard_of(batch)
         s_idx = state_index(batch["times"], trans)
-        renderings, ray_history = model(
-            batch, train_fraction(cfg, step), True, s_idx, cfg.near, cfg.far,
-            generator=generator)
-        return compute_losses(cfg, renderings, ray_history, batch["target"])
+        with shard.draws():
+            renderings, ray_history = model(
+                batch, train_fraction(cfg, step), True, s_idx, cfg.near,
+                cfg.far, generator=generator)
+        return compute_losses(cfg, renderings, ray_history, batch["target"],
+                              shard)
 
     return loss_fn
+
+
+def make_grad_fn(cfg: Stage1Config, model: scene.SceneField,
+                 transitions=None):
+    """grad_fn(batch, step, generator=None) -> aux ('loss', 'mse', 'psnr',
+    detached; the global values on a split batch): one forward and
+    backward, the gradients summed over the ranks of a split batch and
+    left in the parameters' .grad."""
+    loss_fn = make_loss_fn(cfg, model, transitions)
+
+    def grad_fn(batch: Dict[str, torch.Tensor], step: int,
+                generator: Optional[torch.Generator] = None):
+        shard = mesh.shard_of(batch)
+        model.zero_grad(set_to_none=True)
+        loss, aux = loss_fn(batch, step, generator)
+        loss.backward()
+        shard.reduce_grads(model.parameters())
+        aux = {k: v.detach() for k, v in aux.items()}
+        aux["loss"] = shard.sum(loss.detach())
+        return aux
+
+    return grad_fn
 
 
 def make_train_step(cfg: Stage1Config, model: scene.SceneField,
                     opt: torch.optim.Adam, transitions=None):
     """train_step(batch, step, generator=None) -> aux ('loss', 'mse',
-    'psnr', detached): one forward (randomized with the generator's
-    jitter when one is given), backward, and `apply_updates`. The model's
-    parameters change in place."""
-    loss_fn = make_loss_fn(cfg, model, transitions)
+    'psnr', detached): `make_grad_fn`'s forward (randomized with the
+    generator's jitter when one is given) and backward, then
+    `apply_updates`. The model's parameters change in place."""
+    grad_fn = make_grad_fn(cfg, model, transitions)
 
     def train_step(batch: Dict[str, torch.Tensor], step: int,
                    generator: Optional[torch.Generator] = None):
-        opt.zero_grad(set_to_none=True)
-        loss, aux = loss_fn(batch, step, generator)
-        loss.backward()
+        aux = grad_fn(batch, step, generator)
         apply_updates(cfg, model, opt)
-        aux = {k: v.detach() for k, v in aux.items()}
-        aux["loss"] = loss.detach()
         return aux
 
     return train_step

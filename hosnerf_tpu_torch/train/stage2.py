@@ -12,6 +12,15 @@ evaluates its schedule at the pre-increment count).
 HOSNERF_SPARSE=0), `pg_impl` picks its inverse-LBS row order (the JAX
 package's HOSNERF_PG_IMPL), and `mlp_chunk` / `remat` reshape its module
 MLPs (`models/human.py::_module_mlp`) as the JAX config's keys do.
+
+On a batch whose rays are split over ranks (`parallel/mesh.py`), as the
+JAX package splits them: every rank draws the whole batch's jitter and
+keeps its rows, the rendered colour is gathered (differentiably) for the
+patches, whose mse and LPIPS every rank computes alike; the flow and
+cycle terms are this rank's numerators over denominators summed over the
+ranks. The patch terms enter the backward / world, the ray terms as they
+are, and the gradients are summed over the ranks once: the one-rank
+gradient.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import torch
 
 from hosnerf_tpu_torch.models.human import HumanObjectField
 from hosnerf_tpu_torch.models.state import state_index
+from hosnerf_tpu_torch.parallel import mesh
 from hosnerf_tpu_torch.train.schedules import exp_decay
 
 
@@ -116,6 +126,14 @@ def set_learning_rates(opt: torch.optim.Optimizer, cfg: Stage2Config,
         g["lr"] = exp_decay(step, g["base_lr"], cfg.lrate_decay)
 
 
+def apply_updates(cfg, opt: torch.optim.Adam) -> None:
+    """One Adam update from the parameters' gradients at the learning
+    rates of the update count so far, which then counts it."""
+    set_learning_rates(opt, cfg, opt.updates)
+    opt.step()
+    opt.updates += 1
+
+
 # --------------------------------------------------------------------------
 # losses
 # --------------------------------------------------------------------------
@@ -129,11 +147,13 @@ def unpack_patches(rgb_rays, patch_masks, bgcolor, n_patches: int,
 
 
 def flow_loss(ray_grid, newsmpl_to_camera_prev, intrinsics_prev, weights,
-              deform_pts_prev):
+              deform_pts_prev, shard: mesh.RayShard = mesh.ONE):
     """Induced-flow MAE against the target flow, weighted by the
     compositing weights and the flow-validity mask. |z| is clamped away
     from 0 so that samples with no forward-LBS support, whose positions
-    are meaningless and whose weight is ~0, cannot make inf * 0 = NaN."""
+    are meaningless and whose weight is ~0, cannot make inf * 0 = NaN.
+    On a rank's share of a split batch the mask's count is summed over
+    the ranks."""
     hom = torch.cat([deform_pts_prev,
                      torch.ones_like(deform_pts_prev[..., :1])], -1)
     cam = torch.einsum("ji,rsi->rsj", newsmpl_to_camera_prev, hom)[..., :3]
@@ -148,26 +168,51 @@ def flow_loss(ray_grid, newsmpl_to_camera_prev, intrinsics_prev, weights,
     mask = grid[..., 4:5]
     num = torch.sum(torch.abs(induced - grid[..., 2:4]) * weights[..., None]
                     * mask)
-    return num / (torch.sum(mask) + 1e-8) / induced.shape[-1]
+    return num / (shard.sum(torch.sum(mask)) + 1e-8) / induced.shape[-1]
 
 
-def cycle_loss(observe_pts, deform_pts, mask):
+def cycle_loss(observe_pts, deform_pts, mask,
+               shard: mesh.RayShard = mesh.ONE):
     """Masked mean of ||observe - deform||^2 / 2 over the fg-selected
-    samples."""
+    samples (the count summed over the ranks of a split batch)."""
     sq = torch.sum((observe_pts - deform_pts) ** 2, dim=-1) / 2.0
-    return torch.sum(sq * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(sq * mask) / torch.clamp(shard.sum(torch.sum(mask)),
+                                              min=1.0)
+
+
+REPLICATED_TERMS = ("lpips", "mse")
+RAY_TERMS = ("flow", "cycle")
+
+
+def shard_objective(cfg, losses: Dict[str, torch.Tensor],
+                    shard: mesh.RayShard, total: torch.Tensor):
+    """(objective, losses) on one rank. One rank: (total, losses) as they
+    are. A split batch: the patch terms / world plus this rank's ray
+    terms (the sum over the ranks is the global loss, and so is the
+    gradient), and the ray terms' reported values summed over the
+    ranks."""
+    if shard.world == 1:
+        return total, losses
+    rep = sum(getattr(cfg, f"w_{k}") * losses[k] for k in REPLICATED_TERMS)
+    loc = sum(getattr(cfg, f"w_{k}") * losses[k] for k in RAY_TERMS)
+    losses = {**losses, **{k: shard.sum(losses[k]) for k in RAY_TERMS}}
+    return rep / shard.world + loc, losses
 
 
 def make_loss_fn(cfg: Stage2Config, model: HumanObjectField,
                  lpips_apply: Optional[Callable] = None):
     """loss_fn(batch, iter_val, state_idx, generator=None) -> (total,
     losses). lpips_apply: callable (pred_nhwc, tgt_nhwc in [-1, 1]) -> [N],
-    or None (lpips term 0)."""
+    or None (lpips term 0). On a rank's share of a split batch `total` is
+    this rank's share of the objective (`shard_objective`) and `losses`
+    hold the global terms."""
 
     def loss_fn(batch, iter_val, state_idx, generator=None):
-        out = model(batch, iter_val, state_idx, is_train=True,
-                    perturb=cfg.perturb, generator=generator)
-        pred = unpack_patches(out["rgb"], batch["patch_masks"],
+        shard = mesh.shard_of(batch)
+        with shard.draws():
+            out = model(batch, iter_val, state_idx, is_train=True,
+                        perturb=cfg.perturb, generator=generator)
+        pred = unpack_patches(shard.gather(out["rgb"]), batch["patch_masks"],
                               batch["bgcolor"], cfg.n_patches,
                               cfg.patch_size)
         target = batch["target_patches"]
@@ -178,18 +223,43 @@ def make_loss_fn(cfg: Stage2Config, model: HumanObjectField,
                            else pred.new_zeros(()))
         losses["cycle"] = cycle_loss(out["observe_pts"],
                                      out["deform_pts_final"],
-                                     out["cycle_mask"])
+                                     out["cycle_mask"], shard)
         gate = (batch["time"] > 0.005).float()
         losses["flow"] = gate * flow_loss(
             batch["ray_grid"], batch["newsmpl_to_camera_prev"],
             batch["intrinsics_prev"], out["weights"],
-            out["deform_pts_prev_final"])
+            out["deform_pts_prev_final"], shard)
         total = (cfg.w_lpips * losses["lpips"] + cfg.w_mse * losses["mse"]
                  + cfg.w_flow * losses["flow"]
                  + cfg.w_cycle * losses["cycle"])
-        return total, losses
+        return shard_objective(cfg, losses, shard, total)
 
     return loss_fn
+
+
+def make_grad_fn(loss_fn: Callable, models, transitions=None):
+    """grad_fn(batch, iter_val, generator=None) -> losses (detached,
+    'loss' the total; global values on a split batch): one forward of
+    `loss_fn` with the batch's state, backward, and the gradients of
+    `models`' parameters summed over the ranks of a split batch, left in
+    .grad."""
+    trans = (torch.as_tensor(transitions, dtype=torch.float32)
+             if transitions is not None and len(transitions) else None)
+
+    def grad_fn(batch: Dict[str, torch.Tensor], iter_val,
+                generator: Optional[torch.Generator] = None):
+        shard = mesh.shard_of(batch)
+        s_idx = state_index(batch["time"], trans)
+        for m in models:
+            m.zero_grad(set_to_none=True)
+        loss, losses = loss_fn(batch, iter_val, s_idx, generator)
+        loss.backward()
+        shard.reduce_grads(p for m in models for p in m.parameters())
+        losses = {k: v.detach() for k, v in losses.items()}
+        losses["loss"] = shard.sum(loss.detach())
+        return losses
+
+    return grad_fn
 
 
 def make_train_step(cfg: Stage2Config, model: HumanObjectField,
@@ -199,21 +269,13 @@ def make_train_step(cfg: Stage2Config, model: HumanObjectField,
     'loss' the total): one forward with is_train=True, backward, and one
     Adam update with the learning rates of the update count so far. The
     model's parameters change in place."""
-    trans = (torch.as_tensor(transitions, dtype=torch.float32)
-             if transitions is not None and len(transitions) else None)
-    loss_fn = make_loss_fn(cfg, model, lpips_apply)
+    grad_fn = make_grad_fn(make_loss_fn(cfg, model, lpips_apply), [model],
+                           transitions)
 
     def train_step(batch: Dict[str, torch.Tensor], iter_val,
                    generator: Optional[torch.Generator] = None):
-        s_idx = state_index(batch["time"], trans)
-        opt.zero_grad(set_to_none=True)
-        loss, losses = loss_fn(batch, iter_val, s_idx, generator)
-        loss.backward()
-        set_learning_rates(opt, cfg, opt.updates)
-        opt.step()
-        opt.updates += 1
-        losses = {k: v.detach() for k, v in losses.items()}
-        losses["loss"] = loss.detach()
+        losses = grad_fn(batch, iter_val, generator)
+        apply_updates(cfg, opt)
         return losses
 
     return train_step

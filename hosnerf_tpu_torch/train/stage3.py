@@ -14,6 +14,15 @@ with the stage-2 exponential decay at the pre-increment update count.
 The proposal MLPs get no gradient in this step (their samples are
 detached, and no proposal loss is taken), so Adam leaves them as they
 are, as optax's zero updates do.
+
+A batch split over ranks is trained as in stage 2 (`train/stage2.py`):
+the composed colour gathered for the patch terms, the flow and cycle
+terms over this rank's rays with denominators summed over the ranks,
+the gradients summed once. The steps reduce the gradients themselves
+rather than through DistributedDataParallel: they reach the models
+through `composed_forward` and the sorted path, not through `forward`
+alone, and the proposal MLPs take no gradient at all (None on every
+rank alike, which the reduction skips).
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ import torch
 from hosnerf_tpu_torch.models import composed
 from hosnerf_tpu_torch.models import scene as scene_mod
 from hosnerf_tpu_torch.models.human import HumanObjectField
-from hosnerf_tpu_torch.models.state import state_index
+from hosnerf_tpu_torch.parallel import mesh
 from hosnerf_tpu_torch.train import stage2 as s2
 
 
@@ -155,9 +164,11 @@ def composed_forward(cfg: Stage3Config, scene: scene_mod.SceneField,
     return composed.compose(ray_history[-1], human_out, batch), human_out
 
 
-def composed_patches(cfg: Stage3Config, comp, batch) -> torch.Tensor:
-    """The composed colour as the batch's patches [P, S, S, 3]."""
-    return s2.unpack_patches(comp["rgb"], batch["patch_masks"],
+def composed_patches(cfg: Stage3Config, comp, batch,
+                     shard: mesh.RayShard = mesh.ONE) -> torch.Tensor:
+    """The composed colour (every rank's rays, gathered) as the batch's
+    patches [P, S, S, 3]."""
+    return s2.unpack_patches(shard.gather(comp["rgb"]), batch["patch_masks"],
                              batch["bgcolor"], cfg.n_patches, cfg.patch_size)
 
 
@@ -171,17 +182,19 @@ def image_losses(pred: torch.Tensor, target: torch.Tensor,
                       if lpips_apply is not None else pred.new_zeros(()))}
 
 
-def human_losses(comp, human_out, batch) -> Dict[str, torch.Tensor]:
+def human_losses(comp, human_out, batch, shard: mesh.RayShard = mesh.ONE
+                 ) -> Dict[str, torch.Tensor]:
     """{'cycle', 'flow'}: the human field's cycle term, and its flow term
-    weighted by the composed human weights, gated by `time > 0.005`."""
+    weighted by the composed human weights, gated by `time > 0.005` (over
+    a split batch: this rank's numerators, the global counts)."""
     gate = (batch["time"] > 0.005).float()
     return {"cycle": s2.cycle_loss(human_out["observe_pts"],
                                    human_out["deform_pts_final"],
-                                   human_out["cycle_mask"]),
+                                   human_out["cycle_mask"], shard),
             "flow": gate * s2.flow_loss(
                 batch["ray_grid"], batch["newsmpl_to_camera_prev"],
                 batch["intrinsics_prev"], comp["human_weights"],
-                human_out["deform_pts_prev_final"])}
+                human_out["deform_pts_prev_final"], shard)}
 
 
 def weighted_total(cfg: Stage3Config, losses: Dict[str, torch.Tensor]):
@@ -195,18 +208,33 @@ def make_loss_fn(cfg: Stage3Config, scene: scene_mod.SceneField,
                  human: HumanObjectField,
                  lpips_apply: Optional[Callable] = None):
     """loss_fn(batch, iter_val, state_idx, generator=None) -> (total,
-    losses); lpips_apply as in stage 2, the generator a CPU one."""
+    losses); lpips_apply as in stage 2, the generator a CPU one. On a
+    rank's share of a split batch, `total` is this rank's share of the
+    objective and `losses` the global terms (`stage2.shard_objective`)."""
 
     def loss_fn(batch, iter_val, state_idx, generator=None):
-        comp, human_out = composed_forward(cfg, scene, human, batch,
-                                           iter_val, state_idx, generator,
-                                           is_train=True)
-        losses = {**image_losses(composed_patches(cfg, comp, batch),
+        shard = mesh.shard_of(batch)
+        with shard.draws():
+            comp, human_out = composed_forward(cfg, scene, human, batch,
+                                               iter_val, state_idx,
+                                               generator, is_train=True)
+        losses = {**image_losses(composed_patches(cfg, comp, batch, shard),
                                  batch["target_patches"], lpips_apply),
-                  **human_losses(comp, human_out, batch)}
-        return weighted_total(cfg, losses), losses
+                  **human_losses(comp, human_out, batch, shard)}
+        return s2.shard_objective(cfg, losses, shard,
+                                  weighted_total(cfg, losses))
 
     return loss_fn
+
+
+def make_grad_fn(cfg: Stage3Config, scene: scene_mod.SceneField,
+                 human: HumanObjectField, transitions=None,
+                 lpips_apply: Optional[Callable] = None):
+    """grad_fn(batch, iter_val, generator=None) -> losses: the composed
+    forward and backward, both models' gradients summed over the ranks of
+    a split batch and left in .grad (`stage2.make_grad_fn`)."""
+    return s2.make_grad_fn(make_loss_fn(cfg, scene, human, lpips_apply),
+                           [scene, human], transitions)
 
 
 def make_train_step(cfg: Stage3Config, scene: scene_mod.SceneField,
@@ -216,21 +244,12 @@ def make_train_step(cfg: Stage3Config, scene: scene_mod.SceneField,
     'loss' the total; the generator a CPU one): one composed forward,
     backward, and one Adam update at the learning rates of the update
     count so far. Both models' parameters change in place."""
-    trans = (torch.as_tensor(transitions, dtype=torch.float32)
-             if transitions is not None and len(transitions) else None)
-    loss_fn = make_loss_fn(cfg, scene, human, lpips_apply)
+    grad_fn = make_grad_fn(cfg, scene, human, transitions, lpips_apply)
 
     def train_step(batch: Dict[str, torch.Tensor], iter_val,
                    generator: Optional[torch.Generator] = None):
-        s_idx = state_index(batch["time"], trans)
-        opt.zero_grad(set_to_none=True)
-        loss, losses = loss_fn(batch, iter_val, s_idx, generator)
-        loss.backward()
-        s2.set_learning_rates(opt, cfg, opt.updates)
-        opt.step()
-        opt.updates += 1
-        losses = {k: v.detach() for k, v in losses.items()}
-        losses["loss"] = loss.detach()
+        losses = grad_fn(batch, iter_val, generator)
+        s2.apply_updates(cfg, opt)
         return losses
 
     return train_step

@@ -658,7 +658,8 @@ def test_pipeline_runs_without_cv2_pyyaml_or_jax(tmp_path):
     """In a fresh interpreter where importing cv2, yaml, jax or the JAX
     package fails: write a mini capture, load it with both loaders
     (scaled-world cameras included), draw batches, move one to the
-    device and read every config file."""
+    device and read every config file; the data-parallel modules, the
+    dry-run entry and the timing helpers import too."""
     code = f"""
 import sys
 class Block:
@@ -671,6 +672,9 @@ from hosnerf_tpu_torch.config import ginlite, yamlcfg
 from hosnerf_tpu_torch.data import (batches, human_dataset, scene_loader,
                                     scene_pipeline, synthetic)
 from hosnerf_tpu_torch.train import stage1
+from hosnerf_tpu_torch import entry
+from hosnerf_tpu_torch.parallel import distributed, mesh
+from hosnerf_tpu_torch.utils import benchtools
 root = {str(tmp_path)!r}
 synthetic.write_mini_dataset(os.path.join(root, 'cap'), 4, 16)
 sd = scene_loader.load_nerf_360_v2(root, 'cap', factor=2)

@@ -140,8 +140,13 @@ def test_trilinear_and_gather_lbs_match_jax(pose):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **F32)
     x, w = tlbs.inverse_warp(_t(pts), *(_t(a) for a in args), impl="gather")
     np.testing.assert_allclose(x.numpy(), np.asarray(ref[0]), **F32)
+    # 'xla' is the one-hot form (tests/test_torch_lbs_onehot.py holds it
+    # to JAX's); an unknown impl raises
+    x, w = tlbs.inverse_warp(_t(pts), *(_t(a) for a in args), impl="xla")
+    np.testing.assert_allclose(x.numpy(), np.asarray(
+        jlbs.inverse_lbs(pts, *args)[0]), **F32)
     with pytest.raises(ValueError):
-        tlbs.inverse_warp(_t(pts), *(_t(a) for a in args), impl="xla")
+        tlbs.inverse_warp(_t(pts), *(_t(a) for a in args), impl="bogus")
 
 
 def _flax_params(module, *args):
