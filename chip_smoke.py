@@ -165,7 +165,23 @@ Phases, each of which fails the run:
             trunks, same weights), parameter by parameter
             (`train/gradcheck.py`), the sorted and the dense path of the
             stage-2 step and the stage-3 step (without its LPIPS term, see
-            train/gradcheck.py), each on the training batch.
+            train/gradcheck.py), each on the training batch;
+  tools     the port's chip tools (hosnerf_tpu_torch/tools/) through
+            their entry points: the convergence probe's loop
+            (`tools/convergence_probe.py`) for PROBE_STEPS steps of stage 1
+            and of stage 2 on the probe's 20-frame 48 x 48 capture, each
+            held to the JAX package's committed curve in the [500, 1000)
+            window (at most BAND_DB below it), B1-B5 launched per stage-2
+            step as PER_STEP; the parity runbook (a subprocess driving the
+            CLI, RUNBOOK_STEPS steps per stage at the production sizes on
+            that capture), every metric of its PARITY_RUN.md finite;
+            grad_parity (sorted vs dense stage-3 gradients on the card)
+            at PARITY_PATCHES, within its TOL and finite; the 8-patch
+            stage-3 step under the four remat splits (time_step's ms/step,
+            memcheck's peak device memory, the losses finite);
+            profile_step's components at 2 patches and one profiled step
+            by group; fg_density_study's live fractions; each sub-phase's
+            wall time.
 
 Stdout ends with the card's name and power limit, one JSON line of kernel
 results and one JSON status line. The render kernels' entries report the
@@ -2020,70 +2036,20 @@ def stage3_phase(torch, device, kind, lp, cfg=None, steps=STAGE3_STEPS):
     return cfg, scene, human, ms, lambda: step(batch, TRAIN_ITER, jitter())
 
 
-# device-time groups of a stage-3 step or composed frame, by kernel name
-# (lower case): the human field's hand-written kernels first
-# (LBS_PROFILE_PARTS), then Adam's multi-tensor kernels, convolutions
-# (cuDNN / implicit GEMM: bf16 ones are the human's weight-volume decoder,
-# f32 ones LPIPS), the remaining GEMMs (the scene's MLPs, with the small
-# human pose-decoder and head products), and everything else (sampling,
-# sorting, compositing, elementwise glue)
-CONV_KEYS = ("conv", "implicit", "cudnn", "dgrad", "wgrad", "fprop")
-GEMM_KEYS = ("gemm", "nvjet", "cutlass", "xmma", "sm90_")
-GLUE = "sampling, compositing, glue"
-
-
-def stage3_groups(events):
-    """({group: device ms}, [(ms, kernel) of the glue group, largest
-    first]) of a profiled stage-3 step's or frame's kernel records."""
-    from torch.autograd import DeviceType
-    human = {k for parts in LBS_PROFILE_PARTS.values()
-             for _, ks in parts for k in ks}
-    groups = dict.fromkeys(("human kernels (B1-B5)", "Adam",
-                            "convolutions bf16 (decoder)",
-                            "convolutions f32 (LPIPS)",
-                            "GEMMs (scene MLPs, small human heads)", GLUE),
-                           0.0)
-    glue = []
-    for e in events:
-        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
-            continue
-        name, ms = e.key.lower(), e.self_device_time_total / 1e3
-        if any(k.lower() in name for k in human):
-            g = "human kernels (B1-B5)"
-        elif "multi_tensor_apply" in name or "adam" in name:
-            g = "Adam"
-        elif any(k in name for k in CONV_KEYS):
-            g = ("convolutions bf16 (decoder)"
-                 if "bf16" in name or "bfloat16" in name
-                 else "convolutions f32 (LPIPS)")
-        elif any(k in name for k in GEMM_KEYS):
-            g = "GEMMs (scene MLPs, small human heads)"
-        else:
-            g = GLUE
-            glue.append((ms, e.key))
-        groups[g] += ms
-    return groups, sorted(glue, reverse=True)
-
-
 def profile_groups(torch, what: str, fn, ref_ms: float):
     """fn under torch.profiler (the `profile` helper), then once more with
-    the device only: its device time by group and the glue group's
-    largest kernels."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as tprofile
+    the device only: its device time by group of kernel names
+    (`hosnerf_tpu_torch/tools/common.py::device_groups`) and the glue
+    group's largest kernels."""
+    from hosnerf_tpu_torch.tools import common
     busy, _ = profile(torch, what, fn, ref_ms)
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    groups, glue = stage3_groups(prof.key_averages())
-    total = sum(groups.values())
+    total, groups, glue = common.profile_groups(fn, torch.device("cuda"))
     print(f"phase profile: {what}, device ms by group: "
           + "; ".join(f"{g} {ms:.3f} ({ms / total:.3f})"
                       for g, ms in groups.items())
           + f"; sum {total:.3f} (busy in the first profile {busy:.3f})",
           flush=True)
-    print(f"phase profile: {what}, largest {GLUE} kernels: "
+    print(f"phase profile: {what}, largest glue kernels: "
           + "; ".join(f"{ms:.3f} {name[:70]}" for ms, name in glue[:8]),
           flush=True)
 
@@ -2934,6 +2900,177 @@ def xla_chunk_check(torch, device, G=32):
     del model
 
 
+# ---------------------------------------------------------------------------
+# the port's chip tools (hosnerf_tpu_torch/tools/)
+# ---------------------------------------------------------------------------
+
+# the convergence probe's steps per stage, held to the JAX curves' first
+# window; grad_parity's patch counts; the 8-patch operating point; the
+# runbook's budget per stage and its render block (the card machine has
+# no video encoder: no freeview frames, 4 tpose views)
+PROBE_STEPS = 1000
+PARITY_PATCHES = (2, 8)
+POINT_PATCHES = 8
+RUNBOOK_STEPS = 5
+RUNBOOK_YAML = ("progress:\n  dump_interval: 1000000\nrender:\n"
+                "  freeview_frames: 0\n  tpose_views: 4\n"
+                "  tpose_resolution: 256\n")
+
+
+def probe_subphase(torch, device, path):
+    """The convergence probe's loop at PROBE_STEPS steps per stage on the
+    probe's capture, each stage held to the JAX curve's [500, 1000)
+    window (at most BAND_DB below it), B1-B5 launched per stage-2 step as
+    PER_STEP and none in stage 1."""
+    from hosnerf_tpu_torch.tools import convergence_probe as cp
+    jax_dir = os.path.join(REPO, "tools", "convergence")
+    wrappers = launch_counts()
+    for stage in cp.STAGES:
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.time()
+        rec = cp.RUNNERS[stage](path, PROBE_STEPS, device)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        rows, ok = cp.compare(stage, rec["curve"],
+                              cp.load_curve(jax_dir, stage))
+        cp.print_table(stage, rows)
+        print(f"phase tools: probe {stage}, {PROBE_STEPS} steps in "
+              f"{dt:.1f} s ({dt * 1e3 / PROBE_STEPS:.2f} ms/step with the "
+              f"batches); launches "
+              + " ".join(f"{k}={v}" for k, v in launches.items()),
+              flush=True)
+        check(bool(rows) and rows[0][0] == cp.WINDOWS[0] and ok,
+              f"probe {stage}: more than {cp.BAND_DB} dB below the JAX "
+              f"curve: {rows}")
+        per = PER_STEP if stage == "stage2" else {}
+        for k, n in launches.items():
+            check(n == per.get(k, 0) * PROBE_STEPS, f"probe {stage}: {k} "
+                  f"launched {n} times in {PROBE_STEPS} steps (expected "
+                  f"{per.get(k, 0)} per step)")
+
+
+def runbook_subphase(torch, root):
+    """The parity runbook (a subprocess, as a user runs it) at
+    RUNBOOK_STEPS steps per stage on the probe's capture <root>/mini, at
+    the production sizes of configs/Backpack.gin and default.yaml: every
+    stage's metrics in PARITY_RUN.md finite."""
+    import math
+    with open(os.path.join(REPO, "configs", "default.yaml")) as f:
+        yaml = f.read()
+    cfg = os.path.join(root, "runbook.yaml")
+    with open(cfg, "w") as f:
+        f.write(yaml + "\n" + RUNBOOK_YAML)
+    logbase = os.path.join(root, "parity")
+    res = subprocess.run(
+        [sys.executable, "-m", "hosnerf_tpu_torch.tools.parity_runbook",
+         "--datadir", root, "--scene", "mini", "--logbase", logbase,
+         "--cfg", cfg] + [a for i in (1, 2, 3)
+                          for a in (f"--steps{i}", str(RUNBOOK_STEPS))],
+        cwd=REPO, capture_output=True, text=True, timeout=900)
+    log = os.path.join(logbase, "runbook.log")
+    if res.returncode != 0 and os.path.exists(log):
+        with open(log) as f:
+            print(f.read()[-4000:], file=sys.stderr)
+    check(res.returncode == 0, f"parity runbook exited {res.returncode}: "
+          f"{res.stderr[-2000:]}")
+    with open(os.path.join(logbase, "PARITY_RUN.md")) as f:
+        report = f.read()
+    rows = [ln.split("|")[1:-1] for ln in report.splitlines()
+            if ln.startswith("| ") and not ln.startswith("| stage")]
+    print(report, flush=True)
+    vals = [(r[0].strip(), r[2].strip(), float(r[3])) for r in rows]
+    check({v[0] for v in vals} == {"scene", "human", "hosnerf"}
+          and all(math.isfinite(v[2]) for v in vals),
+          f"PARITY_RUN.md: a stage without metrics or a non-finite one: "
+          f"{vals}")
+
+
+def tools_phase(torch, device, kind):
+    """Phase tools (module docstring): the port's chip tools through their
+    entry points, each sub-phase's wall time printed."""
+    import math
+
+    from hosnerf_tpu_torch.tools import common
+    from hosnerf_tpu_torch.tools import convergence_probe as cp
+    from hosnerf_tpu_torch.tools import (fg_density_study, grad_parity,
+                                         memcheck_8patch, profile_step,
+                                         time_step)
+    t_phase = time.time()
+
+    def done(what, t0):
+        print(f"phase tools: {what} {time.time() - t0:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as root:
+        path = cp.write_capture(root)
+        t0 = time.time()
+        probe_subphase(torch, device, path)
+        done("convergence probe", t0)
+        t0 = time.time()
+        runbook_subphase(torch, root)
+        done("parity runbook", t0)
+
+    for n in PARITY_PATCHES:
+        t0 = time.time()
+        rels, bad = grad_parity.run(n, device)
+        print(f"phase tools: grad_parity at {n} patches, sorted vs dense "
+              f"stage-3 gradients, worst rel max-diff: "
+              f"{grad_parity.top(rels)} (tolerance {grad_parity.TOL}); "
+              f"problems {bad}", flush=True)
+        check(not bad and bool(rels) and rels[0][0] <= grad_parity.TOL,
+              f"grad_parity at {n} patches: {bad or rels[:1]}")
+        done(f"grad_parity {n}", t0)
+
+    wrappers = launch_counts()
+    for split in common.SPLITS:
+        t0 = time.time()
+        cfg = common.split_config(POINT_PATCHES, split)
+        step, batch, _ = common.stage3_step(cfg, device)
+        peak, loss0 = memcheck_8patch.peak_split(step, batch, device)
+        for w in wrappers.values():
+            w.launches = 0
+        ms, loss = time_step.time_split(step, batch)
+        launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+        rays = cfg.n_patches * cfg.patch_size ** 2
+        line = time_step.split_line(POINT_PATCHES, split, ms, loss, rays)
+        print(f"phase tools: 8-patch point {line}  peak "
+              f"{peak / 2 ** 30:.3f} GiB ({peak} bytes)  memcheck "
+              f"loss {loss0:.6f} on {kind}; launches "
+              + " ".join(f"{k}={v}" for k, v in launches.items()),
+              flush=True)
+        check(math.isfinite(loss) and math.isfinite(loss0),
+              f"8-patch step {split}: non-finite loss {loss0}, {loss}")
+        del step, batch
+        done(f"8-patch point {split[0]}:{split[1]}", t0)
+
+    t0 = time.time()
+    cfg = common.stage3_config(2, remat="none")
+    rows, (back, each, loss), (step, batch) = profile_step.components(
+        cfg, device)
+    busy, groups, glue = common.profile_groups(
+        lambda: step(batch, 100.0, common.jitter(0)), device)
+    print("phase tools: profile_step at 2 patches: "
+          + "; ".join(f"{n} {ms:.2f} ms" for n, ms in rows)
+          + f"; {profile_step.K} steps back to back {back:.2f} ms/step, "
+          f"each synchronised {each:.2f}, host share {each - back:.2f} ms; "
+          f"profiled step busy {busy:.3f} ms (idle share "
+          f"{1 - busy / back:.3f}): "
+          + "; ".join(f"{g} {ms:.3f}" for g, ms in groups.items()),
+          flush=True)
+    check(math.isfinite(loss), f"profile_step: non-finite loss {loss}")
+    del step, batch
+    done("profile_step", t0)
+
+    t0 = time.time()
+    fg = fg_density_study.study(2, device)
+    print("phase tools: fg_density_study at 2 patches: "
+          + "; ".join(f"{k} {v:.4f}" for k, v in fg.items()), flush=True)
+    done("fg_density_study", t0)
+    print(f"phase tools: {time.time() - t_phase:.1f} s", flush=True)
+
+
 def kernel_name(mangled: str) -> str:
     """A kernel's innermost name and integer template arguments from its
     mangled name (enough to tell the trunk kernels apart)."""
@@ -3161,6 +3298,9 @@ def run(torch, np) -> int:
     gradcheck_phase(torch, device)
     gradcheck_phase(torch, device, dense=True)
     gradcheck_phase(torch, device, stage3=True)
+    torch.cuda.empty_cache()
+
+    tools_phase(torch, device, kind)
 
     def entry(name, source, replaces, n, parts):
         lib = [results[p].get("library_ms") for p in parts]
