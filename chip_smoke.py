@@ -60,12 +60,15 @@ Phases, each of which fails the run:
             then one step under torch.profiler (device busy time and the
             trunk kernels' share of it);
   dense     the same training step on the dense per-sample path
-            (`sparse=False`: the Morton-order inverse core, the trunks and
-            the forward LBS on every sample): one warm-up and DENSE_STEPS
-            timed steps, launches read around them; one step with
-            lbs_impl='pallas_dense' (the ray-order core); one render chunk
-            through the dense path with each inverse core against the
-            sorted path on the same weights;
+            (`sparse=False`: the quad inverse core in its default 'sig'
+            order, row 1 over bp_prepare's sorted domain, as the JAX
+            package's default; the trunks and the forward LBS on every
+            sample): one warm-up and DENSE_STEPS timed steps, launches read
+            around them; the same with pg_sort='morton' (row 9, the JAX
+            package's legacy order); one step with lbs_impl='pallas_dense'
+            (the ray-order core); one render chunk through the dense path
+            with each inverse core (the quad core in both orders) against
+            the sorted path on the same weights;
   profile   one dense training step under torch.profiler;
   stage3    the stage-3 composed training step (`train/stage3.py`:
             init_state + make_train_step, the scene's proposal sampler and
@@ -181,7 +184,20 @@ Phases, each of which fails the run:
             memcheck's peak device memory, the losses finite);
             profile_step's components at 2 patches and one profiled step
             by group; fg_density_study's live fractions; each sub-phase's
-            wall time.
+            wall time;
+  bench tools  the JAX repo's remaining chip tools, ported: ref_flops'
+            count; bench_mlp (row 8 vs the module MLPs), bench_lbs (rows
+            1 and 4 through inverse_warp, row 7), bench_deconv (the
+            weight-volume decoder's phase and conv forms, ms and TFLOP/s)
+            and bench_lbs_pg (rows 6 and 1 on production-shaped points)
+            at production sizes with BENCH_ITERS calls each, their kernels'
+            launches read around each; the decoder's phase form against
+            its conv form on the card (values and gradients, DECONV_TOL)
+            and against itself on the CPU (PHASE_CARD_VS_CPU);
+            the pair densities of bench_lbs_pg, pg_density_study and
+            pg_window_study at 2 patches on the card against the same
+            counts on the CPU; bench_all's three stages (one JSON line
+            each).
 
 Stdout ends with the card's name and power limit, one JSON line of kernel
 results and one JSON status line. The render kernels' entries report the
@@ -230,14 +246,18 @@ STAGE3_DATA_STEPS = 3
 # phase ddp: ranks on the one card, and the worker's time limit (s)
 DDP_RANKS, DDP_TIMEOUT = 2, 300
 REPO = os.path.dirname(os.path.abspath(__file__))
-# per dense training step: the Morton-order inverse core and B4 once, the
-# trunks three times (non-rigid, canonical, and one forward non-rigid call
-# over both deform streams), the forward LBS once; lbs_impl='pallas_dense'
-# takes the ray-order core and, as the JAX package dispatches it, the
-# gather forward LBS
-PER_DENSE_STEP = {"inverse_core_pg": 1, "inverse_core_bwd": 1,
+# per dense training step: the quad inverse core once (in its default
+# 'sig' order row 1 over the sorted domain, with pg_sort='morton' row 9)
+# and B4 once, the trunks three times (non-rigid, canonical, and one
+# forward non-rigid call over both deform streams), the forward LBS once;
+# lbs_impl='pallas_dense' takes the ray-order core and, as the JAX package
+# dispatches it, the gather forward LBS
+PER_DENSE_STEP = {"inverse_core_pg_s": 1, "inverse_core_bwd": 1,
                   "fused_embed_trunk": 3, "fused_embed_trunk_bwd": 3,
                   "shared_blend_fwd": 1, "shared_blend_bwd": 1}
+PER_DENSE_MORTON_STEP = {**{k: v for k, v in PER_DENSE_STEP.items()
+                            if k != "inverse_core_pg_s"},
+                         "inverse_core_pg": 1}
 PER_PALLAS_DENSE_STEP = {"inverse_core": 1, "inverse_core_bwd": 1,
                          "fused_embed_trunk": 3, "fused_embed_trunk_bwd": 3}
 
@@ -1286,8 +1306,10 @@ def check_inverse_cores(torch, model, ti, results, iters):
                 x, rg, tg, vol_qz, prec, entry), iters)
             ms_b = time_ms(torch, lambda: clbs.inverse_core_bwd(
                 x, rg, tg, vol_qz, g, prec), iters)
+            # the quad core's Morton route is row 9 (pg_sort='morton')
+            kw = {"pg_sort": "morton"} if name == "inverse_core_pg" else {}
             ms_entry = time_ms(torch, lambda: entry(pts, rg, tg, vol_qz,
-                                                    prec), iters)
+                                                    prec, **kw), iters)
             bf = bound(nbytes(x, rg, tg, got) + vol_b,
                        f32_ops=OPS_B1_PAIR * pairs)
             bb = bound(nbytes(x, rg, tg, g, *dgot) + vol_b,
@@ -1307,7 +1329,18 @@ def check_inverse_cores(torch, model, ti, results, iters):
                 err=err_b, rel=rel_b, ms=ms_b, plain_ms=plain_b,
                 bound_ms=bb[0], bound_by=bb[1])
             del got, dgot, x, g
-        del ref, dref, ray_order
+        # the quad core's default route: bp_prepare's sorted domain, row 1
+        # at its k0, unsorted; the same values as every order
+        sig = clbs.inverse_core_pg(pts, rg, tg, vol_qz, prec)
+        check(bool(torch.equal(sig, ray_order[:n])),
+              f"quad core 'sig' {prec}: differs from the ray-order result")
+        ms_sig = time_ms(torch, lambda: clbs.inverse_core_pg(
+            pts, rg, tg, vol_qz, prec), iters)
+        print(f"quad core pg_sort='sig' {prec} (bp_prepare + B1 at k0 + "
+              f"unsort) ms={ms_sig:.4f}; pg_sort='morton' (row 9) ms="
+              f"{results[('inverse_core_pg', prec)]['core_ms']:.4f}",
+              flush=True)
+        del ref, dref, ray_order, sig
     # the library route computes the same function in any row order
     lib_f, lib_b = time_library_inverse(torch, pts_p, rg, tg, vol_qz, gacc,
                                         iters)
@@ -1685,7 +1718,8 @@ def entry_point_runs(torch, ti, batch, device):
 
 def check_dense_render(torch, model, batch):
     """One render chunk through the dense path with each inverse core (the
-    pair-grid cores 'quad', 'win', 'bp' and 'pallas_dense') against the
+    pair-grid cores 'quad' in both row orders, its 'sig' order running row
+    1, 'win', 'bp', and 'pallas_dense') against the
     sorted path on the same weights: the inverse LBS is per-sample the
     same computation in any row order, so rgb and alpha are held to the
     render check's tolerances relative to their maxima. Returns each
@@ -1696,9 +1730,14 @@ def check_dense_render(torch, model, batch):
     for w in wrappers.values():
         w.launches = 0
     model.sparse = False
-    for lbs_impl, pg_impl in (("auto", "quad"), ("auto", "win"),
-                              ("auto", "bp"), ("pallas_dense", "quad")):
+    for lbs_impl, pg_impl, pg_sort in (
+            ("auto", "quad", "sig"), ("auto", "quad", "morton"),
+            ("auto", "win", "sig"), ("auto", "bp", "sig"),
+            ("pallas_dense", "quad", "sig")):
         model.lbs_impl, model.pg_impl = lbs_impl, pg_impl
+        model.pg_sort = pg_sort
+        if pg_impl == "quad" and lbs_impl == "auto":
+            pg_impl = f"quad {pg_sort}"
         out = model(batch, ITER, state)
         for name in ("alpha", "rgb"):
             got, r = out[name], ref[name]
@@ -1715,8 +1754,10 @@ def check_dense_render(torch, model, batch):
                   f"dense render chunk ({lbs_impl}, {pg_impl}) {name} "
                   "disagrees with the sorted path")
     model.sparse, model.lbs_impl, model.pg_impl = True, "auto", "quad"
-    launches = {k: wrappers[k].launches for k in INVERSE_CORES}
-    check(launches == dict.fromkeys(INVERSE_CORES, 1),
+    model.pg_sort = "sig"
+    cores = INVERSE_CORES + ("inverse_core_pg_s",)
+    launches = {k: wrappers[k].launches for k in cores}
+    check(launches == dict.fromkeys(cores, 1),
           f"dense render chunks: inverse-core launches {launches}")
     return launches
 
@@ -2910,6 +2951,10 @@ def xla_chunk_check(torch, device, G=32):
 # no video encoder: no freeview frames, 4 tpose views)
 PROBE_STEPS = 1000
 PARITY_PATCHES = (2, 8)
+# grad_parity's two passes each run row 1 and B4 once: the sorted path, and
+# the dense path's quad core in its default 'sig' order
+PARITY_INVERSE = {"inverse_core_pg_s": 2, "inverse_core_bwd": 2,
+                  "inverse_core_pg": 0}
 POINT_PATCHES = 8
 RUNBOOK_STEPS = 5
 RUNBOOK_YAML = ("progress:\n  dump_interval: 1000000\nrender:\n"
@@ -3012,18 +3057,23 @@ def tools_phase(torch, device, kind):
         runbook_subphase(torch, root)
         done("parity runbook", t0)
 
+    wrappers = launch_counts()
     for n in PARITY_PATCHES:
         t0 = time.time()
+        for w in wrappers.values():
+            w.launches = 0
         rels, bad = grad_parity.run(n, device)
+        inv = {k: wrappers[k].launches for k in PARITY_INVERSE}
         print(f"phase tools: grad_parity at {n} patches, sorted vs dense "
               f"stage-3 gradients, worst rel max-diff: "
               f"{grad_parity.top(rels)} (tolerance {grad_parity.TOL}); "
-              f"problems {bad}", flush=True)
+              f"problems {bad}; inverse-LBS launches {inv}", flush=True)
         check(not bad and bool(rels) and rels[0][0] <= grad_parity.TOL,
               f"grad_parity at {n} patches: {bad or rels[:1]}")
+        check(inv == PARITY_INVERSE, f"grad_parity at {n} patches: "
+              f"inverse-LBS launches {inv}, expected {PARITY_INVERSE}")
         done(f"grad_parity {n}", t0)
 
-    wrappers = launch_counts()
     for split in common.SPLITS:
         t0 = time.time()
         cfg = common.split_config(POINT_PATCHES, split)
@@ -3069,6 +3119,263 @@ def tools_phase(torch, device, kind):
           + "; ".join(f"{k} {v:.4f}" for k, v in fg.items()), flush=True)
     done("fg_density_study", t0)
     print(f"phase tools: {time.time() - t_phase:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase bench tools: the JAX repo's remaining chip tools, ported
+# ---------------------------------------------------------------------------
+
+BENCH_ITERS, BENCH_WARMUP = 3, 1
+BENCH_PATCHES = 2
+# the decoder's phase form against its conv form, with the bounds of
+# tests/test_torch_modules.py::PHASE_VS_CONV: (values' max error over their
+# maximum, every parameter gradient's relative L2). f32: summation order
+# only (products of K = 8 cin = 8,192 terms: the max error per gradient
+# reaches ~6e-6 of its scale, H100, printed beside). bf16: each form's
+# gradients sit 5-6% (rel L2) from the f32 ones on the CPU at volume 16,
+# single entries up to 38% of the scale
+DECONV_TOL = {"f32": (1e-5, 1e-5), "bf16": (1e-2, 1e-1)}
+# the phase form on the card against itself on the CPU, with the bounds of
+# tests/test_torch_modules.py::DECODER_TOL for the phase form against the
+# JAX decoder: ((values: rtol, atol over the output's max), (gradients: max
+# error and relative L2 over each gradient's scale)). Both devices multiply
+# the same bf16-rounded operands in f32 (TF32 off), so a layer given the
+# same input and cotangent differs in summation order only, and in bf16 by
+# a value that lands within f32 noise of a rounding boundary (2^-8
+# relative). bf16 is held layer by layer: through five layers such flips
+# cascade, so that on the CPU alone an embedding moved by 1e-6 relative
+# moves the whole bf16 decoder's values by 2.5e-3 of their maximum and its
+# gradients by 4.8e-2 relative L2 (H100 host, PERF.md)
+PHASE_CARD_VS_CPU = {"f32": ((1e-5, 1e-6), (1e-5, 1e-5)),
+                     "bf16": ((1e-5, 1e-6), (2 ** -8, 1e-3))}
+DECONV_VOLUME = 32
+# the kernels each timed tool must launch (and the inverse cores it must
+# not), read around its run
+BENCH_LAUNCHES = {
+    "bench_mlp": (("fused_trunk", "fused_trunk_bwd"), ()),
+    "bench_lbs": (("inverse_core_pg_s", "inverse_core_bwd",
+                   "shared_core_fwd", "shared_core_bwd"),
+                  ("inverse_core_pg",)),
+    "bench_lbs_pg": (("inverse_core", "inverse_core_pg_s",
+                      "inverse_core_bwd"), ("inverse_core_pg",)),
+}
+
+
+def _decoder(torch, device, cdt, impl):
+    """The production decoder (volume DECONV_VOLUME, 26 bones, weights
+    from seed 0) in form `impl`."""
+    from hosnerf_tpu_torch.models.human_components import (
+        MotionWeightVolumeDecoder)
+    return MotionWeightVolumeDecoder(
+        256, DECONV_VOLUME, 26, cdt, impl,
+        generator=torch.Generator().manual_seed(0), device=device)
+
+
+def _decoder_run(torch, device, priors, cot, cdt, impl):
+    """(output, {name: gradient}) of `_decoder` on `device` for one
+    cotangent."""
+    dec = _decoder(torch, device, cdt, impl)
+    out = dec(priors.to(device))
+    out.backward(cot.to(device))
+    return out.detach(), {n: p.grad for n, p in dec.named_parameters()}
+
+
+def _phase_layer_runs(torch, dec, cdt, device, seed=7):
+    """Each transposed convolution of a production decoder in its phase
+    form, on its own: the layer's input as the decoder's forward gives it
+    on the card, one random cotangent, the layer run on `device`. Returns
+    [(output, {input, weight, bias gradient})] per layer."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from hosnerf_tpu_torch.models.human_components import (
+        _phase_conv_transpose)
+    d = dec.decoder
+    gen = torch.Generator().manual_seed(seed)
+    runs = []
+    with torch.no_grad():
+        h = F.leaky_relu(d.block_mlp(dec.const_embedding[None]), 0.2)
+        h = h.reshape(1, 1, 1, 1, 1024)
+    for mod in d.block_conv:
+        if not isinstance(mod, torch.nn.ConvTranspose3d):
+            with torch.no_grad():
+                h = mod(h)
+            continue
+        conv = copy.deepcopy(mod).to(device)
+        x = h.detach().to(device).requires_grad_()
+        y = _phase_conv_transpose(x, conv, cdt)
+        y.backward(torch.randn(y.shape, generator=gen).to(device))
+        runs.append((y.detach().cpu(), {"input": x.grad.cpu(),
+                                        "weight": conv.weight.grad.cpu(),
+                                        "bias": conv.bias.grad.cpu()}))
+        with torch.no_grad():
+            h = _phase_conv_transpose(h, mod, cdt)
+    return runs
+
+
+def deconv_check(torch, np, device):
+    """The weight-volume decoder's phase form at production size (volume
+    DECONV_VOLUME = 32, 26 bones, weights from seed 0, priors U(0.01, 1)
+    from numpy's seed 0), f32 and bf16: the output and every parameter
+    gradient for one random cotangent against the conv form on the card
+    (DECONV_TOL); each transposed convolution alone, on the same input
+    and cotangent, against the same layer on the CPU (PHASE_CARD_VS_CPU),
+    and in f32 the whole decoder against itself on the CPU."""
+    V = DECONV_VOLUME
+    priors = torch.as_tensor(np.random.default_rng(0).uniform(
+        0.01, 1.0, (27, V, V, V)).astype(np.float32), device=device)
+    cot = torch.randn(priors.shape, device=device,
+                      generator=torch.Generator(device).manual_seed(5))
+    cpu = torch.device("cpu")
+    for label, cdt in (("f32", None), ("bf16", torch.bfloat16)):
+        oc, gc = _decoder_run(torch, device, priors, cot, cdt, "conv")
+        op, gp = _decoder_run(torch, device, priors, cot, cdt, "phase")
+        vtol, gtol = DECONV_TOL[label]
+        verr = float((op - oc).abs().max()) / float(oc.abs().max())
+        gmax = max(float((gp[n] - g).abs().max()) / float(g.abs().max())
+                   for n, g in gc.items())
+        gl2 = max(float(torch.linalg.vector_norm(gp[n] - g))
+                  / float(torch.linalg.vector_norm(g)) for n, g in gc.items())
+        print(f"decoder phase vs conv {label}: values max err {verr:.3e} "
+              f"of their maximum; gradients worst max err {gmax:.3e} of "
+              f"the scale, worst rel L2 {gl2:.3e} (tolerance values "
+              f"{vtol}, gradients {gtol} rel L2)", flush=True)
+        check(verr <= vtol, f"decoder phase vs conv {label}: values")
+        check(gl2 <= gtol, f"decoder phase vs conv {label}: gradients")
+        del oc, gc
+        (rtol, atol), (ctmax, ctl2) = PHASE_CARD_VS_CPU[label]
+        pairs = []
+        if cdt is None:
+            oh, gh = _decoder_run(torch, cpu, priors.cpu(), cot.cpu(), cdt,
+                                  "phase")
+            pairs.append(("whole decoder", (op.cpu(), {
+                n: g.cpu() for n, g in gp.items()}), (oh, gh)))
+        del op, gp
+        dec = _decoder(torch, device, cdt, "phase")
+        for i, (a, b) in enumerate(zip(
+                _phase_layer_runs(torch, dec, cdt, device),
+                _phase_layer_runs(torch, dec, cdt, cpu))):
+            pairs.append((f"layer {i}", a, b))
+        del dec
+        worst = [0.0, 0.0, 0.0]
+        for what, (o, g), (oh, gh) in pairs:
+            vex = float(((o - oh).abs() - rtol * oh.abs()).max()) / float(
+                oh.abs().max())
+            cmax = max(float((g[n] - r).abs().max()) / float(r.abs().max())
+                       for n, r in gh.items())
+            cl2 = max(float(torch.linalg.vector_norm(g[n] - r))
+                      / float(torch.linalg.vector_norm(r))
+                      for n, r in gh.items())
+            worst = [max(w, v) for w, v in zip(worst, (vex, cmax, cl2))]
+            check(vex <= atol and cmax <= ctmax and cl2 <= ctl2,
+                  f"decoder phase card vs CPU {label} {what}: values "
+                  f"{vex:.3e}, gradients max {cmax:.3e}, rel L2 {cl2:.3e}")
+        print(f"decoder phase card vs CPU {label} ("
+              + ", ".join(w for w, _, _ in pairs) + "): values worst max "
+              f"(err - {rtol} |ref|) {worst[0]:.3e} of their maximum; "
+              f"gradients worst max err {worst[1]:.3e} of the scale, worst "
+              f"rel L2 {worst[2]:.3e} (tolerance values rtol {rtol} atol "
+              f"{atol}, gradients max {ctmax:.3e} and rel L2 {ctl2})",
+              flush=True)
+
+
+def density_checks(torch, device):
+    """The pair densities of bench_lbs_pg, pg_density_study and
+    pg_window_study at BENCH_PATCHES patches on the card against the same
+    counts on the CPU (within 1e-3 absolute)."""
+    from hosnerf_tpu_torch.tools import bench_lbs_pg
+    from hosnerf_tpu_torch.tools import pair_count as pc
+    from hosnerf_tpu_torch.tools import pg_density_study as dens
+    from hosnerf_tpu_torch.tools import pg_window_study as win
+    cpu = torch.device("cpu")
+    runs = []
+    for dev in (device, cpu):
+        pts, rg, tg, _ = pc.production_points(BENCH_PATCHES, dev)
+        runs.append((
+            {t: p / c for t, (p, c) in bench_lbs_pg.densities(
+                pts, rg, tg).items()},
+            dens.study(BENCH_PATCHES, dev), win.study(BENCH_PATCHES, dev)))
+    (bc, dc, wc), (bh, dh, wh) = runs
+    gaps = {f"bench_lbs_pg tile {t}": abs(bc[t] - bh[t]) for t in bc}
+    gaps.update({f"pg_density_study {k[0]}+{k[1]}": abs(
+        dc[k][0] - dh[k][0]) / dh[k][1] for k in dc if isinstance(k, tuple)})
+    gaps["pg_density_study true"] = abs(dc["true density"]
+                                        - dh["true density"])
+    for name in win.ORDERS:
+        gaps[f"pg_window_study {name}"] = abs(wc[name]["density"]
+                                              - wh[name]["density"])
+        for W in win.WINDOWS:
+            gaps[f"pg_window_study {name} W={W}"] = max(
+                abs(a - b) for a, b in zip(wc[name][W], wh[name][W]))
+    print("pair densities on the card ("
+          + "; ".join(f"tile {t}: {v:.4f}" for t, v in bc.items()) + "; "
+          + "; ".join(f"{k[0]}+{k[1]} {v[0] / v[1]:.4f}" for k, v in
+                      dc.items() if isinstance(k, tuple))
+          + f"; true {dc['true density']:.4f}; "
+          + "; ".join(f"window {n} {wc[n]['density']:.4f}"
+                      for n in win.ORDERS)
+          + f") vs the CPU: largest gap {max(gaps.values()):.3e} "
+          f"({max(gaps, key=gaps.get)})", flush=True)
+    check(max(gaps.values()) <= 1e-3,
+          f"pair densities, card vs CPU: {gaps}")
+
+
+def bench_tools_phase(torch, device, kind):
+    """Phase bench tools (module docstring)."""
+    import numpy as np
+
+    from hosnerf_tpu_torch.tools import (bench_all, bench_deconv, bench_lbs,
+                                         bench_lbs_pg, bench_mlp, ref_flops)
+    t_phase = time.time()
+    fwd, total = ref_flops.step_flops()
+    print(f"phase bench tools: ref_flops stage-3 step fwd {fwd:.6e} FLOP, "
+          f"fwd+bwd {total:.6e}; decoder fwd {ref_flops.vol_decoder():.6e}",
+          flush=True)
+    wrappers = launch_counts()
+    quick = dict(iters=BENCH_ITERS, warmup=BENCH_WARMUP)
+    runs = (("bench_mlp", lambda: bench_mlp.bench(device, **quick)),
+            ("bench_lbs", lambda: bench_lbs.bench(device, **quick)),
+            ("bench_lbs_pg", lambda: bench_lbs_pg.bench(
+                device, BENCH_PATCHES, **quick)[3]),
+            ("bench_deconv", lambda: bench_deconv.bench(device, **quick)))
+    for name, run in runs:
+        t0 = time.time()
+        for w in wrappers.values():
+            w.launches = 0
+        rows = run()
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+        dflops = 3.0 * ref_flops.vol_decoder()
+        print(f"phase bench tools: {name} on {kind}: " + "; ".join(
+            f"{n.strip()} {ms:.4f} ms"
+            + (f" ({dflops / ms / 1e9:.3f} TFLOP/s)"
+               if name == "bench_deconv" else "") for n, ms in rows)
+            + f"; launches {launches}; {time.time() - t0:.1f} s",
+            flush=True)
+        check(all(math.isfinite(ms) and ms > 0 for _, ms in rows),
+              f"{name}: times {rows}")
+        need, never = BENCH_LAUNCHES.get(name, ((), ()))
+        check(all(launches.get(k, 0) > 0 for k in need)
+              and not any(launches.get(k, 0) for k in never),
+              f"{name}: launches {launches} (needs {need}, never {never})")
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    deconv_check(torch, np, device)
+    density_checks(torch, device)
+    print(f"phase bench tools: decoder and density checks "
+          f"{time.time() - t0:.1f} s", flush=True)
+    record = bench_all.common.device_record(device)
+    for stage, fn in bench_all.STAGES.items():
+        t0 = time.time()
+        res = fn(device)
+        res["total_incl_compile"] = time.time() - t0
+        res["device"] = record
+        print(f"phase bench tools: bench_all {json.dumps(res)}", flush=True)
+        check(math.isfinite(res["sec_per_step"]) and res["sec_per_step"] > 0,
+              f"bench_all stage {stage}: {res}")
+        torch.cuda.empty_cache()
+    print(f"phase bench tools: {time.time() - t_phase:.1f} s", flush=True)
 
 
 def kernel_name(mangled: str) -> str:
@@ -3254,6 +3561,11 @@ def run(torch, np) -> int:
     profile(torch, "one dense training step", one_step, dense_ms)
     del one_step
     torch.cuda.empty_cache()
+    morton_launches, _, _ = train_phase(
+        torch, device, kind, lp, stage2.Stage2Config(
+            sparse=False, pg_sort="morton", compute_dtype="bf16"),
+        DENSE_STEPS, PER_DENSE_MORTON_STEP, "dense morton")
+    torch.cuda.empty_cache()
     pd_launches, _, _ = train_phase(
         torch, device, kind, lp, stage2.Stage2Config(
             sparse=False, lbs_impl="pallas_dense", compute_dtype="bf16"), 1,
@@ -3301,6 +3613,8 @@ def run(torch, np) -> int:
     torch.cuda.empty_cache()
 
     tools_phase(torch, device, kind)
+    torch.cuda.empty_cache()
+    bench_tools_phase(torch, device, kind)
 
     def entry(name, source, replaces, n, parts):
         lib = [results[p].get("library_ms") for p in parts]
@@ -3371,11 +3685,12 @@ def run(torch, np) -> int:
               train_launches["shared_blend_bwd"], [("blend_bwd", "bf16")]),
     ]
     # rows 6, 9, 10, 11: B1 + B4 in each core's row order; launches on the
-    # dense training step (rows 9 and 6) or the dense render chunks
+    # dense training steps (row 9: pg_sort='morton'; row 6: pallas_dense)
+    # or the dense render chunks
     core_rows = {"inverse_core": ("hosnerf_tpu/ops/pallas/lbs.py:490",
                                   pd_launches["inverse_core"]),
                  "inverse_core_pg": ("hosnerf_tpu/ops/pallas/lbs.py:1077",
-                                     dense_launches["inverse_core_pg"]),
+                                     morton_launches["inverse_core_pg"]),
                  "inverse_core_pgw": ("hosnerf_tpu/ops/pallas/lbs.py:1502",
                                       render_cores["inverse_core_pgw"]),
                  "inverse_core_bp": ("hosnerf_tpu/ops/pallas/lbs.py:2487",

@@ -19,8 +19,10 @@ Two per-sample pipelines with one selection rule, as in the JAX package:
 'pallas' / 'pallas_dense' / 'fused' force the hand-written kernels (or
 their plain versions for CPU tensors), 'gather' / 'xla' (the one-hot LBS
 form) / 'flax' the plain module path.
-`sparse` and `pg_impl` stand for the JAX package's environment variables
-HOSNERF_SPARSE and HOSNERF_PG_IMPL; the port reads no environment.
+`sparse`, `pg_impl` and `pg_sort` (the quad core's row order: 'sig', the
+signature-sorted domain, or 'morton') stand for the JAX package's
+environment variables HOSNERF_SPARSE, HOSNERF_PG_IMPL and HOSNERF_PG_SORT;
+the port reads no environment.
 """
 
 from __future__ import annotations
@@ -63,12 +65,14 @@ class HumanObjectField(nn.Module):
                  lbs_impl: str = "auto", mlp_impl: str = "auto",
                  compute_dtype=None, sparse: bool = True,
                  pg_impl: str = "quad", remat: Union[bool, str] = "all",
-                 mlp_chunk: Optional[int] = None, *, seed: int = 0,
-                 device=None):
+                 mlp_chunk: Optional[int] = None, pg_sort: str = "sig", *,
+                 seed: int = 0, device=None):
         super().__init__()
         device = resolve_device(device)
         if pg_impl not in cuda_lbs.PG_CORES:
             raise ValueError(f"unknown pg_impl {pg_impl!r}")
+        if pg_sort not in cuda_lbs.PG_SORTS:
+            raise ValueError(f"unknown pg_sort {pg_sort!r}")
         self.total_bones = total_bones
         self.n_samples = n_samples
         self.cnl_multires = cnl_multires
@@ -87,6 +91,7 @@ class HumanObjectField(nn.Module):
         self.mlp_impl = mlp_impl
         self.sparse = sparse
         self.pg_impl = pg_impl
+        self.pg_sort = pg_sort
         self.remat = resolve_remat(remat)
         self.mlp_chunk = mlp_chunk
         self.compute_dtype = resolve_compute_dtype(compute_dtype)
@@ -241,7 +246,7 @@ class HumanObjectField(nn.Module):
         x_skel, fg_mask = lbs_ops.inverse_warp(
             pts_flat, si["m_sR"], si["m_T"], si["vol"],
             batch["cnl_bbox_min_xyz"], batch["cnl_bbox_scale_xyz"],
-            impl=self.lbs_impl, pg_impl=self.pg_impl)
+            impl=self.lbs_impl, pg_impl=self.pg_impl, pg_sort=self.pg_sort)
         if not self.ignore_non_rigid_motions:
             cnl_pts = self._nr_apply(
                 self.non_rigid_mlp, x_skel,

@@ -17,6 +17,12 @@ Every module is built on the CUDA card unless `device` names another
 `compute_dtype=torch.bfloat16` runs the trunk matmuls on bf16 operands
 (bf16 result, bias added in bf16) while parameters stay f32; the output
 heads always run in f32.
+
+The weight-volume decoder's transposed convolutions take one of two forms
+(`deconv_impl`, the JAX package's HOSNERF_DECONV_IMPL): 'conv', cuDNN's
+`conv_transpose3d`, and 'phase', the JAX `ConvTranspose3dTorch` phase
+decomposition: eight products [N^3, 8 cin] @ [8 cin, cout] per layer over
+shifted views of the input. 'conv' is the default.
 """
 
 from __future__ import annotations
@@ -188,6 +194,9 @@ class BodyPoseRefiner(nn.Module):
         return {"Rs": Rs, "Ts": Ts}
 
 
+DECONV_IMPLS = ("conv", "phase")
+
+
 def _conv_transpose(x: torch.Tensor, conv: nn.ConvTranspose3d,
                     cdt: Optional[torch.dtype]) -> torch.Tensor:
     """ConvTranspose3d(k=4, s=2, p=1) in the compute dtype: bf16 operands
@@ -199,17 +208,71 @@ def _conv_transpose(x: torch.Tensor, conv: nn.ConvTranspose3d,
     return y.float() + conv.bias[None, :, None, None, None]
 
 
+def phase_weights(weight: torch.Tensor) -> torch.Tensor:
+    """ConvTranspose3d weight [cin, cout, 4, 4, 4] -> the eight phase
+    matrices [8, 8 cin, cout] of the JAX `ConvTranspose3dTorch`. The
+    weight holds the JAX DHWIO kernel with its taps flipped
+    (`convert._conv`), so the flip is undone first; then, as tap t = 2a + p
+    per axis (shift a, phase p), one reshape and transpose to (pz, py, px,
+    az, ay, ax, cin, cout)."""
+    cin, cout = weight.shape[:2]
+    k = weight.flip((2, 3, 4)).permute(2, 3, 4, 0, 1)
+    k = k.reshape(2, 2, 2, 2, 2, 2, cin, cout)
+    return k.permute(1, 3, 5, 0, 2, 4, 6, 7).reshape(8, 8 * cin, cout)
+
+
+def _phase_products(lhs, rhs, cdt: Optional[torch.dtype]) -> torch.Tensor:
+    """lhs [P, M, K] @ rhs [P, K, N] with an f32 result: f32 operands, or
+    (cdt bf16) f32 products of bf16-rounded operands, what JAX's bf16
+    einsum with preferred_element_type=f32 computes."""
+    if cdt is None:
+        return torch.bmm(lhs, rhs)
+    return torch.bmm(lhs.to(cdt).float(), rhs.to(cdt).float())
+
+
+def _phase_conv_transpose(x: torch.Tensor, conv: nn.ConvTranspose3d,
+                          cdt: Optional[torch.dtype]) -> torch.Tensor:
+    """The same ConvTranspose3d(k=4, s=2, p=1) on channels-last x [n, d,
+    h, w, cin] -> [n, 2d, 2h, 2w, cout] as eight phase products (the JAX
+    `ConvTranspose3dTorch`): per axis, output 2i + p reads the input padded
+    by one at i + p + a, a in {0, 1}, against tap t = 2a + p. The shifted
+    views are unfolds of the padded input (two taps a, then the two phases
+    p, per axis), gathered by one copy into [8 phases, n d h w, (az, ay,
+    ax, cin)], JAX's contraction order; the phases interleave into the
+    output by one reshape and transpose; f32 bias last."""
+    n, d, h, w, cin = x.shape
+    cout = conv.weight.shape[1]
+    v = F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
+    for dim in (1, 2, 3):
+        v = v.unfold(dim, 2, 1)            # shift a of each axis, appended
+    for dim, size in ((1, d), (2, h), (3, w)):
+        v = v.unfold(dim, size, 1)         # phase p of each axis in place
+    # v [n, pz, py, px, cin, az, ay, ax, i, j, k] = xp[pz+i+az, py+j+ay,
+    # px+k+ax]
+    lhs = v.permute(1, 2, 3, 0, 8, 9, 10, 5, 6, 7, 4).reshape(
+        8, n * d * h * w, 8 * cin)
+    y = _phase_products(lhs, phase_weights(conv.weight), cdt)
+    y = y.reshape(2, 2, 2, n, d, h, w, cout)
+    y = y.permute(3, 4, 0, 5, 1, 6, 2, 7).reshape(n, 2 * d, 2 * h, 2 * w,
+                                                  cout)
+    return y + conv.bias
+
+
 class ConvDecoder3D(nn.Module):
     """Embedding -> Linear(1024) -> stride-2 transposed convs ->
     [N, voxel_channels, vol, vol, vol] (channels first)."""
 
     def __init__(self, embedding_size: int = 256, volume_size: int = 32,
                  voxel_channels: int = 27,
-                 compute_dtype: Optional[torch.dtype] = None, *,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 deconv_impl: str = "conv", *,
                  generator: torch.Generator, device=None):
         super().__init__()
         device = resolve_device(device)
+        if deconv_impl not in DECONV_IMPLS:
+            raise ValueError(f"unknown deconv_impl {deconv_impl!r}")
         self.compute_dtype = compute_dtype
+        self.deconv_impl = deconv_impl
         self.block_mlp = nn.Sequential(
             _linear(embedding_size, 1024, LEAKY02_GAIN, generator, device))
         inch, outch = 1024, 512
@@ -235,6 +298,14 @@ class ConvDecoder3D(nn.Module):
 
     def forward(self, embedding):
         h = F.leaky_relu(self.block_mlp(embedding), 0.2)
+        if self.deconv_impl == "phase":
+            h = h.reshape(h.shape[0], 1, 1, 1, 1024)
+            for mod in self.block_conv:
+                if isinstance(mod, nn.ConvTranspose3d):
+                    h = _phase_conv_transpose(h, mod, self.compute_dtype)
+                else:
+                    h = mod(h)
+            return h.permute(0, 4, 1, 2, 3).contiguous()
         h = h.reshape(h.shape[0], 1024, 1, 1, 1)
         for mod in self.block_conv:
             if isinstance(mod, nn.ConvTranspose3d):
@@ -250,7 +321,8 @@ class MotionWeightVolumeDecoder(nn.Module):
 
     def __init__(self, embedding_size: int = 256, volume_size: int = 32,
                  total_bones: int = 26,
-                 compute_dtype: Optional[torch.dtype] = None, *,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 deconv_impl: str = "conv", *,
                  generator: torch.Generator, device=None):
         super().__init__()
         device = resolve_device(device)
@@ -259,7 +331,7 @@ class MotionWeightVolumeDecoder(nn.Module):
         normal_(self.const_embedding, 1.0, generator)
         self.decoder = ConvDecoder3D(
             embedding_size, volume_size, total_bones + 1, compute_dtype,
-            generator=generator, device=device)
+            deconv_impl, generator=generator, device=device)
         self._decoded = None   # (weights' key, output) of `decoded`
 
     def decoded(self) -> torch.Tensor:
@@ -269,7 +341,7 @@ class MotionWeightVolumeDecoder(nn.Module):
         share it."""
         if torch.is_grad_enabled():
             return self.decoder(self.const_embedding[None])[0]
-        key = (self.decoder.compute_dtype,
+        key = (self.decoder.compute_dtype, self.decoder.deconv_impl,
                *((p.data_ptr(), p._version) for p in self.parameters()))
         if self._decoded is None or self._decoded[0] != key:
             self._decoded = (key, self.decoder(self.const_embedding[None])[0])

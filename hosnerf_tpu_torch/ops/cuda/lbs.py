@@ -19,9 +19,10 @@ sample from a corner image of the volume (`inverse_image`), skipping the
 are right for any row order (the sorted path's k0 only lets them skip its
 dead prefix). So the cores are entries that put the rows in their own
 order around the one kernel pair (forward B1, backward B4), at k0 = 0:
-`inverse_core` the rows as given, `inverse_core_pg` the
-Morton group sort, `inverse_core_pgw` the signature + Morton sort,
-`inverse_core_bp` and `bp_prepare` the signature sort. The TPU pair
+`inverse_core` the rows as given, `inverse_core_pg` `bp_prepare`'s
+signature sort at its k0 (the JAX default) or the Morton group sort,
+`inverse_core_pgw` the signature + Morton sort, `inverse_core_bp` the
+signature sort. The TPU pair
 tables (`_build_pairs`, `_build_window_pairs`, `_slot_pairs`,
 `_bp_combine`) have no counterpart here, and neither has the windowed
 core's NaN on table overflow (`PGW_CAP_QUADS`): it signals a full TPU
@@ -607,10 +608,25 @@ def inverse_core(pts_g, rg, tg, vol_qz, precision: str = "bf16"):
                               precision, inverse_core, None)
 
 
-def inverse_core_pg(pts_g, rg, tg, vol_qz, precision: str = "bf16"):
-    """Row 9 (`inverse_core_pg`, the TPU's quad pair grid over
-    `_group_sort_perm`'s Morton order): groups of SORT_GROUP samples
-    sorted by the Morton cell of their centroid."""
+def inverse_core_pg(pts_g, rg, tg, vol_qz, precision: str = "bf16",
+                    pg_sort: str = "sig"):
+    """The quad pair-grid core (`inverse_core_pg`) in the row order of
+    `pg_sort`, the JAX package's HOSNERF_PG_SORT. 'sig' (its default):
+    `bp_prepare`'s signature-sorted domain through row 1
+    (`inverse_core_pg_s`: B1 forward, B4 backward) at the domain's k0,
+    then unsorted, as the JAX default runs `bp_prepare(kind="quad")` and
+    `inverse_core_pg_s`. 'morton': row 9, the legacy route (`_pg_legacy`):
+    groups of SORT_GROUP samples sorted by the Morton cell of their
+    centroid (`_group_sort_perm`), k0 = 0."""
+    if pg_sort == "sig":
+        B, _, G = vol_qz.shape
+        dom = bp_prepare(pts_g, rg, tg, G, B)
+        acc_s = inverse_core_pg_s(dom.sort_rows(pts_g.float()), rg, tg,
+                                  vol_qz, precision,
+                                  k0_blocks=dom.k0_for(INV_TILE))
+        return dom.unsort(acc_s)
+    if pg_sort != "morton":
+        raise ValueError(f"unknown pg_sort {pg_sort!r}")
     return _in_row_order(_morton_order, pts_g, rg, tg, vol_qz, precision,
                          inverse_core_pg)
 
@@ -635,6 +651,7 @@ for _entry in (inverse_core, inverse_core_pg, inverse_core_pgw,
     _entry.launches = 0
 PG_CORES = {"quad": inverse_core_pg, "win": inverse_core_pgw,
             "bp": inverse_core_bp}
+PG_SORTS = ("sig", "morton")   # the quad core's row orders
 
 
 @functools.cache
@@ -654,19 +671,27 @@ def _lib() -> ctypes.CDLL:
 def inverse_lbs(pts, motion_scale_Rs, motion_Ts, motion_weights_vol,
                 cnl_bbox_min_xyz, cnl_bbox_scale_xyz, *,
                 precision: str = "bf16", pair_grid: bool = True,
-                pg_impl: str = "quad"):
+                pg_impl: str = "quad", pg_sort: str = "sig"):
     """Inverse LBS of unsorted points (the JAX `inverse_lbs`): returns
     (x_skel [N, 3], fg_likelihood_mask [N, 1]) in world coordinates.
     pair_grid=False takes `inverse_core`; True the pair-grid core named by
-    pg_impl ('quad' `inverse_core_pg`, 'win' `inverse_core_pgw`, 'bp'
-    `inverse_core_bp`; the JAX package reads it from HOSNERF_PG_IMPL)."""
+    pg_impl ('quad' `inverse_core_pg` in the row order of pg_sort, 'win'
+    `inverse_core_pgw`, 'bp' `inverse_core_bp`; the JAX package reads the
+    two from HOSNERF_PG_IMPL and HOSNERF_PG_SORT)."""
     if pair_grid and pg_impl not in PG_CORES:
         raise ValueError(f"unknown pg_impl {pg_impl!r}")
+    if pg_sort not in PG_SORTS:
+        raise ValueError(f"unknown pg_sort {pg_sort!r}")
     s, o, rg, tg, vol_qz = grid_tables(
         motion_scale_Rs, motion_Ts, motion_weights_vol, cnl_bbox_min_xyz,
         cnl_bbox_scale_xyz)
-    core = PG_CORES[pg_impl] if pair_grid else inverse_core
-    return world_from_grid(core(pts, rg, tg, vol_qz, precision), s, o)
+    if not pair_grid:
+        acc = inverse_core(pts, rg, tg, vol_qz, precision)
+    elif pg_impl == "quad":
+        acc = inverse_core_pg(pts, rg, tg, vol_qz, precision, pg_sort)
+    else:
+        acc = PG_CORES[pg_impl](pts, rg, tg, vol_qz, precision)
+    return world_from_grid(acc, s, o)
 
 
 # ---------------------------------------------------------------------------

@@ -247,10 +247,11 @@ def resolve_impl(impl: str, motion_weights_vol: torch.Tensor,
 
 def inverse_warp(pts, motion_scale_Rs, motion_Ts, motion_weights_vol,
                  cnl_bbox_min_xyz, cnl_bbox_scale_xyz, impl: str = "auto",
-                 pg_impl: str = "quad"):
+                 pg_impl: str = "quad", pg_sort: str = "sig"):
     """Inverse LBS returning (x_skel [N, 3], fg_likelihood_mask [N, 1]).
-    impl: 'pallas' (the pair-grid core named by pg_impl: 'quad', 'win' or
-    'bp'), 'pallas_dense' (the dense core), both with bf16 taps through
+    impl: 'pallas' (the pair-grid core named by pg_impl: 'quad', in the
+    row order of pg_sort, 'win' or 'bp'), 'pallas_dense' (the dense
+    core), both with bf16 taps through
     the inverse-LBS kernels of ops/cuda/lbs.py; 'xla' (the one-hot
     form); 'gather'; or 'auto'."""
     impl = resolve_impl(impl, motion_weights_vol, pts)
@@ -260,7 +261,7 @@ def inverse_warp(pts, motion_scale_Rs, motion_Ts, motion_weights_vol,
                                     motion_weights_vol, cnl_bbox_min_xyz,
                                     cnl_bbox_scale_xyz,
                                     pair_grid=impl == "pallas",
-                                    pg_impl=pg_impl)
+                                    pg_impl=pg_impl, pg_sort=pg_sort)
     if impl not in ("xla", "gather"):
         raise ValueError(f"unknown inverse-LBS impl {impl!r}")
     fn = inverse_lbs if impl == "xla" else inverse_lbs_gather

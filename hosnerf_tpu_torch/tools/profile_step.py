@@ -90,7 +90,7 @@ def components(cfg, device, iters: int = ITERS, warmup: int = WARMUP,
         xs, m = lbs_ops.inverse_warp(
             pts, si["m_sR"], si["m_T"], vol, batch["cnl_bbox_min_xyz"],
             batch["cnl_bbox_scale_xyz"], impl=human.lbs_impl,
-            pg_impl=human.pg_impl)
+            pg_impl=human.pg_impl, pg_sort=human.pg_sort)
         (xs.mean() + m.mean()).backward()
 
     rows.append(("inverse LBS fwd+bwd",

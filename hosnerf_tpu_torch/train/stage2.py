@@ -9,9 +9,10 @@ set from the count of updates made so far before each update (optax
 evaluates its schedule at the pre-increment count).
 
 `sparse=False` trains on the dense per-sample path (the JAX package's
-HOSNERF_SPARSE=0), `pg_impl` picks its inverse-LBS row order (the JAX
-package's HOSNERF_PG_IMPL), and `mlp_chunk` / `remat` reshape its module
-MLPs (`models/human.py::_module_mlp`) as the JAX config's keys do.
+HOSNERF_SPARSE=0), `pg_impl` and `pg_sort` pick its inverse-LBS core and
+the quad core's row order (the JAX package's HOSNERF_PG_IMPL and
+HOSNERF_PG_SORT), and `mlp_chunk` / `remat` reshape its module MLPs
+(`models/human.py::_module_mlp`) as the JAX config's keys do.
 
 On a batch whose rays are split over ranks (`parallel/mesh.py`), as the
 JAX package splits them: every rank draws the whole batch's jitter and
@@ -61,6 +62,7 @@ class Stage2Config:
     mweight_volume_size: int = 32
     lbs_impl: str = "auto"
     mlp_impl: str = "auto"
+    pg_sort: str = "sig"
     compute_dtype: Optional[str] = None
     mlp_chunk: Optional[int] = None
     remat: Union[bool, str] = False
@@ -78,7 +80,8 @@ def make_model(cfg: Stage2Config, *, seed: int = 0,
         mweight_volume_size=cfg.mweight_volume_size, lbs_impl=cfg.lbs_impl,
         mlp_impl=cfg.mlp_impl, compute_dtype=cfg.compute_dtype,
         sparse=cfg.sparse, pg_impl=cfg.pg_impl, remat=cfg.remat,
-        mlp_chunk=cfg.mlp_chunk, seed=seed, device=device)
+        mlp_chunk=cfg.mlp_chunk, pg_sort=cfg.pg_sort, seed=seed,
+        device=device)
 
 
 # --------------------------------------------------------------------------

@@ -168,6 +168,38 @@ def test_inverse_lbs_dispatch_and_row_orders(pg):
         assert gperm.tolist() != sorted(gperm.tolist())
 
 
+@pytest.mark.parametrize("pg_sort", clbs.PG_SORTS)
+def test_quad_route_row_order_matches_jax(pg, monkeypatch, pg_sort):
+    """The quad core's rows reach B1 in JAX's order for each HOSNERF_PG_SORT:
+    'sig' in `bp_prepare(kind="quad")`'s (signature sort over rows padded
+    to TILE_PG) at its k0, 'morton' in `_group_sort_perm`'s; unsorted, the
+    values are the Morton route's bit for bit (one per-sample function)."""
+    pts, rg, tg, vol_qz = (_t(pg[k]) for k in ("pts", "rg", "tg", "vol_qz"))
+    seen = []
+    apply = clbs._InverseCore.apply
+    monkeypatch.setattr(clbs._InverseCore, "apply",
+                        lambda *a: seen.append(a) or apply(*a))
+    got = clbs.inverse_core_pg(pts, rg, tg, vol_qz, "bf16", pg_sort)
+    (rows, *_, k0), = seen
+    pts_p, _ = plbs._pad_rows(pg["pts"], plbs.TILE_PG)
+    if pg_sort == "sig":
+        dom = plbs.bp_prepare(pg["pts"], pg["rg"], pg["tg"], 32, 26,
+                              kind="quad")
+        perm = np.asarray(dom.perm)
+        k0_ref = int(dom.n_dead_groups) * plbs.SORT_GROUP // clbs.INV_TILE
+        assert int(k0) == k0_ref and int(dom.n_dead_groups) > 0
+    else:
+        perm = np.asarray(plbs._group_sort_perm(pts_p)[0])
+        assert k0 is None
+    np.testing.assert_array_equal(rows.numpy(), np.asarray(pts_p)[perm])
+    assert not np.array_equal(perm, np.arange(perm.size))
+    monkeypatch.undo()
+    ref = clbs.inverse_core_pg(pts, rg, tg, vol_qz, "bf16", "morton")
+    assert torch.equal(got, ref)
+    with pytest.raises(ValueError, match="pg_sort"):
+        clbs.inverse_core_pg(pts, rg, tg, vol_qz, "bf16", "zorder")
+
+
 # ---------------------------------------------------------------------------
 # row 7: all-bone weights at shared points
 # ---------------------------------------------------------------------------

@@ -264,23 +264,128 @@ def test_blockwise_conv_init_is_tied():
     assert float(w.abs().max()) <= bound
 
 
-def test_motion_weight_decoder_matches_flax():
-    """The whole decoder (Linear -> transposed convs -> softmax with the
-    priors) at volume 4, channels first on both sides."""
-    rng = np.random.default_rng(7)
-    priors = rng.uniform(0.01, 1.0, (27, 4, 4, 4)).astype(np.float32)
-    jm = jhc.MotionWeightVolumeDecoder(volume_size=4)
-    p = _flax_params(jm, priors)
-    sd = {"const_embedding": p["const_embedding"]}
+def _decoder_sd(p):
+    """JAX decoder params (or their gradients: the mapping is linear) at
+    volume 4 -> the port's state_dict keys."""
+    sd = {"const_embedding": np.asarray(p["const_embedding"])}
     sd.update(_dense_sd("decoder.block_mlp.0", p["decoder"]["block_mlp"]))
     for n, name in enumerate(["deconv_0", "deconv_out"]):
         sd[f"decoder.block_conv.{2 * n}.weight"] = convert._conv(
             p["decoder"][name]["kernel"])
         sd[f"decoder.block_conv.{2 * n}.bias"] = p["decoder"][name]["bias"]
-    tm = thc.MotionWeightVolumeDecoder(256, 4, 26,
-                                       generator=torch.Generator(),
-                                       device="cpu")
+    return {k: np.asarray(v, np.float32) for k, v in sd.items()}
+
+
+@pytest.fixture(scope="module")
+def decoder_case():
+    """The whole decoder (Linear -> transposed convs -> softmax with the
+    priors) at volume 4, channels first on both sides: the JAX weights as
+    a state_dict, priors, a cotangent of the output, and per compute dtype
+    the JAX decoder's output and parameter gradients (on the CPU the JAX
+    package runs its phase form, HOSNERF_DECONV_IMPL=auto)."""
+    rng = np.random.default_rng(7)
+    priors = rng.uniform(0.01, 1.0, (27, 4, 4, 4)).astype(np.float32)
+    cot = rng.normal(size=(27, 4, 4, 4)).astype(np.float32)
+    p = _flax_params(jhc.MotionWeightVolumeDecoder(volume_size=4), priors)
+    ref = {}
+    for cdt in (None, "bf16"):
+        jm = jhc.MotionWeightVolumeDecoder(
+            volume_size=4, compute_dtype=jnp.bfloat16 if cdt else None)
+        out, vjp = jax.vjp(lambda q: jm.apply({"params": q}, priors), p)
+        ref[cdt] = (np.asarray(out), _decoder_sd(vjp(jnp.asarray(cot))[0]))
+    return priors, cot, _decoder_sd(p), ref
+
+
+def _port_decoder(case, impl, cdt):
+    """(output, {name: gradient}) of the port's decoder on the case."""
+    priors, cot, sd, _ = case
+    tm = thc.MotionWeightVolumeDecoder(
+        256, 4, 26, tlayers.resolve_compute_dtype(cdt), impl,
+        generator=torch.Generator(), device="cpu")
     _load(tm, sd)
-    np.testing.assert_allclose(tm(_t(priors)).detach().numpy(),
-                               np.asarray(jm.apply({"params": p}, priors)),
-                               rtol=1e-4, atol=1e-6)
+    out = tm(_t(priors))
+    out.backward(_t(cot))
+    return out.detach().numpy(), {n: q.grad.numpy()
+                                  for n, q in tm.named_parameters()}
+
+
+# decoder tolerances, (values: rtol, atol over the output's max; gradients:
+# max error and relative L2 over each gradient's scale). f32: op order only
+# (observed 1.1e-6). bf16, the phase form: JAX's arithmetic (bf16 operands,
+# f32 products and result, f32 bias), so values agree to f32 order; a
+# gradient that lands within f32 noise of a bf16 rounding boundary rounds
+# to the other neighbour (2^-8 relative) -> max 2^-8, L2 1e-3 (observed
+# 1.2e-3, 2.4e-4). bf16, the conv form: cuDNN rounds each layer's output
+# and cotangent to bf16 where JAX keeps f32 (2^-9 relative each, two
+# layers and the softmax) -> values 1e-2 of the maximum, gradients max 3e-2
+# and L2 2e-2 (observed 1.1e-3; 6.0e-3 and 4.1e-3).
+DECODER_TOL = {
+    ("conv", None): ((1e-5, 1e-6), (1e-5, 1e-5)),
+    ("phase", None): ((1e-5, 1e-6), (1e-5, 1e-5)),
+    ("phase", "bf16"): ((1e-5, 1e-6), (2 ** -8, 1e-3)),
+    ("conv", "bf16"): ((0.0, 1e-2), (3e-2, 2e-2)),
+}
+
+
+@pytest.mark.parametrize("cdt", [None, "bf16"])
+@pytest.mark.parametrize("impl", ["conv", "phase"])
+def test_motion_weight_decoder_matches_flax(decoder_case, impl, cdt):
+    """Each form of the port's decoder, f32 and bf16, against the JAX
+    decoder: the output and every parameter's gradient for one cotangent
+    (DECODER_TOL)."""
+    (rtol, atol), (gmax, gl2) = DECODER_TOL[impl, cdt]
+    ref_out, ref_grads = decoder_case[3][cdt]
+    out, grads = _port_decoder(decoder_case, impl, cdt)
+    np.testing.assert_allclose(out, ref_out, rtol=rtol,
+                               atol=atol * np.abs(ref_out).max())
+    for name, g in grads.items():
+        r = ref_grads[name]
+        scale = np.abs(r).max()
+        assert scale > 0, name
+        assert np.abs(g - r).max() <= gmax * scale, name
+        assert np.linalg.norm(g - r) <= gl2 * np.linalg.norm(r), name
+
+
+# The phase form's gradients against the conv form's. f32: 1e-5 of each
+# gradient's scale, as against JAX. bf16: the two forms round at other
+# points, and the decoder's bf16 gradients are far from the f32 ones
+# already: at volume 16 (5 layers, random weights) each form's gradient
+# sits 5-6% (relative L2) from the f32 gradient and the two 5.5% from each
+# other, single entries up to 38% of the scale. So bf16 is held to 1e-1
+# relative L2 per gradient and its values to 1e-2 of their maximum
+# (observed 2.8e-3).
+PHASE_VS_CONV = {None: (1e-5, 1e-5), "bf16": (1e-2, 1e-1)}
+
+
+@pytest.mark.parametrize("cdt", [None, "bf16"])
+def test_decoder_phase_form_matches_conv_form(decoder_case, cdt):
+    """The port's two decoder forms on the same weights: values and every
+    parameter gradient (PHASE_VS_CONV)."""
+    vtol, gtol = PHASE_VS_CONV[cdt]
+    out_c, g_c = _port_decoder(decoder_case, "conv", cdt)
+    out_p, g_p = _port_decoder(decoder_case, "phase", cdt)
+    assert np.abs(out_p - out_c).max() <= vtol * np.abs(out_c).max()
+    for name, gc in g_c.items():
+        d = g_p[name] - gc
+        if cdt is None:
+            assert np.abs(d).max() <= gtol * np.abs(gc).max(), name
+        else:
+            assert np.linalg.norm(d) <= gtol * np.linalg.norm(gc), name
+
+
+def test_phase_weights_undo_the_converter_flip():
+    """`phase_weights` of a converted DHWIO kernel are the JAX phase form's
+    eight matrices: rhs[(pz, py, px)][(az, ay, ax), ci, co] = K[2az + pz,
+    2ay + py, 2ax + px, ci, co]."""
+    k = np.random.default_rng(3).normal(size=(4, 4, 4, 3, 5)).astype(
+        np.float32)
+    rhs = thc.phase_weights(_t(convert._conv(k))).numpy().reshape(
+        2, 2, 2, 2, 2, 2, 3, 5)
+    for pz, py, px, az, ay, ax in np.ndindex(2, 2, 2, 2, 2, 2):
+        np.testing.assert_array_equal(
+            rhs[pz, py, px, az, ay, ax],
+            k[2 * az + pz, 2 * ay + py, 2 * ax + px])
+    with pytest.raises(ValueError, match="deconv_impl"):
+        thc.MotionWeightVolumeDecoder(256, 4, 26, None, "lhs",
+                                      generator=torch.Generator(),
+                                      device="cpu")

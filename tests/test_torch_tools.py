@@ -189,13 +189,16 @@ def test_memcheck_raises_without_the_card():
 
 TOOLS = ("common", "convergence_probe", "parity_runbook", "grad_parity",
          "time_step", "memcheck_8patch", "profile_step", "profile_tail",
-         "profile_human", "fg_density_study")
+         "profile_human", "fg_density_study", "pair_count", "ref_flops",
+         "bench_mlp", "bench_lbs", "bench_deconv", "bench_lbs_pg",
+         "pg_density_study", "pg_window_study", "bench_all")
 
 
 def test_tools_import_no_jax_and_need_the_card_by_default():
     """In a fresh interpreter that blocks jax and hosnerf_tpu, every tool
-    imports; without a card, each stage-3 tool and the probe called
-    without --device raise (nothing falls back to the CPU)."""
+    imports; without a card, each stage-3 tool, the probe and each of
+    the kernel microbenches, pair-grid studies, ref_flops and bench_all
+    called without --device raise (nothing falls back to the CPU)."""
     code = f"""
 import sys
 class Block:
@@ -208,7 +211,10 @@ assert not torch.cuda.is_available()
 mods = [importlib.import_module('hosnerf_tpu_torch.tools.' + n)
         for n in {TOOLS!r}]
 for n in ('grad_parity', 'time_step', 'profile_step', 'profile_tail',
-          'profile_human', 'fg_density_study', 'convergence_probe'):
+          'profile_human', 'fg_density_study', 'convergence_probe',
+          'ref_flops', 'bench_mlp', 'bench_lbs', 'bench_deconv',
+          'bench_lbs_pg', 'pg_density_study', 'pg_window_study',
+          'bench_all'):
     try:
         importlib.import_module('hosnerf_tpu_torch.tools.' + n).main([])
     except RuntimeError as e:
