@@ -25,8 +25,10 @@ Phases, each of which fails the run:
             for the f32 kernels) and their autograd backward; B2, B3 and
             row 8 also report TFLOP/s and their share of the bound (f32:
             of the tensor-core bound and of the FMA one), B2's kernel time
-            beside its entry's, and B3's three launches (recompute, rows,
-            dW) are timed apart under torch.profiler; the four inverse-LBS
+            beside its entry's, and B3's four launches (recompute, rows,
+            dW, the slots' sums) are timed apart under torch.profiler, as
+            are B5's backward launches (binning, taps, the fixed-point
+            finish); the four inverse-LBS
             cores (rows 6, 9, 10, 11: B1/B4 on the training points in each
             core's row order), the all-bone weights (row 7) on the training
             step's canonical points, the trunk-only MLP (row 8) at
@@ -36,6 +38,23 @@ Phases, each of which fails the run:
             (`ops/lbs.py::bone_weights`, `ops/cuda/mlp.py::fused_trunk`
             with its backward in both precisions, `tools/proto_pairgrid.py`),
             launches counted around each;
+  repro     the same inputs give the same bits (under
+            `train/loop.py::set_reproducible`, set where this script
+            starts): each backward kernel (B3 non-rigid and canonical, B4,
+            B5 with K = 2 and K = 1, row 7; both precisions) called
+            REPRO_CALLS times on the training inputs at k0 = 0 and at the
+            inputs' live k0, every output equal to the first call's; the
+            stage-2 step (sorted and dense), bench.py's stage-3 cell and
+            the stage-1 step, REPRO_STEPS steps each through
+            `train/loop.py::run_training` from one state and loop
+            generator, run twice, every parameter, Adam moment and step
+            count equal; stages 2 (sorted) and 3 also cut after REPRO_CUT
+            steps, checkpointed, restored into models built from another
+            seed and run on, equal to the straight run; grad_parity at 8
+            patches twice, the same worst value; one composed render
+            chunk twice, equal. Each check prints how many tensors differ
+            and the largest difference; the phase fails after all of them
+            if any differs;
   render    3 frames of 128 x 128 rays through the port's render entry point
             (`eval/renderers.py`: render_human_image + make_render_fn) with
             the full-width stage-2 model (random weights from seed 0, bf16
@@ -272,8 +291,10 @@ TOL_LBS = 1e-6
 # entries beyond 1e-3 of it.
 TOL_MLP = {"highest": 1e-5, "bf16": 1e-2}
 # Backward kernels, (relative L2, max error over the output's scale). The
-# sums over samples (dvol, drg, drmat, dW, broadcast daux) come in atomic
-# order: 1e-4 for the LBS backwards (B4, B5) and the forward LBS (1e-5).
+# sums over samples (dvol, drg, drmat, dW, broadcast daux) come in fixed
+# orders that differ from the plain versions' (per-CTA slots summed in
+# slot order; dvol in fixed point, each share rounded to 2^-e): 1e-4 for
+# the LBS backwards (B4, B5) and the forward LBS (1e-5).
 # In bf16 B4 rounds a gradient factor (gw hz) that kernel and plain
 # version sum in another f32 order; where it lands on a rounding boundary
 # the two round apart by one bf16 ulp (2^-7 relative) of that term -> max
@@ -281,9 +302,10 @@ TOL_MLP = {"highest": 1e-5, "bf16": 1e-2}
 # flips, 3.7e-4 of the scale at the training shapes, until both sides
 # computed dw exactly and rounded it once.)
 # Trunk backward (B3), (relative L2, threshold over the scale, share of
-# entries allowed beyond it): highest sums in another f32 order, and among
-# the ~2e8-5e8 pre-activations of a call some sit within f32 noise of 0
-# and flip their ReLU mask, which moves that row's gradients by up to
+# entries allowed beyond it): highest sums in another (fixed) f32 order
+# than the plain version, and among the ~2e8-5e8 pre-activations of a
+# call some sit within f32 noise of 0 and flip their ReLU mask, which
+# moves that row's gradients by up to
 # their own size (H100, non-rigid daux: one entry at 2.3% of the scale,
 # L2 2.2e-4), so no max bound holds; bf16 adds flipped bf16 roundings of
 # activations and of gc (2^-9), which the fourier PE multiplies by up to
@@ -314,6 +336,18 @@ TOL_RENDER_MAX, TOL_RENDER_MEAN, MIN_ALPHA = 5e-2, 2e-3, 1e-2
 TOL_GRAD = 1e-2
 TOL_GRAD_LOSS = 1e-4
 ITERS = 10                 # timed launches per kernel measurement
+# phase repro: calls of each backward kernel; steps of each training run,
+# and the step a resumed run is cut at
+REPRO_CALLS = 5
+REPRO_STEPS, REPRO_CUT = 4, 2
+# its configurations: the stage-2 step (sorted, and dense with sparse=False),
+# bench.py's stage-3 cell, stage 1 at the CLI's default widths with two
+# states on REPRO_RAYS rays; grad_parity's (a CPU rehearsal makes them small)
+REPRO_HUMAN = dict(compute_dtype="bf16")
+REPRO_STAGE3 = dict(n_patches=2, compute_dtype="bf16")
+REPRO_SCENE = dict(num_states=2, compute_dtype="bf16")
+REPRO_RAYS = 4096
+REPRO_PARITY = dict(n_patches=8)
 # B5 backward on one training step's own inputs (capture_blend_bwd); B1
 # and B4: kernel device time (profiler), the corner image's, the entry at
 # k0 = 0, the live pairs and the k0 timed; row 12: its kernel's device
@@ -563,7 +597,8 @@ def trunk_flops(layers, out, rows: int) -> float:
 
 INV_PARTS = (("image", ("inv_image_kernel",)), ("fwd", ("inv_fwd_kernel",)),
              ("bwd", ("inv_bwd_kernel", "inv_fold_kernel")),
-             ("memset", ("Memset",)))
+             ("max", ("inv_gmax_kernel",)), ("memset", ("Memset",)),
+             ("fold", ("inv_fold_kernel",)))
 
 
 def device_ms(torch, fn, parts, reps=5):
@@ -900,7 +935,7 @@ def check_inverse_bwd(torch, model, ti, results, iters):
         vol_b = vol_qz.numel() * (2 if prec == "bf16" else 4)
         bms, by = bound(nbytes(pts_s[first:], rg, tg, gacc[first:], *got)
                         + vol_b, f32_ops=OPS_B4_PAIR * pairs)
-        kernel_ms = parts["bwd"] + parts["memset"]
+        kernel_ms = parts["bwd"] + parts["max"] + parts["memset"]
         res = dict(err=err, rel=rel, ms=ms, k0_zero_ms=ms0,
                    device_ms=kernel_ms, image_ms=parts["image"],
                    plain_ms=plain_ms, bound_ms=bms, bound_by=by,
@@ -909,7 +944,9 @@ def check_inverse_bwd(torch, model, ti, results, iters):
                 f"k0={live_k0} live_pairs={pairs} max_abs_err={err:.3e} "
                 f"max_err_over_scale={rel:.3e} entry ms={ms:.4f} (k0=0 "
                 f"{ms0:.4f}) device ms={kernel_ms:.4f} (kernel and fold "
-                f"{parts['bwd']:.4f}, memset {parts['memset']:.4f}; image "
+                f"{parts['bwd']:.4f}, the fold alone {parts['fold']:.4f}, the "
+                f"gradient's max {parts['max']:.4f}, "
+                f"memset {parts['memset']:.4f}; image "
                 f"{parts['image']:.4f} when not kept from the forward) "
                 f"plain_ms={plain_ms:.4f} bound_ms={bms:.5f} ({by}) share "
                 f"{bms / ms:.3f} of the entry, {bms / kernel_ms:.3f} of the "
@@ -922,6 +959,14 @@ def check_inverse_bwd(torch, model, ti, results, iters):
     results[("lbs_bwd", "bf16")]["library_ms"] = lib_ms
     print(f"kernel inverse_core_bwd: library route (autograd of bmm + "
           f"grid_sample f32 + blend) ms={lib_ms:.4f}", flush=True)
+
+
+# B5's backward launches by kernel name (device_ms): the three binning
+# passes, the per-brick kernel, the fixed-point finish, the memsets
+BLEND_PARTS = (("binning", ("bin_count_kernel", "bin_scan_kernel",
+                            "bin_scatter_kernel")),
+               ("taps", ("tap_bwd_kernel",)),
+               ("finish", ("tap_finish_kernel",)), ("memset", ("Memset",)))
 
 
 def check_blend(torch, ti, results, iters):
@@ -976,6 +1021,11 @@ def check_blend(torch, ti, results, iters):
                 ms_b = time_ms(torch, lambda: clbs.shared_blend_bwd(
                     pts_g, vol_all, rmat, k0_t, gout, prec), iters)
                 line += f" fwd ms={ms_f:.4f} bwd ms={ms_b:.4f}"
+                if k0 == live_k0 and prec == "bf16":
+                    split = device_ms(torch, lambda: clbs.shared_blend_bwd(
+                        pts_g, vol_all, rmat, k0_t, gout, prec), BLEND_PARTS)
+                    line += " bwd device ms " + " ".join(
+                        f"{k}={v:.4f}" for k, v in split.items())
                 if k0 == 0:
                     pf = time_ms(torch, lambda: clbs.shared_blend_plain(
                         pts_g, vol_all, rmat, prec), 1)
@@ -1177,13 +1227,15 @@ def check_mlp_bwd(torch, model, ti, results, iters):
 
 
 # the trunk kernels by precision: the forward (B2, and B3's recompute),
-# B3's rows and dW launches
-TRUNK_KERNELS = {"bf16": ("embed_trunk_bf16", "rows_bwd_bf16", "dw_bf16"),
-                 "highest": ("embed_trunk_x3", "rows_bwd_x3", "dw_x3")}
+# B3's rows and dW launches and the launch that sums their slots in order
+TRUNK_KERNELS = {"bf16": ("embed_trunk_bf16", "rows_bwd_bf16", "dw_bf16",
+                          "slot_sums"),
+                 "highest": ("embed_trunk_x3", "rows_bwd_x3", "dw_x3",
+                             "slot_sums")}
 
 
 def b3_launch_split(torch, ti, results, reps=3):
-    """B3's three launches timed apart at the training shapes (both
+    """B3's four launches timed apart at the training shapes (both
     precisions, k0 = 0): one C call launches them back to back, so their
     device times are read from torch.profiler (CUPTI kernel records), mean
     of `reps` calls after the timed ones above."""
@@ -1198,7 +1250,7 @@ def b3_launch_split(torch, ti, results, reps=3):
                 x, aux, alpha, layers, out, gout, precision=prec,
                 k0_blocks=0, **kw),
                 [(part, (kernel,)) for part, kernel in
-                 zip(("recompute", "rows", "dw"), kernels)], reps)
+                 zip(("recompute", "rows", "dw", "sums"), kernels)], reps)
             check(all(v > 0 for v in split.values()),
                   f"trunk bwd {name} {prec}: the profiler saw no B3 launch "
                   f"({split})")
@@ -1801,13 +1853,15 @@ LBS_PROFILE_PARTS = {
         ("image", ("build_image_kernel",)),
         ("blend_fwd", ("shared_blend_fwd_kernel",)),
         ("tap_bwd", ("bin_count_kernel", "bin_scan_kernel",
-                     "bin_scatter_kernel", "tap_bwd_kernel"))),
+                     "bin_scatter_kernel", "tap_bwd_kernel")),
+        ("tap_finish", ("tap_finish_kernel",))),
     # B1 and B4 (csrc/lbs_inverse.cu); B4's memset is not told apart from
     # the step's others
-    "inverse LBS": INV_PARTS[:3],
-    # B2 and B3's recompute, B3's rows and dW launches, either precision
+    "inverse LBS": INV_PARTS[:4],
+    # B2 and B3's recompute, B3's rows, dW and slot-sum launches, either
+    # precision
     "trunk": tuple((part, tuple(k[i] for k in TRUNK_KERNELS.values()))
-                   for i, part in enumerate(("fwd", "rows", "dw"))),
+                   for i, part in enumerate(("fwd", "rows", "dw", "sums"))),
 }
 
 
@@ -2211,6 +2265,231 @@ def composed_chunk_check(torch, cfg, scene, human, b):
 
 
 # ---------------------------------------------------------------------------
+# phase repro: the same inputs give the same bits
+# ---------------------------------------------------------------------------
+
+def repro_report(what: str, diffs, fails: list) -> None:
+    """Print how many tensors of `what` differ between its repeats and the
+    largest difference ([(path, largest |a - b|)], as
+    checkpoints.state_diff returns it); a difference goes into `fails`."""
+    big = max((d for _, d in diffs), default=0.0)
+    names = ", ".join(p for p, _ in diffs[:4]) + (", ..." if len(diffs) > 4
+                                                   else "")
+    print(f"phase repro: {what}: {len(diffs)} tensors differ, largest "
+          f"difference {big:.3e}" + (f" ({names})" if diffs else ""),
+          flush=True)
+    if diffs:
+        fails.append(f"{what}: {len(diffs)} tensors differ (largest "
+                     f"{big:.3e})")
+
+
+def repro_calls(what: str, fn, fails: list, calls: int = REPRO_CALLS):
+    """`fn()` called `calls` times; every output held to the first's bits
+    (the largest difference per tensor over the repeats reported)."""
+    from hosnerf_tpu_torch.train.checkpoints import state_diff
+    first = fn()
+    worst_of = {}
+    for _ in range(calls - 1):
+        for path, d in state_diff(first, fn()):
+            worst_of[path] = max(worst_of.get(path, 0.0), d)
+    repro_report(what, sorted(worst_of.items()), fails)
+
+
+def repro_kernels(torch, ti, fails: list) -> None:
+    """Each backward kernel REPRO_CALLS times on the training inputs, at
+    k0 = 0 and at the inputs' live k0 (row 7 takes no k0), both
+    precisions: B3 (non-rigid and canonical), B4, B5 with K = 2 (the
+    step's) and K = 1, row 7."""
+    from hosnerf_tpu_torch.ops.cuda import lbs as clbs
+    from hosnerf_tpu_torch.ops.cuda import mlp as cmlp
+    dom, n = ti["dom"], ti["n_pad"]
+    dev = ti["pts_s"].device
+
+    def seeded(seed, *shape):
+        return torch.randn(*shape, device=dev,
+                           generator=torch.Generator(dev).manual_seed(seed))
+
+    def k0s(tile):
+        return [(k0, torch.tensor([k0], dtype=torch.int32, device=dev))
+                for k0 in (0, max(1, int(dom.k0_for(tile))))]
+
+    xs = {"nonrigid": ti["x_skel_s"], "canonical": ti["cnl_pts_s"]}
+    for name, (kw, aux, alpha, layers, out) in ti["specs"].items():
+        gout = seeded(7, n, out[0].shape[0])
+        for prec in ("bf16", "highest"):
+            for k0, k0_t in k0s(cmlp.MLP_TILE):
+                repro_calls(f"B3 {name} {prec} k0={k0}",
+                            lambda: cmlp.fused_embed_trunk_bwd(
+                                xs[name], aux, alpha, layers, out, gout,
+                                precision=prec, k0_blocks=k0_t, **kw), fails)
+    pts_s, rg, tg, vol_qz = ti["pts_s"], ti["rg"], ti["tg"], ti["vol_qz"]
+    gacc = seeded(5, n, 4)
+    for prec in ("bf16", "highest"):
+        for k0, k0_t in k0s(clbs.INV_TILE):
+            repro_calls(f"B4 {prec} k0={k0}", lambda: clbs.inverse_core_bwd(
+                pts_s, rg, tg, vol_qz, gacc, prec, k0=k0_t), fails)
+    pts_g, vol_all, rmat = ti["pts_g"], ti["vol_all"], ti["rmat"]
+    for K in (2, 1):
+        rm = rmat[:, :12 * K].contiguous()
+        gout = seeded(6, n, 3 * K + 1)
+        for prec in ("bf16", "highest"):
+            for k0, k0_t in k0s(clbs.TILE_SH):
+                repro_calls(f"B5 K={K} {prec} k0={k0}",
+                            lambda: clbs.shared_blend_bwd(
+                                pts_g, vol_all, rm, k0_t, gout, prec), fails)
+    gw = seeded(13, n, rmat.shape[0])
+    for prec in ("bf16", "highest"):
+        repro_calls(f"row 7 {prec}", lambda: clbs.shared_core_bwd(
+            pts_g, vol_all, gw, prec), fails)
+
+
+def repro_training(torch, build, batch, root: str, tag: str, fails: list,
+                   resume: bool, iter0: int = 0) -> None:
+    """REPRO_STEPS steps of `build(seed)` -> (models, opt, step_fn) through
+    train/loop.py::run_training from seed 0 and one loop generator, run
+    twice: every parameter, Adam moment and step count, opt.updates and
+    the generator equal. With `resume`, also REPRO_CUT steps, checkpoint,
+    restore into models built from seed 1, the rest: equal to the
+    straight run, as tests/test_torch_loop.py::test_resume_is_bit_exact
+    holds on the CPU. Step i runs at iteration iter0 + i."""
+    from hosnerf_tpu_torch.train import checkpoints as ck
+    from hosnerf_tpu_torch.train import loop
+    from hosnerf_tpu_torch.train.checkpoints import state_diff
+
+    def run(models, opt, step, logdir, num, start=0, gen=None):
+        gen = loop.run_training(
+            num_steps=num, start_step=start, sample_batch=lambda: batch,
+            step_fn=lambda b, i, g: step(b, iter0 + i, g), models=models,
+            optimizer=opt, logdir=logdir, log_every=REPRO_STEPS,
+            checkpoint_every=0, prefetch=0,
+            generator=gen or torch.Generator().manual_seed(5))
+        torch.cuda.synchronize()
+        return gen
+
+    straight = []
+    for r in range(2):
+        models, opt, step = build(0)
+        gen = run(models, opt, step, os.path.join(root, f"{tag}_{r}"),
+                  REPRO_STEPS)
+        straight.append(ck.pack_train_state(models, opt, REPRO_STEPS, gen))
+        del models, opt, step
+    repro_report(f"{tag}: {REPRO_STEPS} steps run twice",
+                 state_diff(*straight), fails)
+    if resume:
+        cut = os.path.join(root, f"{tag}_cut")
+        models, opt, step = build(0)
+        run(models, opt, step, cut, REPRO_CUT)
+        del models, opt, step
+        models, opt, step = build(1)
+        gen = torch.Generator().manual_seed(99)
+        start = ck.restore_train_state(os.path.join(cut, "ckpt"), "last",
+                                       models, opt, gen)
+        check(start == REPRO_CUT, f"{tag}: resumed at step {start}")
+        gen = run(models, opt, step, cut, REPRO_STEPS, start, gen)
+        repro_report(f"{tag}: {REPRO_CUT} steps, checkpoint, restore into "
+                     f"seed-1 models, {REPRO_STEPS - REPRO_CUT} more vs "
+                     f"{REPRO_STEPS} straight",
+                     state_diff(ck.pack_train_state(models, opt, REPRO_STEPS,
+                                                    gen), straight[0]),
+                     fails)
+    del straight
+    torch.cuda.empty_cache()
+
+
+def repro_phase(torch, device, ti, fails=None) -> None:
+    """Phase repro (module docstring): every check prints the count of
+    tensors that differ between repeats and the largest difference; the
+    phase fails after all have run if any differs."""
+    import dataclasses
+
+    from hosnerf_tpu_torch.data import synthetic
+    from hosnerf_tpu_torch.data.batches import to_device
+    from hosnerf_tpu_torch.models import lpips
+    from hosnerf_tpu_torch.models.state import state_index
+    from hosnerf_tpu_torch.tools import grad_parity
+    from hosnerf_tpu_torch.train import stage1, stage2, stage3
+    t0 = time.time()
+    fails = [] if fails is None else fails
+    with torch.no_grad():
+        repro_kernels(torch, ti, fails)
+    print(f"phase repro: kernels {time.time() - t0:.1f} s", flush=True)
+    lp = lpips.load_weights(lpips.LPIPS(device=device)).requires_grad_(False)
+
+    def human_build(cfg):
+        def build(seed):
+            model, opt = stage2.init_state(cfg, seed=seed, device=device)
+            return ({"human": model}, opt,
+                    stage2.make_train_step(cfg, model, opt, lpips_apply=lp))
+        return build
+
+    def stage3_build(seed):
+        scene, human, opt = stage3.init_state(cfg3, seed=seed, device=device)
+        return ({"scene": scene, "human": human}, opt,
+                stage3.make_train_step(cfg3, scene, human, opt,
+                                       lpips_apply=lp))
+
+    def stage1_build(seed):
+        model, opt = stage1.init_state(cfg1, seed=seed, device=device)
+        return ({"scene": model}, opt,
+                stage1.make_train_step(cfg1, model, opt, [0.5]))
+
+    cfg2 = stage2.Stage2Config(**REPRO_HUMAN)
+    cfg3 = stage3.Stage3Config(**REPRO_STAGE3)
+    cfg1 = stage1.Stage1Config(**REPRO_SCENE)
+    hb = train_batch(torch, device, cfg2.n_patches, cfg2.patch_size,
+                     cfg2.mweight_volume_size)
+    cb = to_device(synthetic.composed_batch(
+        cfg3.n_patches, cfg3.patch_size,
+        grid_size=cfg3.mweight_volume_size), device)
+    sb = to_device(synthetic.scene_ray_batch(REPRO_RAYS, time=0.7), device)
+    with tempfile.TemporaryDirectory() as root:
+        t1 = time.time()
+        repro_training(torch, human_build(cfg2), hb, root, "stage 2 sorted",
+                       fails, True, TRAIN_ITER)
+        repro_training(torch, human_build(dataclasses.replace(
+            cfg2, sparse=False)), hb, root, "stage 2 dense", fails, False,
+            TRAIN_ITER)
+        repro_training(torch, stage3_build, cb, root, "stage 3 cell", fails,
+                       True, TRAIN_ITER)
+        repro_training(torch, stage1_build, sb, root, "stage 1", fails,
+                       False)
+        print(f"phase repro: steps {time.time() - t1:.1f} s", flush=True)
+    del lp
+    torch.cuda.empty_cache()
+
+    t1 = time.time()
+    worst = []
+    for _ in range(2):
+        rels, bad = grad_parity.run(device=device, **REPRO_PARITY)
+        check(not bad and bool(rels), f"repro: grad_parity at 8 patches: "
+              f"{bad}")
+        worst.append(rels[0])
+        torch.cuda.empty_cache()
+    print(f"phase repro: grad_parity at 8 patches, worst rel max-diff "
+          f"{worst[0][0]:.6e} ({worst[0][1]}) then {worst[1][0]:.6e} "
+          f"({worst[1][1]}) ({time.time() - t1:.1f} s)", flush=True)
+    if worst[0] != worst[1]:
+        fails.append(f"grad_parity at 8 patches: worst {worst[0]} then "
+                     f"{worst[1]}")
+
+    # the stage-3 batch's 2,048 rays: one chunk of the composed render
+    scene, human, _ = stage3.init_state(cfg3, seed=0, device=device)
+    state = state_index(cb["time"], None)
+
+    def chunk():
+        out = stage3.composed_forward(cfg3, scene, human, cb, ITER, state)
+        return [{k: v for k, v in o.items() if torch.is_tensor(v)}
+                for o in out]
+
+    with torch.no_grad():
+        repro_calls("one composed render chunk", chunk, fails, 2)
+    del scene, human
+    torch.cuda.empty_cache()
+    print(f"phase repro: {time.time() - t0:.1f} s", flush=True)
+    check(not fails, "repro: " + "; ".join(fails))
+
+
+# ---------------------------------------------------------------------------
 # the host data pipeline and the three trainers it feeds
 # ---------------------------------------------------------------------------
 
@@ -2587,9 +2866,8 @@ class cli_hooks:
             step = restore(ckpt_dir, name, models, optimizer, generator)
             state = self.ck.pack_train_state(models, optimizer, step,
                                              generator)
-            self.restored.append((name, same_state(
-                self.torch, state, self.ck.restore_checkpoint(ckpt_dir,
-                                                              name))))
+            self.restored.append((name, not self.ck.state_diff(
+                state, self.ck.restore_checkpoint(ckpt_dir, name))))
             return step
 
         def render_hook(render_fn, item, device, *a, **kw):
@@ -2607,21 +2885,6 @@ class cli_hooks:
     def __exit__(self, *exc):
         (self.loop.run_training, self.ck.restore_train_state,
          self.rend.render_human_image) = self.saved
-
-
-def same_state(torch, a, b) -> bool:
-    """Two train states (nested dicts, lists and tuples of tensors and
-    Python values) equal bit for bit, tensors compared on the CPU."""
-    if isinstance(a, dict):
-        return (isinstance(b, dict) and a.keys() == b.keys()
-                and all(same_state(torch, a[k], b[k]) for k in a))
-    if isinstance(a, (list, tuple)):
-        return (isinstance(b, (list, tuple)) and len(a) == len(b)
-                and all(same_state(torch, x, y) for x, y in zip(a, b)))
-    if torch.is_tensor(a):
-        return (torch.is_tensor(b) and a.dtype == b.dtype
-                and torch.equal(a.cpu(), b.cpu()))
-    return a == b
 
 
 def metrics_records(logdir: str):
@@ -3431,6 +3694,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    from hosnerf_tpu_torch.train import loop
+    loop.set_reproducible()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return run(torch, np)
@@ -3484,9 +3749,11 @@ def run(torch, np) -> int:
     torch.cuda.empty_cache()
     entry_launches, entry_f32 = entry_point_runs(
         torch, ti, train_batch(torch, device), device)
-    del ti
     torch.cuda.empty_cache()
     print(f"phase kernels: {time.time() - t0:.1f} s", flush=True)
+    repro_phase(torch, device, ti)
+    del ti
+    torch.cuda.empty_cache()
 
     # ---- the render path: warm up once, then count and time 3 frames ----
     render_frames(torch, model, items[:1], device)
@@ -3635,7 +3902,7 @@ def run(torch, np) -> int:
     def rates(parts):
         """The B2/B3/row 8 entries: TFLOP/s and bound share over the
         parts (f32: also the FMA bound's share), and the kernel device
-        times (B2's kernel; B3's recompute, rows, dW)."""
+        times (B2's kernel; B3's recompute, rows, dW, slot sums)."""
         if any("flops" not in results[p] for p in parts):
             return {}
         ms = sum(results[p]["ms"] for p in parts)

@@ -487,6 +487,8 @@ def run_hosnerf(args) -> None:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     np.random.seed(args.seed)
+    from hosnerf_tpu_torch.train import loop
+    loop.set_reproducible()
     distributed.initialize(device=args.device)   # no-op for one process
     try:
         if args.stage == "scene":

@@ -15,7 +15,7 @@
 // dW accumulator resident in VMEM across its sequential grid. A Hopper CTA
 // can hold neither the canonical trunk's 2.1 MB of f32 dW nor its
 // activations for all eight layers, and CTAs run in no order. So the work
-// is split in three launches, one call:
+// is split in four launches, one call:
 //   1. the forward kernel of trunk_common.cuh in STORE mode recomputes the
 //      trunk and writes the input row and every layer's output to device
 //      memory (bf16: one bulk copy per 64-row tile of each swizzled image);
@@ -26,9 +26,10 @@
 //      prefetched into L2 one layer ahead), masked in place into gc =
 //      bf16(g), and gc goes to device memory in one bulk store; db and,
 //      at the last layer, the head's dWout are summed over rows by
-//      halving shuffles (fold_rows), staged per warp, and added once per
-//      column into per-CTA shared sums (one atomic per CTA and entry at
-//      the end); then the input gradients gc W, one 64-column weight chunk
+//      halving shuffles (fold_rows), staged per warp, summed over the
+//      warps and the two warpgroups in that order into per-CTA shared
+//      sums (col_sums), stored to the CTA's slot at the end; then the
+//      input gradients gc W, one 64-column weight chunk
 //      at a time as wgmma.m64n64k16 on the same chunk images the forward
 //      streams, read MN-major (no transposed copy), two chunks in flight
 //      below HID 256. A chunk of an Hs segment becomes the next g; one of
@@ -39,15 +40,27 @@
 //      columns] tile of one segment's input panels, both operands read
 //      MN-major from 64-row tiles of the stored images that the producer
 //      bulk-copies through a 4-stage ring; the row range is split over
-//      CTAs, which add their tile with one red.global per entry.
+//      CTAs (`splits`), each of which stores its tile to its split's copy
+//      of dW;
+//   4. `slot_sums` adds the slots in slot order: the rows kernel's per-CTA
+//      sums (db, dWout, dbout, broadcast daux) and the dW splits.
 // f32 ("highest") runs the same three launches on bf16x3 pieces
 // (trunk_common.cuh): every stored image (act_x, act_h, gc) holds each
 // 64-row tile as three piece images, hi first, and every product is six
 // piece products on the tensor cores. Its tiles are 64 rows (one consumer
 // warpgroup per chunk in `rows`) and its dW items take at most 2 input
 // panels.
-// Atomics make the sums over rows come in a different order on each run;
-// the caller compares relative to the output's scale.
+// Sums over rows: fixed-order partial sums, no atomics. The TPU
+// kernel carries its dW/db accumulators across a sequential grid, so its
+// sums come in one order; here every partial sum has a fixed owner (a
+// thread, a warpgroup, a CTA's slot, a split's copy of dW) and partials are
+// added in a fixed order (warps, then warpgroup 0 before 1, then slots by
+// index), so the same inputs on one card give the same bits. The schedule
+// is static: the rows kernel's CTA b takes tiles b, b + grid, ...; the dW
+// split y its y-th row range. The slots cost (grid + splits) copies of the
+// sums' floats (canonical: 132 x 12 KB and 16 x 2.1 MB, ~70 MB of traffic
+// in slot_sums, ~0.02 ms); the kernel and the plain version still sum in
+// different orders, so the caller compares relative to the output's scale.
 //
 // Bound. Canonical 8 x 256 at 262,144 rows: ~0.28 TFLOP for each of the
 // recompute, the input-gradient products and the dW products, all on the
@@ -125,7 +138,7 @@ __device__ __forceinline__ void embed_aux_bwd(
     for (int a = tid; a < m.A; a += nth) {
       float s = 0.f;
       for (int r = 0; r < nrows; ++r) s = __fadd_rn(s, dXs[r * dstr + m.exp_w + a]);
-      if (s != 0.f) atomicAdd(daux + a, s);
+      daux[a] = __fadd_rn(daux[a], s);   // one thread per entry
     }
   }
 }
@@ -174,6 +187,32 @@ __device__ __forceinline__ void stage_cols(float* wp, const float (&v)[HID / 4],
   }
 }
 
+// Floats of one rows-kernel CTA's slot of sums: db [L, HID], dWout
+// [out_dim, HID], dbout [out_dim], then the broadcast daux [A] (none for a
+// streamed aux or the raw kind).
+__host__ __device__ inline int rows_slot_len(const Meta& m, int hid,
+                                             int aux_stream) {
+  return (m.L + m.out_dim) * hid + m.out_dim +
+         (!aux_stream && m.kind != 2 ? m.A : 0);
+}
+
+// One CTA's shared sums into its slot, in rows_slot_len's layout; dbout and
+// daux add the second warpgroup's copy (sdbo1, sdaux1) when there is one.
+__device__ inline void store_slot(const Meta& m, int hid, int aux_stream,
+                                  const float* sdb, const float* sWo,
+                                  const float* sdbo0, const float* sdbo1,
+                                  const float* sdaux0, const float* sdaux1,
+                                  float* slot, int tid, int nth) {
+  const int O = m.out_dim, nw = (m.L + O) * hid;
+  for (int i = tid; i < m.L * hid; i += nth) slot[i] = sdb[i];
+  for (int i = tid; i < O * hid; i += nth) slot[m.L * hid + i] = sWo[i];
+  for (int o = tid; o < O; o += nth)
+    slot[nw + o] = sdbo1 ? __fadd_rn(sdbo0[o], sdbo1[o]) : sdbo0[o];
+  if (!aux_stream && m.kind != 2)
+    for (int a = tid; a < m.A; a += nth)
+      slot[nw + O + a] = sdaux1 ? __fadd_rn(sdaux0[a], sdaux1[a]) : sdaux0[a];
+}
+
 // ---------------------------------------------------------------------------
 // bf16 rows kernel: warp-specialised, persistent, wgmma
 // ---------------------------------------------------------------------------
@@ -195,8 +234,7 @@ rows_bwd_bf16(const __grid_constant__ Meta m, int aux_stream,
               const __nv_bfloat16* __restrict__ w,
               const float* __restrict__ wout, float* __restrict__ dx,
               float* __restrict__ daux, __nv_bfloat16* __restrict__ gc,
-              float* __restrict__ db, float* __restrict__ dwout,
-              float* __restrict__ dbout, int n, int stages) {
+              float* __restrict__ part, int n, int stages) {
   using S = RowsShape<HID>;
   constexpr int HPn = S::HPn, PR = S::PR, NP = S::NP;
   constexpr uint32_t kStage = S::kStage;
@@ -210,10 +248,11 @@ rows_bwd_bf16(const __grid_constant__ Meta m, int aux_stream,
   float* sWo = Wo + kMaxOut * HID;
   float* sdb = sWo + kMaxOut * HID;
   float* wpart = sdb + m.L * HID;                   // [2][4 warps][HID]
-  float* Go = wpart + 8 * HID;                                   // [128][O]
-  float* sdbo = Go + kTm * kMaxOut;
-  float* sdaux = sdbo + kMaxOut;
-  uint64_t* full = reinterpret_cast<uint64_t*>(sdaux + kMaxAux);
+  float* wrow = wpart + 8 * HID;            // [2 parities][2 warpgroups][HID]
+  float* Go = wrow + 4 * HID;                                    // [128][O]
+  float* sdbo = Go + kTm * kMaxOut;                 // [2 warpgroups][kMaxOut]
+  float* sdaux = sdbo + 2 * kMaxOut;                // [2 warpgroups][kMaxAux]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sdaux + 2 * kMaxAux);
   uint64_t* empty = full + kMaxStages;
   uint64_t* hbar = empty + kMaxStages;   // act_h tile -> Gs, per warpgroup
 
@@ -227,7 +266,8 @@ rows_bwd_bf16(const __grid_constant__ Meta m, int aux_stream,
       Wo[i] = i < O * HID ? wout[i] : 0.f;
     for (int i = tid; i < kMaxOut * HID + m.L * HID; i += kWsThreads)
       sWo[i] = 0.f;                                   // sWo, then sdb
-    for (int i = tid; i < kMaxOut + kMaxAux; i += kWsThreads) sdbo[i] = 0.f;
+    for (int i = tid; i < 2 * (kMaxOut + kMaxAux); i += kWsThreads)
+      sdbo[i] = 0.f;                                  // sdbo, then sdaux
   }
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -275,6 +315,21 @@ rows_bwd_bf16(const __grid_constant__ Meta m, int aux_stream,
     const float alpha = *alpha_p;
     Ring rc{0, 0u, stages};
     uint32_t hphase = 0;
+    // The column sums over rows (db, dWout) come in a fixed order: per
+    // tile each warpgroup stages its four warps' sum in wrow, both meet at
+    // barrier 3, and the thread that owns a column adds the two, warpgroup
+    // 0 first (wrow alternates between two parities, so a warpgroup's next
+    // write waits for no reader). dbout and daux keep one sum per
+    // warpgroup, added at the end.
+    int par = 0;
+    auto col_sums = [&](float* dst) {
+      float* wr = wrow + par * 2 * HID;
+      for (int c = wt; c < HID; c += 128) wr[wg * HID + c] = warps_sum<HID>(wp, c);
+      named_sync(3, 256);
+      for (int c = tid; c < HID; c += 256)
+        dst[c] = __fadd_rn(dst[c], __fadd_rn(wr[c], wr[HID + c]));
+      par ^= 1;
+    };
     if (wt == 0 && t_first < n_tiles)
       bulk_prefetch_l2(act_h + ((size_t)(m.L - 1) * T64 + 2 * t_first + wg) *
                                    HPn * kPanel,
@@ -289,7 +344,7 @@ rows_bwd_bf16(const __grid_constant__ Meta m, int aux_stream,
       if (wt < O) {
         float s = 0.f;
         for (int r = 0; r < nrows; ++r) s = __fadd_rn(s, Gw[r * O + wt]);
-        if (s != 0.f) atomicAdd(sdbo + wt, s);
+        sdbo[wg * kMaxOut + wt] = __fadd_rn(sdbo[wg * kMaxOut + wt], s);
       }
       // g = gout Wout (f32), in the accumulator layout; Wo's rows past
       // out_dim are zeros, so every output adds exactly 0 there (a loop of
@@ -334,7 +389,7 @@ rows_bwd_bf16(const __grid_constant__ Meta m, int aux_stream,
         hphase ^= 1u;
         if (l == m.L - 1) {
           // head: dWout[o] += h^T Go[:, o] over the tile's rows, one output
-          // at a time (per-warp sums staged in wp, then one add per column)
+          // at a time (per-warp sums staged in wp, then col_sums)
           for (int o = 0; o < O; ++o) {
             float a[HID / 4];
 #pragma unroll
@@ -357,9 +412,7 @@ rows_bwd_bf16(const __grid_constant__ Meta m, int aux_stream,
             fold_rows(a, lane);
             stage_cols<HID>(wp, a, warp, g, q);
             named_sync(bar, 128);
-            for (int c = wt; c < HID; c += 128)
-              atomicAdd(sWo + o * HID + c, warps_sum<HID>(wp, c));
-            named_sync(bar, 128);
+            col_sums(sWo + o * HID);   // its barrier also guards wp
           }
         }
         // ReLU mask, gc = bf16(g) in place, then db's column sums
@@ -398,10 +451,6 @@ rows_bwd_bf16(const __grid_constant__ Meta m, int aux_stream,
         }
         fence_async();
         named_sync(bar, 128);
-        // db: the four warps' sums, one add per column (the other
-        // warpgroup adds to the same entries)
-        for (int c = wt; c < HID; c += 128)
-          atomicAdd(sdb + l * HID + c, warps_sum<HID>(wp, c));
         if (wt == 0) {
           bulk_s2g(gc + ((size_t)l * T64 + tile64) * HPn * kPanel, Gs,
                    tile_bytes);
@@ -414,6 +463,7 @@ rows_bwd_bf16(const __grid_constant__ Meta m, int aux_stream,
                          wg) * HPn * kPanel,
                 tile_bytes);
         }
+        col_sums(sdb + l * HID);   // db: both warpgroups' rows
 
         // input gradients gc W, one 64-column weight chunk at a time;
         // below HID 256, two in flight: chunk j + 1's products run while
@@ -502,34 +552,30 @@ rows_bwd_bf16(const __grid_constant__ Meta m, int aux_stream,
       }
       named_sync(bar, 128);
       embed_aux_bwd(m, dX, dstr, x, alpha, row0, nrows, aux_stream, dx,
-                    aux_stream ? daux : sdaux, wt, 128);
+                    aux_stream ? daux : sdaux + wg * kMaxAux, wt, 128);
       named_sync(bar, 128);
       for (int i = wt; i < kWgRows * dstr; i += 128) dX[i] = 0.f;
     }
     if (wt == 0) bulk_wait_all();
     named_sync(3, 256);   // both warpgroups' shared sums are complete
-    const int ct = tid;
-    for (int i = ct; i < m.L * HID; i += 256)
-      if (sdb[i] != 0.f) atomicAdd(db + i, sdb[i]);
-    for (int i = ct; i < O * HID; i += 256)
-      if (sWo[i] != 0.f) atomicAdd(dwout + i, sWo[i]);
-    if (ct < O && sdbo[ct] != 0.f) atomicAdd(dbout + ct, sdbo[ct]);
-    if (!aux_stream && m.kind != 2)
-      for (int a = ct; a < m.A; a += 256)
-        if (sdaux[a] != 0.f) atomicAdd(daux + a, sdaux[a]);
+    store_slot(m, HID, aux_stream, sdb, sWo, sdbo, sdbo + kMaxOut, sdaux,
+               sdaux + kMaxAux,
+               part + (size_t)blockIdx.x * rows_slot_len(m, HID, aux_stream),
+               tid, 256);
   }
 }
 
 // Shared memory of the bf16 rows kernel: the Gs images, the weight ring,
 // dXs (f32), the head weights, the per-CTA sums, the barriers. Canonical
-// (HID 256, xw 128, 4 stages of [128][64]): 64 + 64 + 66 + 18.5 KB.
+// (HID 256, xw 128, 4 stages of [128][64], 8 layers): 64 + 64 + 66 + 31
+// KB, 0.9 KB below the limit.
 inline size_t bf16_rows_smem(const Meta& m, int hid, int stages) {
   const int hpn = hid < 64 ? 1 : hid / 64;
   const int pr = hid < 128 ? hid : 128;
   return 1024 + (size_t)2 * hpn * kPanelBytes + (size_t)stages * pr * 128 +
          sizeof(float) * ((size_t)kTm * (m.xw + 4) + 2 * kMaxOut * hid +
-                          m.L * hid + 8 * hid + kTm * kMaxOut + kMaxOut +
-                          kMaxAux) +
+                          m.L * hid + 12 * hid + kTm * kMaxOut +
+                          2 * kMaxOut + 2 * kMaxAux) +
          (2 * kMaxStages + 2) * sizeof(uint64_t);
 }
 
@@ -619,7 +665,8 @@ dw_bf16(const __grid_constant__ Meta m, const __grid_constant__ DwPlan plan,
         const int* __restrict__ k0_p,
         const __nv_bfloat16* __restrict__ act_x,
         const __nv_bfloat16* __restrict__ act_h,
-        const __nv_bfloat16* __restrict__ gc, float* __restrict__ dw, int n) {
+        const __nv_bfloat16* __restrict__ gc, float* __restrict__ dwpart,
+        int dw_len, int n) {
   constexpr int HPn = Shape<HID>::HPn;
   const DwItem& it = plan.item[blockIdx.x];
   const int l = it.ls >> 1, sg = it.ls & 1;
@@ -630,8 +677,7 @@ dw_bf16(const __grid_constant__ Meta m, const __grid_constant__ DwPlan plan,
   const int ft = first_live_row(k0_p, n) / kWgRows;
   const int per = (nt64 - ft + gridDim.y - 1) / gridDim.y;
   const int r0 = ft + blockIdx.y * per;
-  const int r1 = min(nt64, r0 + per);
-  if (r0 >= r1) return;
+  const int r1 = min(nt64, r0 + per);   // none: the slot gets zeros
   const int nop = min(2, HPn - it.o0 / 64);
   const int np = it.np;
   const int src_pn = ly.buf[sg] == 0 ? x_panels(m) : HPn;
@@ -691,7 +737,7 @@ dw_bf16(const __grid_constant__ Meta m, const __grid_constant__ DwPlan plan,
       default: dw_products<0>(acc, ring, full, empty, r0, r1, wg, lane);
     }
     if (!active) return;
-    float* dwl = dw + ly.w_off;
+    float* dwl = dwpart + (size_t)blockIdx.y * dw_len + ly.w_off;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       if (j >= np) continue;
@@ -700,9 +746,8 @@ dw_bf16(const __grid_constant__ Meta m, const __grid_constant__ DwPlan plan,
         const int o = it.o0 + wg * 64 + warp * 16 + g + 8 * ((e >> 1) & 1);
         const int c = (it.p0 + j) * 64 + 8 * (e >> 2) + 2 * q + (e & 1) -
                       ly.off[sg];
-        const float v = acc[j][e];
-        if (o < HID && c >= 0 && c < ly.width[sg] && v != 0.f)
-          atomicAdd(dwl + (size_t)o * ly.K + ly.kpos[sg] + c, v);
+        if (o < HID && c >= 0 && c < ly.width[sg])
+          dwl[(size_t)o * ly.K + ly.kpos[sg] + c] = acc[j][e];
       }
     }
   }
@@ -792,8 +837,7 @@ __device__ __forceinline__ void rows_x3_consumer(
     const float* __restrict__ alpha_p, const float* __restrict__ gout,
     const __nv_bfloat16* __restrict__ act_h, float* __restrict__ dx,
     float* __restrict__ daux, __nv_bfloat16* __restrict__ gc,
-    float* __restrict__ db, float* __restrict__ dwout,
-    float* __restrict__ dbout, int n, int stages, int n_tiles, int t_first,
+    float* __restrict__ part, int n, int stages, int n_tiles, int t_first,
     const Rows3Smem& sm) {
   using S = Rows3Shape<HID>;
   constexpr int HPn = S::HPn, PR = S::PR, NP = S::NP;
@@ -1039,14 +1083,9 @@ __device__ __forceinline__ void rows_x3_consumer(
   }
   if (tid == 0) bulk_wait_all();
   named_sync(1, 256);   // the shared sums are complete
-  for (int i = tid; i < m.L * HID; i += 256)
-    if (sdb[i] != 0.f) atomicAdd(db + i, sdb[i]);
-  for (int i = tid; i < O * HID; i += 256)
-    if (sWo[i] != 0.f) atomicAdd(dwout + i, sWo[i]);
-  if (tid < O && sdbo[tid] != 0.f) atomicAdd(dbout + tid, sdbo[tid]);
-  if (!aux_stream && m.kind != 2)
-    for (int a = tid; a < m.A; a += 256)
-      if (sdaux[a] != 0.f) atomicAdd(daux + a, sdaux[a]);
+  store_slot(m, HID, aux_stream, sdb, sWo, sdbo, nullptr, sdaux, nullptr,
+             part + (size_t)blockIdx.x * rows_slot_len(m, HID, aux_stream),
+             tid, 256);
 }
 
 template <int HID>
@@ -1058,8 +1097,7 @@ rows_bwd_x3(const __grid_constant__ Meta m, int aux_stream,
             const __nv_bfloat16* __restrict__ w,
             const float* __restrict__ wout, float* __restrict__ dx,
             float* __restrict__ daux, __nv_bfloat16* __restrict__ gc,
-            float* __restrict__ db, float* __restrict__ dwout,
-            float* __restrict__ dbout, int n, int stages) {
+            float* __restrict__ part, int n, int stages) {
   using S = Rows3Shape<HID>;
   constexpr int HPn = S::HPn, PR = S::PR, NP = S::NP;
   constexpr uint32_t kStage = S::kStage;
@@ -1135,12 +1173,12 @@ rows_bwd_x3(const __grid_constant__ Meta m, int aux_stream,
                        full, empty, hbar};
     if (wg == 0)
       rows_x3_consumer<HID, 0>(m, aux_stream, x, alpha_p, gout, act_h, dx,
-                               daux, gc, db, dwout, dbout, n, stages,
-                               n_tiles, t_first, sm);
+                               daux, gc, part, n, stages, n_tiles, t_first,
+                               sm);
     else
       rows_x3_consumer<HID, 1>(m, aux_stream, x, alpha_p, gout, act_h, dx,
-                               daux, gc, db, dwout, dbout, n, stages,
-                               n_tiles, t_first, sm);
+                               daux, gc, part, n, stages, n_tiles, t_first,
+                               sm);
   }
 }
 
@@ -1217,7 +1255,8 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 dw_x3(const __grid_constant__ Meta m, const __grid_constant__ DwPlan plan,
       const int* __restrict__ k0_p, const __nv_bfloat16* __restrict__ act_x,
       const __nv_bfloat16* __restrict__ act_h,
-      const __nv_bfloat16* __restrict__ gc, float* __restrict__ dw, int n) {
+      const __nv_bfloat16* __restrict__ gc, float* __restrict__ dwpart,
+      int dw_len, int n) {
   constexpr int HPn = Shape<HID>::HPn;
   constexpr int HS = HPn * kPanel;
   const DwItem& it = plan.item[blockIdx.x];
@@ -1227,8 +1266,7 @@ dw_x3(const __grid_constant__ Meta m, const __grid_constant__ DwPlan plan,
   const int ft = first_live_row(k0_p, n) / kTm3;
   const int per = (n_tiles - ft + gridDim.y - 1) / gridDim.y;
   const int r0 = ft + blockIdx.y * per;
-  const int r1 = min(n_tiles, r0 + per);
-  if (r0 >= r1) return;
+  const int r1 = min(n_tiles, r0 + per);   // none: the slot gets zeros
   const int nop = min(2, HPn - it.o0 / 64);
   const int np = it.np;
   const int src_pn = ly.buf[sg] == 0 ? x_panels(m) : HPn;
@@ -1288,7 +1326,7 @@ dw_x3(const __grid_constant__ Meta m, const __grid_constant__ DwPlan plan,
       default: dw_products_x3<0>(acc, ring, full, empty, r0, r1, wg, lane);
     }
     if (!active) return;
-    float* dwl = dw + ly.w_off;
+    float* dwl = dwpart + (size_t)blockIdx.y * dw_len + ly.w_off;
 #pragma unroll
     for (int j = 0; j < kDw3Panels; ++j) {
       if (j >= np) continue;
@@ -1297,12 +1335,57 @@ dw_x3(const __grid_constant__ Meta m, const __grid_constant__ DwPlan plan,
         const int o = it.o0 + wg * 64 + warp * 16 + g + 8 * ((e >> 1) & 1);
         const int c = (it.p0 + j) * 64 + 8 * (e >> 2) + 2 * q + (e & 1) -
                       ly.off[sg];
-        const float v = acc[j][e];
-        if (o < HID && c >= 0 && c < ly.width[sg] && v != 0.f)
-          atomicAdd(dwl + (size_t)o * ly.K + ly.kpos[sg] + c, v);
+        if (o < HID && c >= 0 && c < ly.width[sg])
+          dwl[(size_t)o * ly.K + ly.kpos[sg] + c] = acc[j][e];
       }
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// the slots summed in order
+// ---------------------------------------------------------------------------
+
+// One sum over slots: entry i of the output is src[0][i] + src[1][i] + ...
+// + src[nslots - 1][i], in that order, from 0; entries [end[k - 1], end[k])
+// go to dst[k] (the rows kernels' slots hold db, dWout, dbout and daux).
+struct SlotJob {
+  const float* src;
+  size_t stride;   // floats from one slot to the next
+  int nslots, count;
+  float* dst[4];
+  int end[4];
+};
+struct SlotJobs {
+  SlotJob job[2];   // blockIdx.y: the rows kernel's slots, the dW splits
+};
+constexpr int kSumThreads = 256;
+
+__global__ void __launch_bounds__(kSumThreads)
+slot_sums(const __grid_constant__ SlotJobs jobs) {
+  const SlotJob& j = jobs.job[blockIdx.y];
+  for (int i = blockIdx.x * kSumThreads + threadIdx.x; i < j.count;
+       i += gridDim.x * kSumThreads) {
+    float s = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < j.nslots; ++k)
+      s = __fadd_rn(s, j.src[(size_t)k * j.stride + i]);
+    int seg = 0;
+    while (i >= j.end[seg]) ++seg;
+    j.dst[seg][i - (seg ? j.end[seg - 1] : 0)] = s;
+  }
+}
+
+// Grid of the rows kernel (one slot per CTA) and the floats of the dW
+// products' packed [HID][K] layers.
+inline int rows_grid(int n, int bf16) {
+  const int tiles = bf16 ? (n + kTm - 1) / kTm : (n + kTm3 - 1) / kTm3;
+  return tiles < num_sms() ? tiles : num_sms();
+}
+
+inline int dw_floats(const Meta& m) {
+  const Layer& ly = m.layer[m.L - 1];
+  return ly.w_off + m.hid * ly.K;
 }
 
 template <int HID>
@@ -1311,11 +1394,14 @@ int launch_bwd(const Meta& m, int bf16, int aux_stream, const float* x,
                const void* w, const void* b, const float* wout,
                const float* gout, void* act_x,
                void* act_h, void* gc, float* dx, float* daux, float* db,
-               float* dwout, float* dbout, float* dw, int n, int splits,
-               cudaStream_t s) {
+               float* dwout, float* dbout, float* dw, float* part, int n,
+               int splits, cudaStream_t s) {
   int rc = launch_fwd<HID, true>(m, bf16, x, aux, alpha, k0, w, b, wout,
                                  nullptr, nullptr, act_x, act_h, n, s);
   if (rc != 0) return rc;
+  const int grid = rows_grid(n, bf16), slot = rows_slot_len(m, HID, aux_stream);
+  const int dw_len = dw_floats(m);
+  float* dwpart = part + (size_t)grid * slot;
   if (bf16) {
     const int stages =
         ring_depth([&](int st) { return bf16_rows_smem(m, HID, st); });
@@ -1327,13 +1413,11 @@ int launch_bwd(const Meta& m, int bf16, int aux_stream, const float* x,
         rows_bwd_bf16<HID>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
-    const int tiles = (n + kTm - 1) / kTm;
-    rows_bwd_bf16<HID><<<tiles < num_sms() ? tiles : num_sms(), kWsThreads,
-                         smem, s>>>(
+    rows_bwd_bf16<HID><<<grid, kWsThreads, smem, s>>>(
         m, aux_stream, x, alpha, k0, gout,
         static_cast<const __nv_bfloat16*>(act_h),
         static_cast<const __nv_bfloat16*>(w), wout, dx, daux,
-        static_cast<__nv_bfloat16*>(gc), db, dwout, dbout, n, stages);
+        static_cast<__nv_bfloat16*>(gc), part, n, stages);
     rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
     const size_t dw_smem =
@@ -1345,7 +1429,7 @@ int launch_bwd(const Meta& m, int bf16, int aux_stream, const float* x,
     dw_bf16<HID><<<dim3(plan.count, splits), kWsThreads, dw_smem, s>>>(
         m, plan, k0, static_cast<const __nv_bfloat16*>(act_x),
         static_cast<const __nv_bfloat16*>(act_h),
-        static_cast<const __nv_bfloat16*>(gc), dw, n);
+        static_cast<const __nv_bfloat16*>(gc), dwpart, dw_len, n);
   } else {
     // at least 3 stages: a warpgroup waits for its next stage (two stream
     // positions on) while it holds its last one
@@ -1362,13 +1446,11 @@ int launch_bwd(const Meta& m, int bf16, int aux_stream, const float* x,
         rows_bwd_x3<HID>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
-    const int tiles = (n + kTm3 - 1) / kTm3;
-    rows_bwd_x3<HID><<<tiles < num_sms() ? tiles : num_sms(), kWsThreads,
-                       smem, s>>>(
+    rows_bwd_x3<HID><<<grid, kWsThreads, smem, s>>>(
         m, aux_stream, x, alpha, k0, gout,
         static_cast<const __nv_bfloat16*>(act_h),
         static_cast<const __nv_bfloat16*>(w), wout, dx, daux,
-        static_cast<__nv_bfloat16*>(gc), db, dwout, dbout, n, stages);
+        static_cast<__nv_bfloat16*>(gc), part, n, stages);
     rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
     const size_t dw_smem = 1024 + (size_t)kDw3Stages * kDw3Stage +
@@ -1380,8 +1462,23 @@ int launch_bwd(const Meta& m, int bf16, int aux_stream, const float* x,
     dw_x3<HID><<<dim3(plan.count, splits), kWsThreads, dw_smem, s>>>(
         m, plan, k0, static_cast<const __nv_bfloat16*>(act_x),
         static_cast<const __nv_bfloat16*>(act_h),
-        static_cast<const __nv_bfloat16*>(gc), dw, n);
+        static_cast<const __nv_bfloat16*>(gc), dwpart, dw_len, n);
   }
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  // the sums over rows: the rows kernel's CTA slots and the dW splits,
+  // each summed in slot order
+  const int O = m.out_dim;
+  SlotJobs jobs;
+  jobs.job[0] = SlotJob{part, (size_t)slot, grid, slot,
+                        {db, dwout, dbout, daux},
+                        {m.L * HID, (m.L + O) * HID, (m.L + O) * HID + O,
+                         slot}};
+  jobs.job[1] = SlotJob{dwpart, (size_t)dw_len, splits, dw_len,
+                        {dw, dw, dw, dw}, {dw_len, dw_len, dw_len, dw_len}};
+  const int gx = (dw_len + kSumThreads - 1) / kSumThreads;
+  slot_sums<<<dim3(gx < 8 * num_sms() ? gx : 8 * num_sms(), 2), kSumThreads,
+              0, s>>>(jobs);
   return (int)cudaGetLastError();
 }
 
@@ -1401,27 +1498,39 @@ const char* hosnerf_cuda_error_string(int code) {
 // [n, A] (rows below the clamped k0 * 1024 unwritten); accumulated (zeroed
 // by the caller): daux [A] when broadcast, db [L, HID], dwout [out_dim,
 // HID], dbout [out_dim], dw (packed [HID][K] per layer at the weights'
-// offsets). splits: row ranges of the dW products. Returns
-// cudaGetLastError().
+// offsets). splits: row ranges of the dW products. part: f32 scratch of
+// hosnerf_embed_trunk_bwd_scratch floats (each launch's slots of partial
+// sums; nothing needs zeroing). Returns cudaGetLastError().
 int hosnerf_embed_trunk_bwd(const int* meta, int bf16, int aux_stream,
                             const float* x, const float* aux,
                             const float* alpha, const int* k0, const void* w,
                             const void* b, const float* wout,
                             const float* gout, void* act_x, void* act_h,
                             void* gc, float* dx, float* daux, float* db,
-                            float* dwout, float* dbout, float* dw, int n,
-                            int splits, void* stream) {
+                            float* dwout, float* dbout, float* dw,
+                            float* part, int n, int splits, void* stream) {
   trunk::Meta m;
   if (!trunk::parse_meta(meta, m) || splits < 1)
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (m.hid) {
-    case 32: return launch_bwd<32>(m, bf16, aux_stream, x, aux, alpha, k0, w, b, wout, gout, act_x, act_h, gc, dx, daux, db, dwout, dbout, dw, n, splits, s);
-    case 128: return launch_bwd<128>(m, bf16, aux_stream, x, aux, alpha, k0, w, b, wout, gout, act_x, act_h, gc, dx, daux, db, dwout, dbout, dw, n, splits, s);
-    case 256: return launch_bwd<256>(m, bf16, aux_stream, x, aux, alpha, k0, w, b, wout, gout, act_x, act_h, gc, dx, daux, db, dwout, dbout, dw, n, splits, s);
+    case 32: return launch_bwd<32>(m, bf16, aux_stream, x, aux, alpha, k0, w, b, wout, gout, act_x, act_h, gc, dx, daux, db, dwout, dbout, dw, part, n, splits, s);
+    case 128: return launch_bwd<128>(m, bf16, aux_stream, x, aux, alpha, k0, w, b, wout, gout, act_x, act_h, gc, dx, daux, db, dwout, dbout, dw, part, n, splits, s);
+    case 256: return launch_bwd<256>(m, bf16, aux_stream, x, aux, alpha, k0, w, b, wout, gout, act_x, act_h, gc, dx, daux, db, dwout, dbout, dw, part, n, splits, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// f32 floats of hosnerf_embed_trunk_bwd's `part` at these arguments: one
+// slot of the rows kernel's sums per CTA, one copy of dW per split (-1 for
+// a meta the kernels refuse).
+int hosnerf_embed_trunk_bwd_scratch(const int* meta, int bf16, int aux_stream,
+                                    int n, int splits) {
+  trunk::Meta m;
+  if (!trunk::parse_meta(meta, m) || splits < 1 || n <= 0) return -1;
+  return rows_grid(n, bf16) * rows_slot_len(m, m.hid, aux_stream) +
+         splits * dw_floats(m);
 }
 
 }  // extern "C"

@@ -43,21 +43,41 @@
 // device-memory atomic per (sample, bone, tap) is 208 per sample, 54 M per
 // call at the training shapes, contended because neighbouring samples of a
 // ray share voxels. Here the live samples are binned by brick (4x4x4 grid
-// cells, whose taps touch 5^3 voxels) by a counting sort in three launches
-// (a shared-memory histogram, one scan, one scatter of row ids); samples
-// without an in-grid tap, whose every share is 0, get dpts 0 and no bin,
-// so samples far off the grid cost nothing. Each
-// CTA of `tap_bwd_kernel` takes up to kChunk samples of one brick (a hot
-// brick is split over as many CTAs as it needs). The CTA sums the brick's
-// dvol in shared memory, [125 voxels][33] f32 with bones innermost, then
-// adds it to dvol with one atomic per nonzero entry, in the caller's
-// layout: ~3,250 atomics per CTA at most. A warp walks its samples one
-// after another with lane b on bone b: the shared-memory atomics of one
-// sample hit 26 distinct addresses and banks; each lane computes its
-// bone's gw (B5: J = 12K MACs), its share of U, dfz and the blend's direct
-// term, and folds them into its sample's (dfx, dfy, dfz) contribution,
-// summed over bones by shuffles. B5's drmat = w^T q accumulates per lane
-// in registers over the warp's samples and is added once per CTA.
+// cells, whose taps touch 5^3 voxels) by a stable counting sort in four
+// launches (per-CTA histograms, a scan over the CTAs and one over the
+// bricks, one scatter of row ids that keeps each brick's rows in row
+// order); samples without an in-grid tap,
+// whose every share is 0, get dpts 0 and no bin, so samples far off the
+// grid cost nothing. Each CTA of `tap_bwd_kernel` takes up to kChunk
+// samples of one brick (a hot brick is split over as many CTAs as it
+// needs). The CTA sums the brick's dvol in shared memory, [125 voxels][33]
+// with bones innermost, then adds it to dvol with one atomic per nonzero
+// entry, in the caller's layout: ~3,250 atomics per CTA at most. A warp
+// walks its samples one after another with lane b on bone b, summing each
+// bone's shares of the current cell's 8 corners in registers (fixed point)
+// until the cell changes (the corners shared with the next cell carry
+// over), so the
+// shared-memory atomics of one flush hit 26 distinct addresses; each
+// lane computes its bone's gw (B5: J = 12K MACs), its share of U, dfz and
+// the blend's direct term, and folds them into its sample's (dfx, dfy,
+// dfz) contribution, summed over bones by shuffles. B5's drmat = w^T q
+// accumulates per lane in registers over the warp's samples.
+//
+// Sums over samples, in an order no schedule moves (the TPU kernels carry
+// them across their sequential grids in one order). dvol: fixed point
+// (lbs_common.cuh): every share is rounded once to an int64 multiple of
+// 2^-e and summed exactly, in registers, with integer atomics in shared
+// memory and then to the [G*G, B*G] accumulators, so neither the order of
+// the samples nor the warps' or the CTAs' interleaving changes the total
+// (the sorted and the dense paths give the same bits);
+// `tap_finish_kernel` converts it to f32. e comes
+// from the largest |grad| entry M of the binned samples (pass 1) and, for
+// B5, the largest |rmat| entry R (pass 2): |share| <= M (3K (3G + 1) R +
+// 1) (row 7: M), at most n shares per accumulator. drmat: fixed-order
+// partial sums. The binning keeps each brick's rows in row order and the
+// chunks fixed, so a lane sums the same samples in the same order every
+// run; the CTA adds its warps in warp order into its own slot, and
+// `tap_finish_kernel` sums the slots in a fixed order (`fold_slot`).
 // Live suffix: k0 (a device int, in 512-row blocks) is clamped to
 // [0, n_blocks - 1]; rows below k0 * 512 are neither computed forward (their
 // output rows stay unwritten, as the TPU kernel leaves them) nor binned
@@ -74,10 +94,11 @@
 // dw = q rmat^T + g_w, the one input of a rounding point that the plain
 // version computes in another order (a matmul there), is computed exactly
 // on both sides (f64 products and sums of the f32 inputs) and rounded
-// once, so no order moves gw. The backward sums over bones (by shuffles) and over
-// samples (in shared memory, then atomics) in another order, and B5's
-// drmat and direct term, f32 sums with no rounding point after them, fuse
-// their multiply-adds.
+// once, so no order moves gw. The backward sums over bones (by shuffles)
+// and over samples (dvol in fixed point, exact but for each share's
+// rounding to 2^-e; drmat by slots) in another order than the plain
+// version's, the same one on every run, and B5's drmat and direct term,
+// f32 sums with no rounding point after them, fuse their multiply-adds.
 
 #include "lbs_common.cuh"
 
@@ -105,6 +126,9 @@ constexpr int kScanThreads = 1024;
 // memory, as the scatter pass's shared copy (2 ints a brick) would pass
 // the 48 KB a CTA gets without an opt-in
 constexpr int kMaxSmemBins = 6144;
+// the backward's control words (zeroed by the launcher): the largest
+// |grad| and |rmat| entries (bits)
+constexpr int kGradMax = 0, kRmatMax = 1, kCtlWords = 4;
 
 // 8 bone slots of an image row, as f32.
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
@@ -325,19 +349,26 @@ __device__ __forceinline__ int brick_of(const float* p, int G, int nb) {
          brick_axis(p[0], G);
 }
 
-// Pass 1: counts[brick] += live samples in it (a histogram in shared memory
-// unless there are more than kMaxSmemBins bricks). Rows below the clamped
-// k0 * 512 and samples without an in-grid tap are not counted; their dpts
-// rows are stored as 0 here.
+// Pass 1: this CTA's histogram of live samples by brick into its row of
+// hist [bin CTAs][nbricks] (counted in shared memory and stored whole
+// unless there are more than kMaxSmemBins bricks; then counted into the
+// row, zeroed by the launcher), and the largest |grad| entry of the
+// binned samples (bits, into ctl[kGradMax]). Rows below the clamped k0 * 512 and
+// samples without an in-grid tap are not counted; their dpts rows are
+// stored as 0 here. Integer counts: exact in any order.
 __global__ void __launch_bounds__(kBinThreads)
 bin_count_kernel(const float* __restrict__ pts, const int* __restrict__ k0_p,
-                 float* __restrict__ dpts, int* __restrict__ counts, int n,
-                 int G, int nb, int nbricks, int smem_bins) {
+                 const float* __restrict__ grad, int gcols,
+                 float* __restrict__ dpts, int* __restrict__ hist,
+                 unsigned* __restrict__ ctl, int n, int G, int nb,
+                 int nbricks, int smem_bins) {
   extern __shared__ int s_hist[];
   const int first = k0_p ? first_live_row(k0_p, n, kTile) : 0;
+  int* row_hist = hist + (size_t)blockIdx.x * nbricks;
   for (int i = threadIdx.x; i < smem_bins; i += blockDim.x) s_hist[i] = 0;
   __syncthreads();
   const int base = blockIdx.x * kBinThreads * kBinRows + threadIdx.x;
+  unsigned gm = 0;
 #pragma unroll
   for (int r = 0; r < kBinRows; ++r) {
     const int row = base + r * kBinThreads;
@@ -347,25 +378,62 @@ bin_count_kernel(const float* __restrict__ pts, const int* __restrict__ k0_p,
       dpts[3 * row] = dpts[3 * row + 1] = dpts[3 * row + 2] = 0.f;
       continue;
     }
-    const int br = brick_of(p, G, nb);
-    atomicAdd(smem_bins ? s_hist + br : counts + br, 1);
+    atomicAdd(smem_bins ? s_hist + brick_of(p, G, nb)
+                        : row_hist + brick_of(p, G, nb), 1);
+    for (int c = 0; c < gcols; ++c)
+      gm = max(gm, abs_bits(grad[(size_t)row * gcols + c]));
   }
+  warp_max_bits(ctl + kGradMax, gm);
   __syncthreads();
   for (int i = threadIdx.x; i < smem_bins; i += blockDim.x)
-    if (s_hist[i]) atomicAdd(counts + i, s_hist[i]);
+    row_hist[i] = s_hist[i];
 }
 
-// Pass 2, one CTA: offs = exclusive scan of counts (fill starts as a copy),
-// cstart = exclusive scan of each brick's chunk count, cstart[nbricks] =
-// all chunks.
+// Pass 2a, a CTA per 32 bricks: per brick, hist's column becomes the
+// exclusive scan over the bin CTAs (where in the brick each CTA's samples
+// start), and counts its total. Lane = brick; warp w takes a run of bin
+// CTAs, the warps' sums meet in shared memory in warp order.
+constexpr int kColWarps = 8;
+
+__global__ void __launch_bounds__(32 * kColWarps)
+bin_colscan_kernel(int* __restrict__ hist, int nbin,
+                   int* __restrict__ counts, int nbricks) {
+  __shared__ int s_sum[kColWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int i = blockIdx.x * 32 + lane;
+  const int per = (nbin + kColWarps - 1) / kColWarps;
+  const int c0 = min(warp * per, nbin), c1 = min(c0 + per, nbin);
+  int sum = 0;
+  if (i < nbricks)
+    for (int c = c0; c < c1; ++c) sum += hist[(size_t)c * nbricks + i];
+  s_sum[warp][lane] = sum;
+  __syncthreads();
+  int run = 0;
+  for (int w = 0; w < warp; ++w) run += s_sum[w][lane];
+  if (i >= nbricks) return;
+  for (int c = c0; c < c1; ++c) {
+    const int v = hist[(size_t)c * nbricks + i];
+    hist[(size_t)c * nbricks + i] = run;
+    run += v;
+  }
+  if (warp == kColWarps - 1) counts[i] = run;
+}
+
+// Pass 2b, one CTA: offs = exclusive scan of counts, cstart = exclusive
+// scan of each brick's chunk count, cstart[nbricks] = all chunks; the
+// largest |rmat| entry (bits, into ctl[kRmatMax]).
 __global__ void __launch_bounds__(kScanThreads)
 bin_scan_kernel(const int* __restrict__ counts, int* __restrict__ offs,
-                int* __restrict__ fill, int* __restrict__ cstart,
-                int nbricks) {
+                int* __restrict__ cstart, const float* __restrict__ rmat,
+                int nrmat, unsigned* __restrict__ ctl, int nbricks) {
   __shared__ int s_warp[2][32];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int per = (nbricks + kScanThreads - 1) / kScanThreads;
   const int lo = min(tid * per, nbricks), hi = min(lo + per, nbricks);
+  unsigned rm = 0;
+  for (int i = tid; i < nrmat; i += kScanThreads)
+    rm = max(rm, abs_bits(rmat[i]));
+  warp_max_bits(ctl + kRmatMax, rm);
   int sc = 0, sk = 0;
   for (int i = lo; i < hi; ++i) {
     const int c = counts[i];
@@ -406,7 +474,7 @@ bin_scan_kernel(const int* __restrict__ counts, int* __restrict__ offs,
   int ek = ik - sk + (warp ? s_warp[1][warp - 1] : 0);
   for (int i = lo; i < hi; ++i) {
     const int c = counts[i];
-    offs[i] = fill[i] = ec;
+    offs[i] = ec;
     cstart[i] = ek;
     ec += c;
     ek += (c + kChunk - 1) / kChunk;
@@ -414,63 +482,117 @@ bin_scan_kernel(const int* __restrict__ counts, int* __restrict__ offs,
   if (tid == kScanThreads - 1) cstart[nbricks] = ek;
 }
 
-// Pass 3: order[offs[brick] + k] = the brick's live rows (in no set order):
-// ranks within the CTA from the shared histogram, one atomic on fill per
-// (CTA, brick).
+// Pass 3: order[offs[brick] + k] = the brick's live rows in row order.
+// Each warp of the CTA takes kBinRows x 32 consecutive rows, in rounds of
+// 32; it counts its rows per brick (warp-private counters, wc[warp]
+// [nbricks]: in shared memory for at most kMaxWarpBins bricks, else this
+// CTA's region of `wcg`, zeroed by the launcher), the CTA turns the counts
+// into each warp's start per brick (offs + the CTA's base from pass 2 +
+// the warps before it), and each warp walks its rows again, ranking the
+// lanes of one brick by __match_any_sync. No atomics: the same rows give
+// the same order.
+constexpr int kBinWarps = kBinThreads / 32;
+constexpr int kMaxWarpBins = 1536;   // 48 KB of warp counters
+
+__device__ __forceinline__ int bin_row(const float* pts, int row, int first,
+                                       int n, int G, int nb) {
+  return row >= first && row < n && has_taps(pts + 3 * (size_t)row, G)
+             ? brick_of(pts + 3 * (size_t)row, G, nb)
+             : -1;
+}
+
 __global__ void __launch_bounds__(kBinThreads)
 bin_scatter_kernel(const float* __restrict__ pts, const int* __restrict__ k0_p,
-                   int* __restrict__ fill, int* __restrict__ order, int n,
-                   int G, int nb, int smem_bins) {
-  extern __shared__ int s_hist[];  // [smem_bins] counts, then bases
-  int* s_base = s_hist + smem_bins;
+                   const int* __restrict__ hist, const int* __restrict__ offs,
+                   int* __restrict__ wcg, int* __restrict__ order, int n,
+                   int G, int nb, int nbricks, int smem_warp_bins) {
+  extern __shared__ int s_wc[];
   const int first = k0_p ? first_live_row(k0_p, n, kTile) : 0;
-  for (int i = threadIdx.x; i < smem_bins; i += blockDim.x) s_hist[i] = 0;
+  int* wc = smem_warp_bins
+                ? s_wc
+                : wcg + (size_t)blockIdx.x * kBinWarps * nbricks;
+  if (smem_warp_bins)
+    for (int i = threadIdx.x; i < kBinWarps * nbricks; i += kBinThreads)
+      s_wc[i] = 0;
   __syncthreads();
-  const int base = blockIdx.x * kBinThreads * kBinRows + threadIdx.x;
-  int br[kBinRows], rank[kBinRows];
-#pragma unroll
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  int* mine = wc + warp * nbricks;
+  const int base = (blockIdx.x * kBinWarps + warp) * 32 * kBinRows + lane;
   for (int r = 0; r < kBinRows; ++r) {
-    const int row = base + r * kBinThreads;
-    br[r] = -1;
-    if (row < first || row >= n || !has_taps(pts + 3 * (size_t)row, G))
-      continue;
-    br[r] = brick_of(pts + 3 * (size_t)row, G, nb);
-    rank[r] = smem_bins ? atomicAdd(s_hist + br[r], 1)
-                        : atomicAdd(fill + br[r], 1);
+    const int br = bin_row(pts, base + 32 * r, first, n, G, nb);
+    const unsigned peers = __match_any_sync(kFullMask, br);
+    if (br >= 0 && !(peers & below)) mine[br] += __popc(peers);
+    __syncwarp();
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < smem_bins; i += blockDim.x)
-    if (s_hist[i]) s_base[i] = atomicAdd(fill + i, s_hist[i]);
+  const int* cta_base = hist + (size_t)blockIdx.x * nbricks;
+  for (int b = threadIdx.x; b < nbricks; b += kBinThreads) {
+    int run = offs[b] + cta_base[b];
+    for (int w = 0; w < kBinWarps; ++w) {
+      const int c = wc[w * nbricks + b];
+      wc[w * nbricks + b] = run;
+      run += c;
+    }
+  }
   __syncthreads();
-#pragma unroll
-  for (int r = 0; r < kBinRows; ++r)
-    if (br[r] >= 0)
-      order[(smem_bins ? s_base[br[r]] : 0) + rank[r]] =
-          base + r * kBinThreads;
+  for (int r = 0; r < kBinRows; ++r) {
+    const int row = base + 32 * r;
+    const int br = bin_row(pts, row, first, n, G, nb);
+    const unsigned peers = __match_any_sync(kFullMask, br);
+    if (br >= 0) {
+      const int at = mine[br];
+      __syncwarp(peers);
+      order[at + __popc(peers & below)] = row;
+      if (!(peers & below)) mine[br] = at + __popc(peers);
+    }
+    __syncwarp();
+  }
 }
 
 // Pass 4: one CTA per chunk of one brick's samples. K = 0: row 7 (grad is
 // gw [n, B]); K = 1, 2: B5 (grad is gout [n, 3K+1], rmat [B, 12K], drmat
 // accumulated).
+// The bound of one dvol share over the largest |grad| entry M: row 7's
+// share is at most |gw| <= M; B5's |dw| <= M (3K (3G + 1) R + 1), R the
+// largest |rmat| entry (|P| <= G for a binned sample); 2% for the bf16
+// roundings of gw and gw hz (the tap weight is at most 1).
+__device__ __forceinline__ FixedScale tap_scale(const unsigned* ctl, int K,
+                                                int G, int n) {
+  const unsigned r = ctl[kRmatMax];
+  FixedScale f = fixed_scale(
+      ctl[kGradMax],
+      1.02 * (K ? 3.0 * K * (3.0 * G + 1.0) *
+                      (double)__uint_as_float(r < 0x7f800000u ? r : 0u) +
+                  1.0
+                : 1.0),
+      (double)n);
+  f.ok = f.ok && r < 0x7f800000u;
+  return f;
+}
+
 template <typename VT, int K>
-__global__ void __launch_bounds__(kBwdThreads, 2)
+__global__ void __launch_bounds__(kBwdThreads, K == 0 ? 4 : 2)   // row 7: 32 warps an SM
 tap_bwd_kernel(const float* __restrict__ pts, const VT* __restrict__ img,
                const float* __restrict__ grad, const float* __restrict__ rmat,
                const int* __restrict__ counts, const int* __restrict__ offs,
                const int* __restrict__ cstart, const int* __restrict__ order,
-               float* __restrict__ dpts, float* __restrict__ dvol,
-               float* __restrict__ drmat, int B, int G, int nb, int nbricks) {
+               const unsigned* __restrict__ ctl, float* __restrict__ dpts,
+               unsigned long long* __restrict__ acc,
+               float* __restrict__ drm_slots, int n, int B, int G, int nb,
+               int nbricks) {
   constexpr int J = 12 * K;
   constexpr int JA = J > 0 ? J : 1;
-  constexpr int JR = J + 1;
-  extern __shared__ __align__(16) float s_mem[];
-  float* s_tile = s_mem;                  // [kVox][kTileRow]
-  float* s_drm = s_mem + kVox * kTileRow;  // [kMaxBones][JR] (K > 0)
+  extern __shared__ __align__(16) unsigned s_mem[];
+  unsigned* s_tile = s_mem;   // [kVox][kTileRow] fixed point, (lo, hi) words
+  float* s_drw = reinterpret_cast<float*>(s_mem);  // later [warps][B][J]
   __shared__ int s_info[3];
+  __shared__ float s_scale;
   const int tid = threadIdx.x, b = tid & 31, warp = tid >> 5;
   const int chunk = blockIdx.x;
   if (chunk >= cstart[nbricks]) return;
   if (tid == 0) {
+    s_scale = tap_scale(ctl, K, G, n).scale;
     int lo = 0, hi = nbricks;  // cstart[lo] <= chunk < cstart[hi]
     while (hi - lo > 1) {
       const int mid = (lo + hi) >> 1;
@@ -481,11 +603,10 @@ tap_bwd_kernel(const float* __restrict__ pts, const VT* __restrict__ img,
     s_info[1] = s0;
     s_info[2] = min(s0 + kChunk, offs[lo] + counts[lo]);
   }
-  for (int i = tid; i < kVox * kTileRow; i += kBwdThreads) s_tile[i] = 0.f;
-  if constexpr (K > 0)
-    for (int i = tid; i < kMaxBones * JR; i += kBwdThreads) s_drm[i] = 0.f;
+  for (int i = tid; i < 2 * kVox * kTileRow; i += kBwdThreads) s_tile[i] = 0u;
   __syncthreads();
   const int brick = s_info[0], s_lo = s_info[1], s_hi = s_info[2];
+  const float scale = s_scale;
   const int ox = kBrick * (brick % nb), oy = kBrick * (brick / nb % nb),
             oz = kBrick * (brick / (nb * nb));
   const bool live = b < B;
@@ -497,6 +618,28 @@ tap_bwd_kernel(const float* __restrict__ pts, const VT* __restrict__ img,
     drm[j] = 0.f;
   }
   const float dh[2] = {-1.f, 1.f};
+  // dvol: the warp's samples come in row order and share their cell (the
+  // same for every bone), often with the next sample, or a face. Lane b
+  // keeps bone b's fixed-point sums for the 8 corners of the current cell
+  // (wx, wy, wz = floor of the sample; each share rounded on its own);
+  // when the cell changes, the corners the new one shares keep their sums
+  // and the others are added to the tile (`leave`), the window shifting
+  // axis by axis; the rest at the end.
+  int wx = 0, wy = 0, wz = 0;
+  bool have = false;
+  unsigned long long win[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) win[k] = 0ull;
+  auto leave = [&](int k) {   // corner k's sum into the tile, if on the grid
+    const int x = wx + (k >> 2), y = wy + ((k >> 1) & 1), z = wz + (k & 1);
+    if (win[k] && (unsigned)x < (unsigned)G && (unsigned)y < (unsigned)G &&
+        (unsigned)z < (unsigned)G)
+      fixed_add_shared(
+          s_tile +
+              2 * ((((y - oy) * kSpan + (x - ox)) * kSpan + z - oz) *
+                       kTileRow + b),
+          win[k]);
+  };
 
   for (int g0 = s_lo + 32 * warp; g0 < s_hi; g0 += 32 * kBwdWarps) {
     const int m = min(32, s_hi - g0);
@@ -516,6 +659,23 @@ tap_bwd_kernel(const float* __restrict__ pts, const VT* __restrict__ img,
       const Taps tx = make_taps(P[0], G), ty = make_taps(P[1], G),
                  tz = make_taps(P[2], G);
       const XYTaps s = make_xy(tx, ty, G, img);
+      {  // the window to this sample's cell (warp-uniform)
+        const int cx = (int)floorf(P[0]), cy = (int)floorf(P[1]),
+                  cz = (int)floorf(P[2]);
+        if (have && (cx != wx || cy != wy || cz != wz)) {
+          const int dx = cx - wx, dy = cy - wy, dz = cz - wz;
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            if (corner_leaves(k, dx, dy, dz)) leave(k);
+          shift_corners<4>(win, dx);
+          shift_corners<2>(win, dy);
+          shift_corners<1>(win, dz);
+        }
+        have = true;
+        wx = cx;
+        wy = cy;
+        wz = cz;
+      }
       // this bone's 8 taps and zc
       float v[4][2], zc[2] = {0.f, 0.f};
 #pragma unroll
@@ -589,14 +749,12 @@ tap_bwd_kernel(const float* __restrict__ pts, const VT* __restrict__ img,
         for (int dy = 0; dy < 2; ++dy) {
           const int t = 2 * dx + dy;
           if (!s.v[t]) continue;
-          const int vxy = ((ty.i[dy] - oy) * kSpan + (tx.i[dx] - ox)) * kSpan;
           float U = 0.f;
 #pragma unroll
           for (int dz = 0; dz < 2; ++dz) {
             if (!tz.v[dz]) continue;
-            const float dv = __fmul_rn(s.w[t], d[dz]);
-            if (dv != 0.f)
-              atomicAdd(s_tile + (vxy + tz.i[dz] - oz) * kTileRow + b, dv);
+            win[4 * dx + 2 * dy + dz] += fixed_of(__fmul_rn(s.w[t], d[dz]),
+                                                  scale);
             U = __fadd_rn(U, __fmul_rn(d[dz], v[t][dz]));
           }
           c3[0] = __fadd_rn(c3[0], __fmul_rn(__fmul_rn(dh[dx], ty.h[dy]), U));
@@ -617,81 +775,165 @@ tap_bwd_kernel(const float* __restrict__ pts, const VT* __restrict__ img,
       }
     }
   }
-  if (K > 0 && live) {  // this lane's drmat row into the CTA's
+  if (have)
 #pragma unroll
-    for (int j = 0; j < J; ++j)
-      if (drm[j] != 0.f) atomicAdd(s_drm + b * JR + j, drm[j]);
-  }
+    for (int k = 0; k < 8; ++k) leave(k);
   __syncthreads();
-  // the brick's dvol, one atomic per nonzero entry, in [G*G, B*G]
+  // the brick's dvol, one integer atomic per nonzero entry, in [G*G, B*G]
   for (int i = tid; i < kSpan * kSpan * B * kSpan; i += kBwdThreads) {
     const int rz = i % kSpan, t = i / kSpan, bb = t % B, rxy = t / B;
     const int rx = rxy % kSpan, ry = rxy / kSpan;
     const int x = ox + rx, y = oy + ry, z = oz + rz;
     if (x >= G || y >= G || z >= G) continue;
-    const float val = s_tile[((ry * kSpan + rx) * kSpan + rz) * kTileRow + bb];
-    if (val != 0.f) atomicAdd(dvol + ((size_t)(y * G + x) * B + bb) * G + z, val);
+    const unsigned long long val = fixed_pair(
+        s_tile + 2 * (((ry * kSpan + rx) * kSpan + rz) * kTileRow + bb));
+    if (val) atomicAdd(acc + ((size_t)(y * G + x) * B + bb) * G + z, val);
   }
   if constexpr (K > 0) {
+    // drmat: each lane's row (its warp's samples in order), the warps in
+    // order, into this CTA's slot
+    __syncthreads();   // s_tile is read: its memory takes the warps' rows
+    if (live)
+#pragma unroll
+      for (int j = 0; j < J; ++j) s_drw[(warp * B + b) * J + j] = drm[j];
+    __syncthreads();
     for (int i = tid; i < B * J; i += kBwdThreads) {
-      const float val = s_drm[(i / J) * JR + i % J];
-      if (val != 0.f) atomicAdd(drmat + i, val);
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < kBwdWarps; ++w)
+        sum = __fadd_rn(sum, s_drw[w * B * J + i]);
+      drm_slots[(size_t)i * gridDim.x + chunk] = sum;   // entry-major
     }
   }
 }
 
+// dvol [G*G, B*G] f32 from the fixed-point accumulators (blocks [0,
+// nconv)); with K > 0, block nconv + i: drmat entry i, the slots of the
+// tap CTAs that ran (cstart[nbricks] of them) folded in a fixed order
+// (`fold_slot`).
+__global__ void __launch_bounds__(kFoldThreads)
+tap_finish_kernel(const unsigned long long* __restrict__ acc,
+                  const unsigned* __restrict__ ctl,
+                  const int* __restrict__ cstart,
+                  const float* __restrict__ drm_slots,
+                  float* __restrict__ dvol, float* __restrict__ drmat, int n,
+                  int B, int G, int K, int nbricks, int slot_stride,
+                  int nconv) {
+  if ((int)blockIdx.x < nconv) {
+    __shared__ FixedScale s_fs;
+    if (threadIdx.x == 0) s_fs = tap_scale(ctl, K, G, n);
+    __syncthreads();
+    const int i = blockIdx.x * kFoldThreads + threadIdx.x;
+    if (i < G * G * B * G) dvol[i] = fixed_value(acc[i], s_fs);
+    return;
+  }
+  const int i = blockIdx.x - nconv;
+  const float sum = fold_slot(drm_slots + (size_t)i * slot_stride,
+                              cstart[nbricks]);
+  if (threadIdx.x == 0) drmat[i] = sum;
+}
+
 constexpr int scatter_smem(int K) {
-  return (kVox * kTileRow + (K > 0 ? kMaxBones * (12 * K + 1) : 0)) *
-         (int)sizeof(float);
+  return 2 * kVox * kTileRow * (int)sizeof(unsigned) >
+                 kBwdWarps * kMaxBones * 12 * K * (int)sizeof(float)
+             ? 2 * kVox * kTileRow * (int)sizeof(unsigned)
+             : kBwdWarps * kMaxBones * 12 * K * (int)sizeof(float);
 }
 static_assert(scatter_smem(2) <= 48 * 1024 &&
-                  2 * kMaxSmemBins * (int)sizeof(int) <= 48 * 1024,
+                  kMaxSmemBins * (int)sizeof(int) <= 48 * 1024 &&
+                  kMaxWarpBins * kBinWarps * (int)sizeof(int) <= 48 * 1024,
               "the backward's shared memory needs no opt-in");
+
+// The backward's scratch: [int64 accumulators G*G*B*G | kCtlWords control
+// words], zeroed together, then int32 counts | offs | cstart (nbricks + 1)
+// | order (n) | hist (bin CTAs x nbricks) | the scatter's warp counters
+// past kMaxWarpBins bricks (bin CTAs x 8 x nbricks, zeroed), then f32
+// drmat slots (tap CTAs x B*12K); offsets in 4-byte words.
+struct TapScratch {
+  int nb, nbricks, smem_bins, warp_bins, nbin, grid;
+  size_t ctl, counts, offs, cstart, order, hist, wcg, slots, total;
+};
+
+inline TapScratch tap_scratch(int n, int B, int G, int K) {
+  TapScratch t;
+  t.nb = (G + kBrick - 1) / kBrick;
+  t.nbricks = t.nb * t.nb * t.nb;
+  t.smem_bins = t.nbricks <= kMaxSmemBins ? t.nbricks : 0;
+  t.warp_bins = t.nbricks <= kMaxWarpBins ? t.nbricks : 0;
+  t.nbin = (n + kBinThreads * kBinRows - 1) / (kBinThreads * kBinRows);
+  // at most one partial chunk per brick beyond the full ones; the CTAs
+  // past the real count exit
+  t.grid = (n + kChunk - 1) / kChunk + t.nbricks;
+  t.ctl = 2 * (size_t)G * G * B * G;
+  t.counts = t.ctl + kCtlWords;
+  t.offs = t.counts + t.nbricks;
+  t.cstart = t.offs + t.nbricks;
+  t.order = t.cstart + t.nbricks + 1;
+  t.hist = t.order + n;
+  t.wcg = t.hist + (size_t)t.nbin * t.nbricks;
+  t.slots = t.wcg + (t.warp_bins ? 0 : (size_t)t.nbin * kBinWarps * t.nbricks);
+  t.total = t.slots + (size_t)t.grid * B * 12 * K;
+  return t;
+}
 
 template <typename VT>
 int launch_bwd(const float* pts, const VT* img, const float* grad,
                const float* rmat, const int* k0, int* scratch, float* dpts,
                float* dvol, float* drmat, int n, int B, int G, int K,
                cudaStream_t s) {
-  const int nb = (G + kBrick - 1) / kBrick, nbricks = nb * nb * nb;
-  const int smem_bins = nbricks <= kMaxSmemBins ? nbricks : 0;
-  const int bin_smem = 2 * smem_bins * (int)sizeof(int);
+  const TapScratch t = tap_scratch(n, B, G, K);
+  const int bin_smem = t.smem_bins * (int)sizeof(int);
   const int smem = scatter_smem(K);
-  // at most one partial chunk per brick beyond the full ones; the CTAs
-  // past the real count exit
-  const int grid = (n + kChunk - 1) / kChunk + nbricks;
-  int* counts = scratch;
-  cudaMemsetAsync(counts, 0, nbricks * sizeof(int), s);
-  int* offs = counts + nbricks;
-  int* fill = offs + nbricks;
-  int* cstart = fill + nbricks;
-  int* order = cstart + nbricks + 1;
-  const int bin_grid = (n + kBinThreads * kBinRows - 1) / (kBinThreads * kBinRows);
-  bin_count_kernel<<<bin_grid, kBinThreads, bin_smem / 2, s>>>(
-      pts, k0, dpts, counts, n, G, nb, nbricks, smem_bins);
-  bin_scan_kernel<<<1, kScanThreads, 0, s>>>(counts, offs, fill, cstart,
-                                             nbricks);
-  bin_scatter_kernel<<<bin_grid, kBinThreads, bin_smem, s>>>(
-      pts, k0, fill, order, n, G, nb, smem_bins);
+  auto* acc = reinterpret_cast<unsigned long long*>(scratch);
+  auto* ctl = reinterpret_cast<unsigned*>(scratch + t.ctl);
+  int* counts = scratch + t.counts;
+  int* offs = scratch + t.offs;
+  int* cstart = scratch + t.cstart;
+  int* order = scratch + t.order;
+  int* hist = scratch + t.hist;
+  int* wcg = scratch + t.wcg;
+  float* slots = reinterpret_cast<float*>(scratch + t.slots);
+  cudaError_t e = cudaMemsetAsync(scratch, 0, (t.ctl + kCtlWords) * 4, s);
+  if (e == cudaSuccess && !t.smem_bins)
+    e = cudaMemsetAsync(hist, 0, (size_t)t.nbin * t.nbricks * 4, s);
+  if (e == cudaSuccess && !t.warp_bins)
+    e = cudaMemsetAsync(wcg, 0, (size_t)t.nbin * kBinWarps * t.nbricks * 4,
+                        s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  bin_count_kernel<<<t.nbin, kBinThreads, bin_smem, s>>>(
+      pts, k0, grad, K ? 3 * K + 1 : B, dpts, hist, ctl, n, G, t.nb,
+      t.nbricks, t.smem_bins);
+  bin_colscan_kernel<<<(t.nbricks + 31) / 32, 32 * kColWarps, 0, s>>>(
+      hist, t.nbin, counts, t.nbricks);
+  bin_scan_kernel<<<1, kScanThreads, 0, s>>>(counts, offs, cstart, rmat,
+                                             K ? B * 12 * K : 0, ctl,
+                                             t.nbricks);
+  bin_scatter_kernel<<<t.nbin, kBinThreads,
+                       t.warp_bins * kBinWarps * (int)sizeof(int), s>>>(
+      pts, k0, hist, offs, wcg, order, n, G, t.nb, t.nbricks, t.warp_bins);
   switch (K) {
     case 0:
-      tap_bwd_kernel<VT, 0><<<grid, kBwdThreads, smem, s>>>(
-          pts, img, grad, rmat, counts, offs, cstart, order, dpts, dvol,
-          drmat, B, G, nb, nbricks);
+      tap_bwd_kernel<VT, 0><<<t.grid, kBwdThreads, smem, s>>>(
+          pts, img, grad, rmat, counts, offs, cstart, order, ctl, dpts, acc,
+          slots, n, B, G, t.nb, t.nbricks);
       break;
     case 1:
-      tap_bwd_kernel<VT, 1><<<grid, kBwdThreads, smem, s>>>(
-          pts, img, grad, rmat, counts, offs, cstart, order, dpts, dvol,
-          drmat, B, G, nb, nbricks);
+      tap_bwd_kernel<VT, 1><<<t.grid, kBwdThreads, smem, s>>>(
+          pts, img, grad, rmat, counts, offs, cstart, order, ctl, dpts, acc,
+          slots, n, B, G, t.nb, t.nbricks);
       break;
     case 2:
-      tap_bwd_kernel<VT, 2><<<grid, kBwdThreads, smem, s>>>(
-          pts, img, grad, rmat, counts, offs, cstart, order, dpts, dvol,
-          drmat, B, G, nb, nbricks);
+      tap_bwd_kernel<VT, 2><<<t.grid, kBwdThreads, smem, s>>>(
+          pts, img, grad, rmat, counts, offs, cstart, order, ctl, dpts, acc,
+          slots, n, B, G, t.nb, t.nbricks);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int nconv = (G * G * B * G + kFoldThreads - 1) / kFoldThreads;
+  tap_finish_kernel<<<nconv + B * 12 * K, kFoldThreads, 0, s>>>(
+      acc, ctl, cstart, slots, dvol, drmat, n, B, G, K, t.nbricks, t.grid,
+      nconv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -783,19 +1025,17 @@ int hosnerf_shared_blend_fwd(const float* pts, const void* img,
   return static_cast<int>(cudaGetLastError());
 }
 
-// int32 scratch of hosnerf_shared_tap_bwd: counts | offs | fill | cstart
-// (nbricks + 1) | order (n).
-int hosnerf_shared_tap_scratch(int n, int G) {
-  const int nb = (G + kBrick - 1) / kBrick;
-  return 4 * nb * nb * nb + 1 + n;
+// int32 words of hosnerf_shared_tap_bwd's scratch (`tap_scratch`).
+int hosnerf_shared_tap_scratch(int n, int B, int G, int K) {
+  return static_cast<int>(tap_scratch(n, B, G, K).total);
 }
 
 // Both backwards. K = 0, row 7: grad = gw [n, B]; rmat, k0, drmat null.
 // K = 1, 2, B5: grad = gout [n, 3K+1], rmat [B, 12K], k0 [1] int32 on the
-// device, drmat [B, 12K] accumulated. dpts [n, 3] stored (rows below the
-// clamped k0 * 512 as 0); dvol [G*G, B*G] accumulated; both sums zeroed by
-// the caller. scratch: int32 [hosnerf_shared_tap_scratch(n, G)]. Returns
-// cudaGetLastError().
+// device, drmat [B, 12K]. dpts [n, 3] stored (rows below the clamped k0 *
+// 512 as 0); dvol [G*G, B*G] and drmat written whole. scratch: int32
+// [hosnerf_shared_tap_scratch(n, B, G, K)], 8-byte aligned (what needs
+// zeroing is zeroed here). Returns cudaGetLastError().
 int hosnerf_shared_tap_bwd(const float* pts, const void* img,
                            const float* grad, const float* rmat,
                            const int* k0, int* scratch, float* dpts,

@@ -49,17 +49,30 @@
 // Backward (B4): a warp walks kRowsPerWarp samples with lane = bone, so a
 // sample's live pairs run side by side and the lane's dRg/dTg sums stay in
 // its registers. Per sample the lanes' shares of dpts are summed by
-// shuffles. dRg/dTg are summed per CTA in shared memory and added with one
-// atomic per nonzero entry into one of kReplicas copies. dvol sums over
-// samples in a z-pair image, float2 (z = cz - 1, z = cz) at (b, x + 1,
-// y + 1, cz) for x, y in [-1, G]: a lane sums its cell's 8 tap shares
-// over consecutive rows (a warp's rows are neighbouring samples of a ray,
-// which often share a cell) and adds them as 4 float2 atomics (vector
-// reductions, compute capability 9.x) when its cell changes; the
-// off-grid taps' shares go to padding that nothing reads. The scratch
-// (replicas and z-pair image) is zeroed by one memset; `inv_fold_kernel`
-// then writes dvol [B, G*G, G] (each voxel the sum of its two z-pair
-// entries, in that order) and dRg, dTg (the replicas summed in order).
+// shuffles.
+//
+// Sums over samples, in an order no schedule moves (the TPU kernel carries
+// them across its sequential grid in one order). dRg/dTg: fixed-order
+// partial sums. A lane's registers sum its warp's rows in row order; the
+// CTA sums its warps in warp order in shared memory and stores the result
+// to its own slot; `inv_fold_kernel` sums the slots in index order
+// (`fold_slot`, lbs_common.cuh). dvol: fixed point. A lane rounds each
+// of the 8 tap shares of its cell's corners to an int64 multiple of 2^-e
+// and sums them exactly over its rows (a warp's rows are neighbouring
+// samples of a ray, which often share a cell or a face); when its cell
+// changes it keeps the corners the new cell shares and adds each other
+// in-grid corner's sum to an int64 accumulator per voxel [B, G, G, G]
+// with one integer atomic: dvol is the exact sum of the rounded shares,
+// whatever the rows' order (the sorted and the dense paths give the same
+// bits). Its scale comes from
+// `inv_gmax_kernel`, the largest |gacc| entry of the live rows, by the
+// bound |share| <= |gw| <= M (3G + 1) (|f| <= G for a live pair, the
+// weight w <= 1; 1% added for the bf16 roundings), at most n shares per
+// voxel. One memset zeroes the accumulators and the max; `inv_fold_kernel`
+// converts dvol to f32 and folds the slots.
+// These sums are scattered over 852 k voxels, where per-CTA copies would
+// not fit; one integer atomic per corner sum keeps the traffic of one add
+// per share.
 //
 // Numerics. Every per-pair sum and product uses explicit round-to-nearest
 // intrinsics (no FMA contraction), in the order of the plain versions
@@ -71,8 +84,10 @@
 // forward agrees with its plain version bit for bit: its sum over bones is
 // the plain version's, and the plain version's off-grid taps add zeros,
 // as the image's padding does. The backward's sums over bones (dpts, by
-// shuffles) and over samples (dvol, dRg, dTg: registers, shared memory and
-// atomics; dRg/dTg's multiply-adds fused) take another order.
+// shuffles) and over samples (dRg, dTg: registers, shared memory, slots,
+// their multiply-adds fused; dvol: fixed point, exact but for each
+// share's rounding to 2^-e) take another order than the plain version's,
+// the same one on every run.
 
 #include "lbs_common.cuh"
 
@@ -83,12 +98,13 @@ using namespace hosnerf;
 constexpr int kTile = 1024;         // k0 counts blocks of this many rows
 constexpr int kFwdThreads = 256;
 constexpr int kImageThreads = 256;
-constexpr int kBwdWarps = 4;
+constexpr int kBwdWarps = 8;
+constexpr int kBwdCtasPerSm = 3;   // 24 warps an SM: at most 85 registers
 constexpr int kBwdThreads = 32 * kBwdWarps;
 constexpr int kRowsPerWarp = 16;
 constexpr int kBwdRows = kBwdWarps * kRowsPerWarp;  // rows per backward CTA
-constexpr int kReplicas = 16;       // copies of the dRg/dTg sums
-constexpr int kFoldThreads = 256;
+constexpr int kMaxThreads = 256;     // inv_gmax_kernel
+constexpr int kMaxRows = 8;
 static_assert(kMaxBones <= 32, "the backward puts one bone on each lane");
 
 // The 8 corners of one image entry, loaded whole.
@@ -236,54 +252,106 @@ inv_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ rg,
   out[row] = make_float4(ax, ay, az, aw);
 }
 
-// B4: dpts [n, 3] written for every row; the dRg/dTg sums into `rep`
-// (kReplicas x [B, 12]: dRg row-major [c][k], then dTg[c]) and the dvol
-// shares into the z-pair image `zp` [B, G+2, G+2, G+1] float2, both zeroed
-// by the launcher.
+// The bound of one dvol share over the largest |gacc| entry (see above).
+__device__ __forceinline__ double share_factor(int G) {
+  return 1.01 * (3.0 * G + 1.0);
+}
+
+// The largest |gacc| entry over rows from the clamped k0 * kTile on, as
+// bits into *m (zeroed by the launcher).
+__global__ void __launch_bounds__(kMaxThreads)
+inv_gmax_kernel(const float4* __restrict__ gacc, const int* __restrict__ k0,
+                unsigned* __restrict__ m, int n) {
+  const int first = k0 ? first_live_row(k0, n, kTile) : 0;
+  const int base = blockIdx.x * kMaxThreads * kMaxRows + threadIdx.x;
+  unsigned b = 0;
+#pragma unroll
+  for (int r = 0; r < kMaxRows; ++r) {
+    const int row = base + r * kMaxThreads;
+    if (row >= first && row < n) {
+      const float4 g = gacc[row];
+      b = max(max(b, max(abs_bits(g.x), abs_bits(g.y))),
+              max(abs_bits(g.z), abs_bits(g.w)));
+    }
+  }
+  warp_max_bits(m, b);
+}
+
+// B4: dpts [n, 3] written for every row; this CTA's dRg/dTg sums stored to
+// its slot of `rep` ([B, 12][grid]: entry (b, j) = dRg row-major [c][k],
+// then dTg[c], its slots contiguous), zeros for a dead CTA; the dvol shares added in fixed point to `acc`
+// [B, G, G, G] (zeroed by the launcher, scaled from *gmax).
 template <typename VT>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kBwdThreads, kBwdCtasPerSm)
 inv_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ rg,
                const float* __restrict__ tg, const VT* __restrict__ img,
                const float4* __restrict__ gacc, const int* __restrict__ k0,
-               float* __restrict__ dpts, float* __restrict__ rep,
-               float2* __restrict__ zp, int n, int B, int G) {
+               const unsigned* __restrict__ gmax, float* __restrict__ dpts,
+               float* __restrict__ rep, unsigned long long* __restrict__ acc,
+               int n, int B, int G) {
   __shared__ float s_d[kBwdWarps][12][32];
   __shared__ float4 s_bone[kMaxBones * 3];  // rows (Rc0, Rc1, Rc2, Tc)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row0 = blockIdx.x * kBwdRows;
   const int first = k0 ? first_live_row(k0, n, kTile) : 0;
+  float* slot = rep + blockIdx.x;   // entry i at slot[i * gridDim.x]
   if (row0 + kBwdRows <= first) {  // the whole CTA is dead prefix
     for (int i = threadIdx.x; i < 3 * kBwdRows; i += kBwdThreads)
       if (3 * row0 + i < 3 * n) dpts[3 * row0 + i] = 0.f;
+    for (int i = threadIdx.x; i < B * 12; i += kBwdThreads)
+      slot[(size_t)i * gridDim.x] = 0.f;
     return;
   }
+  __shared__ float s_scale;
+  if (threadIdx.x == 0)
+    s_scale = fixed_scale(*gmax, share_factor(G), (double)n).scale;
   for (int i = threadIdx.x; i < B * 3; i += kBwdThreads)
     s_bone[i] = make_float4(rg[3 * i], rg[3 * i + 1], rg[3 * i + 2], tg[i]);
   __syncthreads();
+  const float scale = s_scale;
   const bool bone = lane < B;
+  unsigned long long* lane_acc = acc + (size_t)(bone ? lane : 0) * G * G * G;
   const float4* rt = s_bone + 3 * (bone ? lane : 0);  // the lane's bone
   float d[12];
 #pragma unroll
   for (int j = 0; j < 12; ++j) d[j] = 0.f;
-  const int P = G + 1, Q = G + 2;
+  const int P = G + 1;
   const float dh[2] = {-1.f, 1.f};
-  // dvol shares of the lane's current cell, summed over consecutive rows
-  // (a warp's rows are neighbouring samples of a ray) and added to the
-  // z-pair image when the cell changes
+  // dvol shares of the lane's 8 corner voxels (corner k = 4 dx + 2 dy +
+  // dz of its current cell), each rounded to fixed point and summed
+  // exactly over its rows (a warp's rows are neighbouring samples of a
+  // ray). When the cell changes, the corners the new cell shares with the
+  // old one keep their sums (a step to a face neighbour keeps 4), and the
+  // others are added to the accumulators (`move`, then `flush` at the
+  // end): 3.7 M integer atomics at the training shapes against 6.1 M at
+  // one per corner and cell.
   int cell = -1, ox = 0, oy = 0, oz = 0;
-  float sh[8];
+  unsigned long long sh[8];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) sh[k] = 0.f;
+  for (int k = 0; k < 8; ++k) sh[k] = 0ull;
+  auto add = [&](int k) {   // corner k's sum, if it is on the grid
+    const int x = ox - 1 + (k >> 2), y = oy - 1 + ((k >> 1) & 1),
+              z = oz - 1 + (k & 1);
+    if (sh[k] && (unsigned)x < (unsigned)G && (unsigned)y < (unsigned)G &&
+        (unsigned)z < (unsigned)G)
+      atomicAdd(lane_acc + (x * G + y) * G + z, sh[k]);
+  };
   auto flush = [&]() {
     if (cell < 0) return;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float2 dv = make_float2(sh[2 * q], sh[2 * q + 1]);
-      if (dv.x != 0.f || dv.y != 0.f)
-        atomicAdd(zp + ((lane * Q + ox + (q >> 1)) * Q + oy + (q & 1)) * P + oz,
-                  dv);
-      sh[2 * q] = sh[2 * q + 1] = 0.f;
-    }
+    for (int k = 0; k < 8; ++k) add(k);
+  };
+  // to the cell (nx, ny, nz): corner k of the old cell is corner k - d of
+  // the new one (d = new - old per axis) where that lies in {0, 1}^3; the
+  // other old corners are added, then the window shifts axis by axis
+  auto move = [&](int nx, int ny, int nz) {
+    const int dx = nx - ox, dy = ny - oy, dz = nz - oz;
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (corner_leaves(k, dx, dy, dz)) add(k);
+    shift_corners<4>(sh, dx);
+    shift_corners<2>(sh, dy);
+    shift_corners<1>(sh, dz);
   };
 
   for (int s = 0; s < kRowsPerWarp; ++s) {
@@ -307,7 +375,7 @@ inv_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ rg,
       Corners<VT> e;
       e.load(img, here);
       if (here != cell) {
-        flush();
+        if (cell >= 0) move(cx, cy, cz);
         cell = here;
         ox = cx;
         oy = cy;
@@ -338,8 +406,8 @@ inv_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ rg,
           zc1 = __fadd_rn(zc1, __fmul_rn(w, v1));
           m21 = __fadd_rn(m21, __fmul_rn(wdx, v1));
           m31 = __fadd_rn(m31, __fmul_rn(wdy, v1));
-          sh[4 * dx + 2 * dy] += __fmul_rn(w, gz0);
-          sh[4 * dx + 2 * dy + 1] += __fmul_rn(w, gz1);
+          sh[4 * dx + 2 * dy] += fixed_of(__fmul_rn(w, gz0), scale);
+          sh[4 * dx + 2 * dy + 1] += fixed_of(__fmul_rn(w, gz1), scale);
         }
       }
       const float wb = __fadd_rn(__fmul_rn(hz[0], zc0), __fmul_rn(hz[1], zc1));
@@ -378,44 +446,46 @@ inv_bwd_kernel(const float* __restrict__ pts, const float* __restrict__ rg,
 #pragma unroll
   for (int j = 0; j < 12; ++j) s_d[warp][j][lane] = d[j];
   __syncthreads();
-  float* dst = rep + (blockIdx.x % kReplicas) * B * 12;
   for (int i = threadIdx.x; i < B * 12; i += kBwdThreads) {
     const int b = i / 12, j = i % 12;
     float sum = 0.f;
 #pragma unroll
     for (int w = 0; w < kBwdWarps; ++w) sum += s_d[w][j][b];
-    if (sum != 0.f) atomicAdd(dst + i, sum);
+    slot[(size_t)i * gridDim.x] = sum;
   }
 }
 
-// dvol[b, x*G + y, z] = zp[b][x+1][y+1][z+1].x + zp[b][x+1][y+1][z].y;
-// dRg/dTg = the kReplicas copies summed in order.
+// Blocks [0, nconv): dvol [B, G*G, G] from the fixed-point accumulators;
+// block nconv + i: entry i of the backward's dRg/dTg slots folded in a
+// fixed order (`fold_slot`).
 __global__ void __launch_bounds__(kFoldThreads)
-inv_fold_kernel(const float* __restrict__ rep, const float2* __restrict__ zp,
-                float* __restrict__ dvol, float* __restrict__ drg,
-                float* __restrict__ dtg, int B, int G) {
-  const int i = blockIdx.x * kFoldThreads + threadIdx.x;
-  const int P = G + 1, Q = G + 2;
-  if (i < B * G * G * G) {
-    const int z = i % G, y = i / G % G, x = i / (G * G) % G;
-    const int b = i / (G * G * G);
-    const float2* col = zp + ((size_t)(b * Q + x + 1) * Q + y + 1) * P;
-    dvol[i] = __fadd_rn(col[z + 1].x, col[z].y);
+inv_fold_kernel(const unsigned long long* __restrict__ acc,
+                const unsigned* __restrict__ gmax,
+                const float* __restrict__ rep, float* __restrict__ dvol,
+                float* __restrict__ drg, float* __restrict__ dtg, int n,
+                int B, int G, int nslots, int nconv) {
+  if ((int)blockIdx.x < nconv) {
+    __shared__ FixedScale s_fs;
+    if (threadIdx.x == 0) s_fs = fixed_scale(*gmax, share_factor(G), (double)n);
+    __syncthreads();
+    const int i = blockIdx.x * kFoldThreads + threadIdx.x;
+    if (i < B * G * G * G) dvol[i] = fixed_value(acc[i], s_fs);
+    return;
   }
-  if (i < B * 12) {
-    float sum = 0.f;
-#pragma unroll
-    for (int k = 0; k < kReplicas; ++k) sum += rep[k * B * 12 + i];
-    const int b = i / 12, j = i % 12;
+  const int i = blockIdx.x - nconv, b = i / 12, j = i % 12;
+  const float sum = fold_slot(rep + (size_t)i * nslots, nslots);
+  if (threadIdx.x == 0) {
     if (j < 9) drg[9 * b + j] = sum;
     else dtg[3 * b + j - 9] = sum;
   }
 }
 
-// floats before the z-pair image in the backward's scratch (16-byte aligned)
-int replica_floats(int B) { return (kReplicas * B * 12 + 3) / 4 * 4; }
+// The backward's scratch, in floats: the dvol accumulators (int64), then
+// the max (4 floats; both zeroed by one memset) and the per-CTA dRg/dTg
+// slots.
+int acc_floats(int B, int G) { return 2 * B * G * G * G; }
 
-int zpair_floats(int B, int G) { return 2 * B * (G + 2) * (G + 2) * (G + 1); }
+int bwd_slots(int n) { return (n + kBwdRows - 1) / kBwdRows; }
 
 }  // namespace
 
@@ -425,9 +495,9 @@ const char* hosnerf_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// f32 elements of the backward's scratch for B bones at grid size G.
-int hosnerf_inverse_bwd_scratch(int B, int G) {
-  return replica_floats(B) + zpair_floats(B, G);
+// f32 elements of the backward's scratch for n rows, B bones, grid size G.
+int hosnerf_inverse_bwd_scratch(int n, int B, int G) {
+  return acc_floats(B, G) + 4 + bwd_slots(n) * B * 12;
 }
 
 // The corner image: vol [B, G*G, G] (bf16 when vol_bf16, else f32) -> img
@@ -478,37 +548,44 @@ int hosnerf_inverse_lbs(const float* pts, const float* rg, const float* tg,
 
 // Backward: gacc [n, 4] f32 in; dpts [n, 3] (every row), drg [B, 9], dtg
 // [B, 3] and dvol [B, G*G, G] f32 out, all written here; scratch
-// (hosnerf_inverse_bwd_scratch floats) zeroed here. Three device
-// operations on `stream` (memset, kernel, fold); returns the first error.
+// (hosnerf_inverse_bwd_scratch(n, B, G) floats; what needs zeroing is
+// zeroed here). Four device operations on `stream` (memset, the max,
+// kernel, fold); returns the first error.
 int hosnerf_inverse_lbs_bwd(const float* pts, const float* rg,
                             const float* tg, const void* img,
                             const float* gacc, const int* k0, float* dpts,
                             float* drg, float* dtg, float* dvol,
                             float* scratch, int n, int B, int G, int img_bf16,
                             void* stream) {
-  if (B < 1 || B > kMaxBones) return static_cast<int>(cudaErrorInvalidValue);
+  if (B < 1 || B > kMaxBones || n < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float2* zp = reinterpret_cast<float2*>(scratch + replica_floats(B));
+  auto* acc = reinterpret_cast<unsigned long long*>(scratch);
+  auto* gmax = reinterpret_cast<unsigned*>(scratch + acc_floats(B, G));
+  float* rep = scratch + acc_floats(B, G) + 4;
   cudaError_t err = cudaMemsetAsync(
-      scratch, 0, sizeof(float) * hosnerf_inverse_bwd_scratch(B, G), s);
+      scratch, 0, sizeof(float) * (acc_floats(B, G) + 4), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
-    const dim3 grid((n + kBwdRows - 1) / kBwdRows);
     const float4* g = reinterpret_cast<const float4*>(gacc);
+    inv_gmax_kernel<<<(n + kMaxThreads * kMaxRows - 1) /
+                          (kMaxThreads * kMaxRows),
+                      kMaxThreads, 0, s>>>(g, k0, gmax, n);
+    const dim3 grid(bwd_slots(n));
     if (img_bf16)
       inv_bwd_kernel<__nv_bfloat16><<<grid, kBwdThreads, 0, s>>>(
-          pts, rg, tg, static_cast<const __nv_bfloat16*>(img), g, k0, dpts,
-          scratch, zp, n, B, G);
+          pts, rg, tg, static_cast<const __nv_bfloat16*>(img), g, k0, gmax,
+          dpts, rep, acc, n, B, G);
     else
       inv_bwd_kernel<float><<<grid, kBwdThreads, 0, s>>>(
-          pts, rg, tg, static_cast<const float*>(img), g, k0, dpts, scratch,
-          zp, n, B, G);
+          pts, rg, tg, static_cast<const float*>(img), g, k0, gmax, dpts,
+          rep, acc, n, B, G);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int fold_n = B * G * G * G > B * 12 ? B * G * G * G : B * 12;
-  inv_fold_kernel<<<(fold_n + kFoldThreads - 1) / kFoldThreads, kFoldThreads,
-                    0, s>>>(scratch, zp, dvol, drg, dtg, B, G);
+  const int nconv = (B * G * G * G + kFoldThreads - 1) / kFoldThreads;
+  inv_fold_kernel<<<nconv + B * 12, kFoldThreads, 0, s>>>(
+      acc, gmax, rep, dvol, drg, dtg, n, B, G, bwd_slots(n), nconv);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -39,7 +39,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
+import numpy as np
 import torch
 
 from hosnerf_tpu_torch.ops.cuda import _build
@@ -55,6 +57,18 @@ INV_TILE = 1024    # inverse-LBS k0 counts blocks of this many rows (csrc
 MAX_BONES = 32     # csrc kMaxBones
 SORT_CELLS = 16    # Morton cells per axis, as the JAX package's SORT_CELLS
 MORTON_BITS = (SORT_CELLS - 1).bit_length()
+
+
+def fixed_point_exponent(m: float, factor: float, count: int) -> int:
+    """e of the LBS backwards' fixed-point dvol sums, as
+    csrc/lbs_common.cuh::fixed_scale chooses it on the card: the largest
+    integer with count * m * factor * 2^e < 2^62 (f64 arithmetic in that
+    order; m the largest |input gradient| entry, an f32), at most 126 (2^e
+    an f32), so `count` shares of at most m * factor, each rounded to an
+    integer multiple of 2^-e, sum without overflow in int64 in any
+    order."""
+    _, ex = math.frexp(float(np.float32(m)) * factor * count)
+    return min(62 - ex, 126)
 
 
 def _grid_affine(bbox_min, bbox_scale, G: int):
@@ -472,8 +486,8 @@ def _inv_bwd(pts_s, rg, tg, vol_qz, img, gacc, k0, B: int, G: int,
     drg = torch.empty(B, 9, device=dev, dtype=torch.float32)
     dtg = torch.empty(B, 3, device=dev, dtype=torch.float32)
     dvol = torch.empty(B, G * G, G, device=dev, dtype=torch.float32)
-    scratch = torch.empty(lib.hosnerf_inverse_bwd_scratch(B, G), device=dev,
-                          dtype=torch.float32)
+    scratch = torch.empty(lib.hosnerf_inverse_bwd_scratch(n, B, G),
+                          device=dev, dtype=torch.float32)
     k0_p, k0_t = _k0_ptr(k0, dev)
     rc = lib.hosnerf_inverse_lbs_bwd(
         pts_s.data_ptr(), rg.data_ptr(), tg.data_ptr(), img.data_ptr(),
@@ -509,8 +523,9 @@ def inverse_core_bwd(pts_s, rg, tg, vol_qz, gacc, precision: str = "bf16",
     live block of INV_TILE rows (a device tensor or int, clamped to
     n_blocks - 1; None for 0), as `inverse_core_pg_s` takes it: the rows
     below it must be dead (no bone's support); their dpts are stored as 0
-    and they add nothing. dvol, drg and dtg sum over samples with atomics,
-    so their summation order varies from run to run."""
+    and they add nothing. dvol, drg and dtg sum over samples in an order
+    no schedule moves (drg/dtg by per-CTA slots summed in order, dvol in
+    fixed point): the same inputs on one card give the same bits."""
     if pts_s.device.type == "cpu":
         return inverse_core_bwd_plain(pts_s, rg, tg, vol_qz, gacc, precision)
     if not pts_s.is_cuda:
@@ -659,7 +674,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("lbs_inverse")
     p = ctypes.c_void_p
     i = ctypes.c_int
-    _build.declare(lib, "hosnerf_inverse_bwd_scratch", [i, i])
+    _build.declare(lib, "hosnerf_inverse_bwd_scratch", [i, i, i])
     _build.declare(lib, "hosnerf_inverse_image", [p, i, p, i, i, i, p])
     _build.declare(lib, "hosnerf_inverse_lbs",
                    [p, p, p, p, p, p, i, i, i, i, p])
@@ -860,11 +875,11 @@ def _tap_bwd(entry, pts_g, img, grad, rmat, k0_t, B: int, G: int, K: int,
     `entry`. Returns (dpts, dvol [G*G, B*G], drmat or None)."""
     n, dev = pts_g.shape[0], pts_g.device
     lib = _blend_lib()
-    scratch = torch.empty(lib.hosnerf_shared_tap_scratch(n, G), device=dev,
-                          dtype=torch.int32)  # the binning's
     dpts = torch.empty(n, 3, device=dev, dtype=torch.float32)
-    dvol = torch.zeros(G * G, B * G, device=dev, dtype=torch.float32)
-    drmat = (torch.zeros(B, 12 * K, device=dev, dtype=torch.float32)
+    scratch = torch.empty(lib.hosnerf_shared_tap_scratch(n, B, G, K),
+                          device=dev, dtype=torch.int32)
+    dvol = torch.empty(G * G, B * G, device=dev, dtype=torch.float32)
+    drmat = (torch.empty(B, 12 * K, device=dev, dtype=torch.float32)
              if K else None)
     rc = lib.hosnerf_shared_tap_bwd(
         pts_g.data_ptr(), img.data_ptr(), grad.data_ptr(),
@@ -931,8 +946,8 @@ shared_core_fwd.launches = 0
 def shared_core_bwd(pts_g, vol_all, gw, precision: str = "bf16"):
     """Row 7 backward: (dpts [N, 3], dvol [G*G, B*G]). A CPU tensor runs
     `shared_core_bwd_plain`; a CUDA tensor the binned kernels of
-    csrc/lbs_forward.cu (or raises). dvol sums per brick in shared memory,
-    then with atomics, so its summation order varies from run to run."""
+    csrc/lbs_forward.cu (or raises). dvol sums in fixed point, in an order
+    no schedule moves: the same inputs on one card give the same bits."""
     if pts_g.device.type == "cpu":
         return shared_core_bwd_plain(pts_g, vol_all, gw, precision)
     if not pts_g.is_cuda:
@@ -1138,9 +1153,9 @@ def shared_blend_bwd(pts_g, vol_all, rmat, k0, gout,
     """B5 backward: (dpts [N, 3], dvol [G*G, B*G], drmat [B, 12K]) over
     rows from the clamped k0 * 512 on; dpts rows below it are 0. A CPU
     tensor runs `shared_blend_bwd_plain`; a CUDA tensor the binned kernels
-    of csrc/lbs_forward.cu (or raises). dvol and drmat sum per CTA in
-    shared memory, then with atomics, so their summation order varies from
-    run to run."""
+    of csrc/lbs_forward.cu (or raises). dvol sums in fixed point, drmat by
+    per-CTA slots over a stable binning, summed in order: the same inputs
+    on one card give the same bits."""
     if pts_g.device.type == "cpu":
         return shared_blend_bwd_plain(pts_g, vol_all, rmat, k0, gout,
                                       precision)
@@ -1204,7 +1219,7 @@ def _blend_lib() -> ctypes.CDLL:
                    [p, p, p, p, p, i, i, i, i, i, p])
     _build.declare(lib, "hosnerf_shared_weights_fwd",
                    [p, p, p, i, i, i, i, p])
-    _build.declare(lib, "hosnerf_shared_tap_scratch", [i, i])
+    _build.declare(lib, "hosnerf_shared_tap_scratch", [i, i, i, i])
     _build.declare(lib, "hosnerf_shared_tap_bwd",
                    [p, p, p, p, p, p, p, p, p, i, i, i, i, i, p])
     return lib

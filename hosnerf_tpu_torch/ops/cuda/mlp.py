@@ -551,8 +551,8 @@ def embed_trunk_bwd(x, aux, alpha, layers, out, gout, *, espec: EmbedSpec,
     tiles in reverse, dW products; one call) or raises. The wrapper zeroes
     the dx and stream-daux rows the kernels leave unwritten (below the
     clamped k0 * 1024): stream daux feeds an expand whose backward sums
-    every row. The sums over rows (dW, db, broadcast daux) use atomics, so
-    their summation order varies from run to run."""
+    every row. The sums over rows (dW, db, broadcast daux) come in one
+    fixed order: the same inputs on one card give the same bits."""
     if x.device.type == "cpu":
         return fused_embed_trunk_bwd_plain(
             x, aux, alpha, layers, out, gout, espec=espec,
@@ -575,24 +575,24 @@ def embed_trunk_bwd(x, aux, alpha, layers, out, gout, *, espec: EmbedSpec,
     k0 = _k0_tensor(k0_blocks, dev)
     stream = espec.aux_mode == "stream"
 
-    def f32(*shape, zero=True):
-        return (torch.zeros if zero else torch.empty)(
-            *shape, device=dev, dtype=torch.float32)
+    def f32(*shape):   # every output entry is written by the kernels
+        return torch.empty(*shape, device=dev, dtype=torch.float32)
 
     act_x, act_h, gc = _act_buffers(n, L, hid, xw, precision, dev)
-    dx = f32(n, 3, zero=False)
-    daux = f32(n, A, zero=False) if stream else f32(A)
+    dx = f32(n, 3)
+    daux = f32(n, A) if stream else f32(A)
     db, dwout, dbout = f32(L, hid), f32(out_dim, hid), f32(out_dim)
     dw = f32(hid * sum(K for _, K, _ in plan))
     splits = max(1, min(16, n // 16384))
     lib = _bwd_lib()
+    part = _bwd_part(lib, meta, bf16, stream, n, splits, dev)
     rc = lib.hosnerf_embed_trunk_bwd(
         meta.ctypes.data, int(bf16), int(stream), x.data_ptr(),
         aux.data_ptr(), alpha_t.data_ptr(), k0.data_ptr(), w_all.data_ptr(),
         b_all.data_ptr(), wout.data_ptr(), gout.data_ptr(),
         act_x.data_ptr(), act_h.data_ptr(), gc.data_ptr(), dx.data_ptr(),
         daux.data_ptr(), db.data_ptr(), dwout.data_ptr(), dbout.data_ptr(),
-        dw.data_ptr(), n, splits,
+        dw.data_ptr(), part.data_ptr(), n, splits,
         torch.cuda.current_stream(dev).cuda_stream)
     fused_embed_trunk_bwd.launches += 1
     _build.check(rc, lib, "fused_embed_trunk_bwd")
@@ -841,8 +841,8 @@ def trunk_bwd(x, layers, out, gout, *, spec: TrunkSpec,
     runs that plain version; a CUDA tensor the kernels of
     csrc/embed_trunk_bwd.cu (forward recompute with activation store, row
     tiles in reverse, dW products; one call) or raises. The sums over rows
-    (dW, db) use atomics, so their summation order varies from run to
-    run."""
+    (dW, db) come in one fixed order: the same inputs on one card give
+    the same bits."""
     if x.device.type == "cpu":
         return fused_trunk_bwd_plain(x, layers, out, gout, spec=spec,
                                      precision=precision)
@@ -858,16 +858,18 @@ def trunk_bwd(x, layers, out, gout, *, spec: TrunkSpec,
     if gout.shape != (n, out_dim) or gout.device != dev:
         raise ValueError(f"gout must be [N, {out_dim}] on the device of x")
 
-    def f32(*shape):
-        return torch.zeros(*shape, device=dev, dtype=torch.float32)
+    def f32(*shape):   # every output entry is written by the kernels
+        return torch.empty(*shape, device=dev, dtype=torch.float32)
 
     act_x, act_h, gc = _act_buffers(n, L, hid, int(meta[3]), precision, dev)
-    dx = torch.empty(n, spec.din, device=dev, dtype=torch.float32)
+    dx = f32(n, spec.din)
     db, dwout, dbout = f32(L, hid), f32(out_dim, hid), f32(out_dim)
-    dw, unused = f32(hid * sum(K for _, K, _ in plan)), f32(1)
+    dw = f32(hid * sum(K for _, K, _ in plan))
+    unused = torch.zeros(1, device=dev, dtype=torch.float32)
     zero_i = _k0_tensor(None, dev)
     splits = max(1, min(16, n // 16384))
     lib = _bwd_lib()
+    part = _bwd_part(lib, meta, bf16, False, n, splits, dev)
     rc = lib.hosnerf_embed_trunk_bwd(
         meta.ctypes.data, int(bf16), 0, x.data_ptr(),
         x.data_ptr() + 4 * spec.skip_off, unused.data_ptr(),
@@ -875,7 +877,8 @@ def trunk_bwd(x, layers, out, gout, *, spec: TrunkSpec,
         wout.data_ptr(), gout.data_ptr(),
         act_x.data_ptr(), act_h.data_ptr(), gc.data_ptr(), dx.data_ptr(),
         unused.data_ptr(), db.data_ptr(), dwout.data_ptr(), dbout.data_ptr(),
-        dw.data_ptr(), n, splits, torch.cuda.current_stream(dev).cuda_stream)
+        dw.data_ptr(), part.data_ptr(), n, splits,
+        torch.cuda.current_stream(dev).cuda_stream)
     fused_trunk_bwd.launches += 1
     _build.check(rc, lib, "fused_trunk_bwd")
     dlayers, w_off = [], 0
@@ -962,8 +965,21 @@ def _bwd_lib() -> ctypes.CDLL:
     p = ctypes.c_void_p
     i = ctypes.c_int
     _build.declare(lib, "hosnerf_embed_trunk_bwd",
-                   [p, i, i] + [p] * 17 + [i, i, p])
+                   [p, i, i] + [p] * 18 + [i, i, p])
+    _build.declare(lib, "hosnerf_embed_trunk_bwd_scratch", [p, i, i, i, i])
     return lib
+
+
+def _bwd_part(lib, meta, bf16: bool, stream: bool, n: int, splits: int,
+              dev) -> torch.Tensor:
+    """The backward's scratch of partial sums (slots that the kernels
+    write whole and add in order), uninitialised."""
+    floats = lib.hosnerf_embed_trunk_bwd_scratch(
+        meta.ctypes.data, int(bf16), int(stream), n, splits)
+    if floats < 0:
+        raise ValueError("fused_embed_trunk_bwd: the kernels refuse this "
+                         "trunk")
+    return torch.empty(floats, device=dev, dtype=torch.float32)
 
 
 def f32_route() -> str:

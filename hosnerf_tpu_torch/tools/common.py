@@ -131,10 +131,11 @@ def jitter(i: int) -> torch.Generator:
 # elementwise glue)
 HUMAN_KERNELS = ("build_image_kernel", "shared_blend_fwd_kernel",
                  "bin_count_kernel", "bin_scan_kernel", "bin_scatter_kernel",
-                 "tap_bwd_kernel", "inv_image_kernel", "inv_fwd_kernel",
-                 "inv_bwd_kernel", "inv_fold_kernel", "embed_trunk_bf16",
-                 "rows_bwd_bf16", "dw_bf16", "embed_trunk_x3", "rows_bwd_x3",
-                 "dw_x3")
+                 "tap_bwd_kernel", "tap_finish_kernel", "inv_image_kernel",
+                 "inv_fwd_kernel", "inv_gmax_kernel", "inv_bwd_kernel",
+                 "inv_fold_kernel", "embed_trunk_bf16", "rows_bwd_bf16",
+                 "dw_bf16", "embed_trunk_x3", "rows_bwd_x3", "dw_x3",
+                 "slot_sums")
 CONV_KEYS = ("conv", "implicit", "cudnn", "dgrad", "wgrad", "fprop")
 GEMM_KEYS = ("gemm", "nvjet", "cutlass", "xmma", "sm90_")
 GLUE = "sampling, compositing, glue"

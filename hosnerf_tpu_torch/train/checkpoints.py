@@ -22,8 +22,9 @@ human ckpt then the bkgd ckpt with strict=False (3rd.../run.py:205-212).
 from __future__ import annotations
 
 import json
+import math
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -124,6 +125,39 @@ def restore_train_state(ckpt_dir: str, name: str,
     if generator is not None:
         generator.set_state(state["generator"])
     return int(state["step"])
+
+
+def state_diff(a: Any, b: Any, path: str = "") -> List[Tuple[str, float]]:
+    """Where two train states (nested dicts, lists and tuples of tensors
+    and Python values, as `pack_train_state` builds them) differ bit for
+    bit: [(path, largest |a - b|)] in traversal order, empty when they are
+    equal. Tensors are compared on the CPU; a difference of structure,
+    dtype or shape, of a Python value, or a NaN where the other tensor
+    holds none, reports inf."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        if not (isinstance(a, dict) and isinstance(b, dict)
+                and a.keys() == b.keys()):
+            return [(path or ".", math.inf)]
+        return [d for k in a for d in state_diff(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)) or isinstance(b, (list, tuple)):
+        if not (isinstance(a, (list, tuple)) and isinstance(b, (list, tuple))
+                and len(a) == len(b)):
+            return [(path or ".", math.inf)]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in state_diff(x, y, f"{path}/{i}")]
+    if torch.is_tensor(a) or torch.is_tensor(b):
+        if not (torch.is_tensor(a) and torch.is_tensor(b)
+                and a.dtype == b.dtype and a.shape == b.shape):
+            return [(path, math.inf)]
+        x, y = a.detach().cpu(), b.detach().cpu()
+        if torch.equal(x, y):
+            return []
+        if x.dtype == torch.bool or not (x.is_floating_point()
+                                         or x.is_complex()):
+            return [(path, float((x.double() - y.double()).abs().max()))]
+        d = float((x.double() - y.double()).abs().nan_to_num(math.inf).max())
+        return [(path, d if d > 0 else math.inf)]   # d = 0: NaNs differ
+    return [] if a == b else [(path, math.inf)]
 
 
 def load_stage_params(path: str, which: str) -> Dict[str, torch.Tensor]:

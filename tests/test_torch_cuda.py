@@ -181,7 +181,8 @@ def _close(got, ref, tol: float, what: str, max_tol=None) -> None:
 @pytest.mark.parametrize("prec", ["bf16", "highest"])
 def test_inverse_bwd_kernel_matches_plain(lbs_inputs, prec):
     """B4 vs its plain version: the same rounding points; the sums over
-    samples (dvol, drg, dtg) come in atomic order -> 1e-4 of the scale."""
+    samples (dvol, drg, dtg) come in another order (dvol in fixed point)
+    -> 1e-4 of the scale."""
     pts_s, rg, tg, vol_qz, dom = lbs_inputs
     g = torch.randn(pts_s.shape[0], 4, device=pts_s.device,
                     generator=torch.Generator(pts_s.device).manual_seed(1))
@@ -202,8 +203,9 @@ def test_inverse_bwd_kernel_matches_plain(lbs_inputs, prec):
 def test_shared_blend_kernels_match_plain(lbs_inputs, prec, k0):
     """B5 forward and backward vs their plain versions on the sorted
     samples as grid points: forward to 1e-5 of the scale (blend sums in
-    another order); backward 1e-4 (atomic sums over samples), dpts rows
-    below the clamped k0 * 512 exactly 0."""
+    another order); backward 1e-4 (sums over samples in another order,
+    dvol in fixed point), dpts rows below the clamped k0 * 512 exactly
+    0."""
     pts_s, rg, tg, vol_qz, _ = lbs_inputs
     dev = pts_s.device
     G, B = 32, 26
@@ -417,7 +419,7 @@ def test_inverse_entries_match_plain(lbs_inputs, prec):
     through its own count: bit-identical to each other (one per-sample
     computation) and within 1e-6 of the scale of the plain version (B1's
     tolerance), on NaN-poisoned outputs; the backward (B4) to 1e-4 of
-    each gradient's scale (atomic sums over samples)."""
+    each gradient's scale (sums over samples in another order)."""
     pts_s, rg, tg, vol_qz, dom = lbs_inputs
     pts = dom.unsort(pts_s).contiguous()
     ref = clbs.inverse_core_plain(pts, rg, tg, vol_qz, prec)
@@ -553,7 +555,7 @@ def test_inverse_image_matches_plain(dev, prec, dtype):
 def test_shared_core_kernels_match_plain(lbs_inputs, prec):
     """Row 7 forward (one thread per (sample, bone)) to 1e-6 of the scale
     (the plain version's order; nothing sums across samples) and
-    backward to 1e-4 (dvol in atomic order), NaN-poisoned outputs."""
+    backward to 1e-4 (dvol in fixed point), NaN-poisoned outputs."""
     pts_s, rg, tg, vol_qz, _ = lbs_inputs
     dev = pts_s.device
     G, B = 32, 26
@@ -758,6 +760,100 @@ def test_proto_pairgrid_kernel(dev):
 # ---------------------------------------------------------------------------
 # the stage-3 composed step
 # ---------------------------------------------------------------------------
+
+def _repeat_case(kernel, prec, k0, lbs_inputs):
+    """fn() -> the backward's outputs for one kernel of
+    test_backward_kernels_repeat_bit_for_bit."""
+    dev = lbs_inputs[0].device
+    gen = torch.Generator(dev).manual_seed(3)
+    if kernel.startswith("b3"):
+        name = kernel[3:]
+        x, aux, alpha, layers, out, kw = mlp_case(
+            name, n=40_000, width=256 if name == "canonical" else 128)
+        tl, to = torch_args(layers, out)
+        tl = [(w.to(dev), b.to(dev)) for w, b in tl]
+        to = tuple(t.to(dev) for t in to)
+        xt, at = torch.from_numpy(x).to(dev), torch.from_numpy(aux).to(dev)
+        gout = torch.randn(x.shape[0], to[0].shape[0], device=dev,
+                           generator=gen)
+        k0_t = torch.tensor([k0], dtype=torch.int32, device=dev)
+        return lambda: cmlp.fused_embed_trunk_bwd(
+            xt, at, alpha, tl, to, gout, precision=prec, k0_blocks=k0_t,
+            **kw)
+    pts_s, rg, tg, vol_qz, dom = lbs_inputs
+    if kernel == "b4":
+        g = torch.randn(pts_s.shape[0], 4, device=dev, generator=gen)
+        k0_t = torch.tensor([int(dom.k0_for(clbs.INV_TILE)) if k0 else 0],
+                            dtype=torch.int32, device=dev)
+        return lambda: clbs.inverse_core_bwd(pts_s, rg, tg, vol_qz, g, prec,
+                                             k0=k0_t)
+    G, B = 32, 26
+    vol_all = vol_qz.reshape(B, G, G, G).permute(2, 1, 0, 3).reshape(
+        G * G, B * G).contiguous()
+    pts_g = (pts_s @ rg[3].reshape(3, 3).T + tg[3]).contiguous()
+    n = pts_g.shape[0]
+    if kernel == "row7":
+        gw = torch.randn(n, B, device=dev, generator=gen)
+        return lambda: clbs.shared_core_bwd(pts_g, vol_all, gw, prec)
+    K = int(kernel[-1])
+    rmat = torch.randn(B, 12 * K, device=dev, generator=gen) * 0.1
+    gout = torch.randn(n, 3 * K + 1, device=dev, generator=gen)
+    k0_t = torch.tensor([2 * k0], dtype=torch.int32, device=dev)
+    return lambda: clbs.shared_blend_bwd(pts_g, vol_all, rmat, k0_t, gout,
+                                         prec)
+
+
+REPEAT_CASES = [(k, z) for k in ("b3_nonrigid", "b3_canonical", "b4",
+                                  "b5_k1", "b5_k2") for z in (0, 1)] \
+    + [("row7", 0)]
+
+
+@pytest.mark.parametrize("prec", ["bf16", "highest"])
+@pytest.mark.parametrize("kernel,k0", REPEAT_CASES)
+def test_backward_kernels_repeat_bit_for_bit(lbs_inputs, kernel, k0, prec):
+    """Every backward kernel, 5 calls on the same inputs, gives the same
+    bits every time (torch.equal on every output): B3 (40,000 rows, so
+    several rows-kernel CTAs and dW splits), B4, B5 with K = 1 and 2 at
+    k0 = 0 and a live k0 (k0 = 1 marks it), row 7. Their sums over
+    rows come in fixed orders: per-CTA slots summed in slot order, and
+    dvol in fixed point."""
+    from hosnerf_tpu_torch.train.checkpoints import state_diff
+    fn = _repeat_case(kernel, prec, k0, lbs_inputs)
+    first = fn()
+    for _ in range(4):
+        assert state_diff(first, fn()) == []
+
+
+def test_stage3_step_on_the_card_repeats_bit_for_bit(dev):
+    """Two steps of the stage-3 trainer (the small width of the test
+    below, bf16 trunks, LPIPS on its random backbone) from one state and
+    generator, run twice under `loop.set_reproducible`: every parameter
+    and Adam moment equal bit for bit."""
+    from hosnerf_tpu_torch.models import lpips
+    from hosnerf_tpu_torch.train import checkpoints as ck
+    from hosnerf_tpu_torch.train import loop, stage3
+    loop.set_reproducible()
+    cfg = stage3.Stage3Config(
+        n_patches=1, patch_size=16, n_samples=32, cnl_mlp_width=32,
+        nr_mlp_width=32, num_prop_samples=16, num_nerf_samples=8,
+        nerf_netwidth=64, prop_netwidth=32, compute_dtype="bf16")
+    nb = synthetic.composed_batch(1, 16, grid_size=cfg.mweight_volume_size)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in nb.items()}
+    lp = lpips.load_weights(lpips.LPIPS(device=dev), quiet=True
+                            ).requires_grad_(False)
+    states = []
+    for _ in range(2):
+        scene, human, opt = stage3.init_state(cfg, seed=0, device=dev)
+        step = stage3.make_train_step(cfg, scene, human, opt,
+                                      lpips_apply=lp)
+        gen = torch.Generator().manual_seed(4)
+        for i in range(2):
+            step(batch, 60_000 + i, gen)
+        torch.cuda.synchronize()
+        states.append(ck.pack_train_state({"scene": scene, "human": human},
+                                          opt, 2, gen))
+    assert ck.state_diff(*states) == []
+
 
 def test_stage3_step_on_the_card_matches_cpu_plain_path(dev):
     """The stage-3 loss and backward at a small width (1 patch of 16 x 16

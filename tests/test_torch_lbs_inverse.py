@@ -6,12 +6,15 @@ Both kernels read the volume from a corner image: entry (b, cx, cy, cz)
 holds the 8 corners of the grid cell floor(f) = (cx, cy, cz) - 1, zero
 off the grid. B1 walks the bones of a sample in order and takes one
 entry per live pair (floor(f) in [-1, G-1] on every axis); B4 adds each
-live pair's dvol shares to a z-pair image (float2 at (b, x + 1, y + 1,
-cz)) and folds it into dvol. Written here as the kernels' index math
-does it, the emulations must give: B1 the plain version bit for bit, B4
-the plain version's dvol, dpts, dRg and dTg (f32 sums in another order,
-relative L2 1e-6). No JAX here: the plain versions are held against JAX
-elsewhere (tests/test_torch_kernels.py, tests/test_torch_train.py).
+live pair's in-grid dvol shares in fixed point (int64 multiples of 2^-e,
+e from the largest |gacc| entry, `clbs.fixed_point_exponent`) to one
+accumulator per voxel and converts them to dvol once. Written here as the
+kernels' index math does it, the emulations must give: B1 the plain
+version bit for bit, B4 the plain version's dvol, dpts, dRg and dTg (f32
+sums in another order, relative L2 1e-6). The fixed-point scale is held
+to its promise: no int64 overflow at the worst case, the total within one
+f32 ulp of the f64 sum. No JAX here: the plain versions are held against
+JAX elsewhere (tests/test_torch_kernels.py, tests/test_torch_train.py).
 """
 
 import numpy as np
@@ -91,19 +94,27 @@ def emulate_b1(pts, rg, tg, vol_qz, precision):
     return torch.stack(acc, 1)
 
 
+# B4's bound of one dvol share over the largest |gacc| entry
+# (csrc/lbs_inverse.cu::share_factor)
+def b4_share_factor(G):
+    return 1.01 * (3.0 * G + 1.0)
+
+
 def emulate_b4(pts, rg, tg, vol_qz, gacc, precision, first=0):
     """B4 over the corner image, from row `first` on (the rows below are
-    dead prefix: dpts 0, nothing added): lane = bone per sample; dvol
-    shares into the z-pair image [B, G+2, G+2, G+1, 2], then the fold.
-    Returns (dpts, drg, dtg, dvol)."""
+    dead prefix: dpts 0, nothing added): lane = bone per sample; the
+    in-grid dvol shares into int64 accumulators [B, G, G, G] in fixed
+    point, then converted. Returns (dpts, drg, dtg, dvol)."""
     B, _, G = vol_qz.shape
-    P, Q = G + 1, G + 2
+    P = G + 1
     n = pts.shape[0]
     img = clbs.inverse_image(vol_qz, precision).float().reshape(-1, 8)
     rnd = clbs._rounder(precision)
     p = pts[first:]
     g = gacc[first:]
-    zp = torch.zeros(B * Q * Q * P, 2)
+    ex = clbs.fixed_point_exponent(
+        float(g.abs().max()) if g.numel() else 0.0, b4_share_factor(G), n)
+    acc = torch.zeros(B * G ** 3, dtype=torch.int64)
     drg, dtg = torch.zeros(B, 9), torch.zeros(B, 3)
     dpts = torch.zeros(n, 3)
     for b in range(B):
@@ -124,10 +135,13 @@ def emulate_b4(pts, rg, tg, vol_qz, gacc, precision, first=0):
                     zc[dz] = zc[dz] + w * e
                     m2[dz] = m2[dz] + wdx * e
                     m3[dz] = m3[dz] + wdy * e
-                at = ((b * Q + cx + dx) * Q + cy + dy) * P + cz
-                assert bool((at[live] < (b + 1) * Q * Q * P).all())
-                zp.index_add_(0, at[live],
-                              torch.stack([w * gz[0], w * gz[1]], 1)[live])
+                for dz in (0, 1):
+                    x, y, z = cx - 1 + dx, cy - 1 + dy, cz - 1 + dz
+                    on = live & (x >= 0) & (x < G) & (y >= 0) & (y < G) \
+                        & (z >= 0) & (z < G)
+                    at = ((b * G + x) * G + y) * G + z
+                    acc.index_add_(0, at[on], torch.round(
+                        (w * gz[dz])[on].double() * 2.0 ** ex).long())
         wb = hz[0] * zc[0] + hz[1] * zc[1]
         df = [g[:, 0] * wb + gw * (m2[0] * hz[0] + m2[1] * hz[1]),
               g[:, 1] * wb + gw * (m3[0] * hz[0] + m3[1] * hz[1]),
@@ -141,8 +155,7 @@ def emulate_b4(pts, rg, tg, vol_qz, gacc, precision, first=0):
         for k in range(3):
             dpts[first:, k] += (df[0] * r[k] + df[1] * r[3 + k]) \
                 + df[2] * r[6 + k]
-    zp = zp.reshape(B, Q, Q, P, 2)
-    dvol = zp[:, 1:G + 1, 1:G + 1, 1:, 0] + zp[:, 1:G + 1, 1:G + 1, :G, 1]
+    dvol = (acc.double() * 2.0 ** -ex).float()
     return dpts, drg, dtg, dvol.reshape(B, G * G, G)
 
 
@@ -195,6 +208,32 @@ def test_b4_zpair_fold_matches_plain(G, B, n, prec):
     for name, a, b in zip(("dpts", "drg", "dtg", "dvol"), got, ref):
         assert float(b.abs().max()) > 0, name
         assert _rel_l2(a, b) <= 1e-6, name
+
+
+@pytest.mark.parametrize("G,count", [(32, 262_144), (8, 4096),
+                                     (96, 1_048_576)])
+def test_fixed_point_scale_cannot_overflow_and_rounds_once(G, count):
+    """The scale the LBS backwards take for their dvol sums: `count` shares
+    at the bound, all of one sign (the worst case), sum below 2^63 after
+    rounding, and the next exponent would not keep the 2^62 margin; random
+    shares within the bound, rounded to 2^-e, summed in int64 and
+    converted once, lie within one f32 ulp of their f64 sum."""
+    rng = np.random.RandomState(G)
+    m = float(np.float32(rng.uniform(0.5, 4.0)))
+    factor = b4_share_factor(G)
+    e = clbs.fixed_point_exponent(m, factor, count)
+    bound = m * factor
+    q = int(np.rint(bound * 2.0 ** e))
+    assert count * q < 2 ** 63 and count * (q + 1) < 2 ** 63
+    assert count * bound * 2.0 ** (e + 1) >= 2.0 ** 62
+    worst = torch.full((count,), q, dtype=torch.int64).sum()
+    assert int(worst) == count * q          # no wrap in torch's int64 sum
+    shares = torch.from_numpy(rng.uniform(-bound, bound, count).astype(
+        np.float32))
+    q = torch.round(shares.double() * 2.0 ** e).to(torch.int64)  # kernel's
+    got = float((q.sum().double() * 2.0 ** -e).float())
+    want = float(shares.double().sum())
+    assert abs(got - want) <= float(np.spacing(np.float32(abs(want))))
 
 
 def test_domain_k0_leaves_output_unchanged():

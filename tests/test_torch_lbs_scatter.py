@@ -3,9 +3,12 @@
 CPU.
 
 The kernels read the volume from a bone-innermost image, bin the live
-samples by brick (4x4x4 grid cells, whose taps touch 5^3 voxels), sum each
-brick's dvol in a shared-memory tile, CTA by CTA over chunks of at most
-SCATTER_CHUNK samples, and flush the tile into dvol; a warp sums each
+samples by brick (4x4x4 grid cells, whose taps touch 5^3 voxels; each
+brick's rows in row order), sum each brick's dvol in a shared-memory tile
+in fixed point (int64 multiples of 2^-e, `clbs.fixed_point_exponent` of
+the largest |grad| entry and the share bound), CTA by CTA over chunks of
+at most SCATTER_CHUNK samples, and flush the tile into int64 accumulators
+that are converted to dvol once; a warp sums each
 sample's per-bone shares of dpts. The schedule's index math (brick ids
 and origins, tile offsets, flush map), written here as the kernels do it,
 must give the dvol, dpts (and B5's drmat) of the plain versions'
@@ -94,6 +97,11 @@ def emulate_bwd(pts_g, vol_all, grad, rmat=None, k0=0):
     rows = rows[has_taps(pts_g[first:], G)]
     br = brick_of(pts_g[rows], G)
     assert bool(((br >= 0) & (br < nbricks)).all())
+    # the fixed-point exponent (csrc/lbs_forward.cu::tap_scale)
+    m = float(grad[rows].abs().max()) if len(rows) else 0.0
+    r = float(rmat.abs().max()) if K else 0.0
+    ex = clbs.fixed_point_exponent(
+        m, 1.02 * (3.0 * K * (3.0 * G + 1.0) * r + 1.0 if K else 1.0), n)
     counts = torch.bincount(br, minlength=nbricks)
     order = rows[torch.argsort(br, stable=True)]
     offs = torch.cumsum(counts, 0) - counts
@@ -103,12 +111,12 @@ def emulate_bwd(pts_g, vol_all, grad, rmat=None, k0=0):
               for s in range(0, int(counts[b]), SCATTER_CHUNK)]
     assert len(chunks) <= -(-n // SCATTER_CHUNK) + nbricks  # the grid
 
-    dvol = torch.zeros(G * G * B * G)
+    dvol = torch.zeros(G * G * B * G, dtype=torch.int64)
     dpts = torch.zeros(n, 3)
     drmat = torch.zeros(B, 12 * K) if K else None
     bones = torch.arange(B)
     for brick, lo, hi in chunks:
-        tile = torch.zeros(BRICK_SPAN ** 3 * TILE_ROW)
+        tile = torch.zeros(BRICK_SPAN ** 3 * TILE_ROW, dtype=torch.int64)
         ox, oy, oz = brick_origin(brick, G)
         rws = order[lo:hi]
         P = pts_g[rws].float()
@@ -158,9 +166,9 @@ def emulate_bwd(pts_g, vol_all, grad, rmat=None, k0=0):
                     assert bool(((a[ok] >= 0) & (a[ok] <= BRICK)).all())
                 idx = tile_index(rx[:, None], ry[:, None], rz[:, None],
                                       bones[None])
-                val = w[:, None] * d[dz]
+                val = torch.round((w[:, None] * d[dz]).double() * 2.0 ** ex)
                 tile.index_add_(0, idx[ok].reshape(-1),
-                                val[ok].reshape(-1))
+                                val[ok].reshape(-1).long())
         for dz, (_, vz, _, dhz) in enumerate(tz):
             c3[:, :, 2] += gw * (dhz * vz)[:, None] * zc[dz]
         dpts[rws] = c3.sum(1)
@@ -169,6 +177,7 @@ def emulate_bwd(pts_g, vol_all, grad, rmat=None, k0=0):
         flushed[src] = True
         assert not tile[~flushed].any()      # nothing past the grid
         dvol.index_add_(0, dst, tile[src])
+    dvol = (dvol.double() * 2.0 ** -ex).float()
     return dpts, dvol.reshape(G * G, B * G), drmat, chunks
 
 

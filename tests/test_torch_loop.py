@@ -6,7 +6,8 @@ tests/test_config_eval_ckpt.py.
 Resume is held bit for bit: a run saved after k steps and resumed into
 freshly built models (other seeds) ends with the same parameters, Adam
 moments, step counts and generator state as the uninterrupted run, for
-the stage-1 and the stage-2 step. Lightning `.ckpt` files cross between
+the stage-1, stage-2 and stage-3 steps; `checkpoints.state_diff` names
+the tensors of two train states that differ. Lightning `.ckpt` files cross between
 the packages key for key: the JAX exporters' files load into the port's
 models with strict=True, and the port's files into JAX's importers.
 """
@@ -22,7 +23,7 @@ from hosnerf_tpu_torch import convert
 from hosnerf_tpu_torch.data import synthetic
 from hosnerf_tpu_torch.data.batches import to_device
 from hosnerf_tpu_torch.train import checkpoints as ck
-from hosnerf_tpu_torch.train import loop, stage1, stage2
+from hosnerf_tpu_torch.train import loop, stage1, stage2, stage3
 
 from test_torch_scene import scene_params_from_port
 from test_torch_stage3 import human_params_from_port
@@ -35,6 +36,10 @@ TINY_SCENE = dict(nerf_netwidth=32, prop_netwidth=16, num_prop_samples=8,
 TINY_HUMAN = dict(n_samples=8, cnl_mlp_width=32, nr_mlp_width=16,
                   mweight_volume_size=8, n_patches=1, patch_size=8,
                   num_states=2)
+TINY_STAGE3 = dict(n_samples=8, cnl_mlp_width=32, nr_mlp_width=16,
+                   mweight_volume_size=8, n_patches=1, patch_size=8,
+                   num_prop_samples=8, num_nerf_samples=4, nerf_netwidth=32,
+                   prop_netwidth=16, near_bkg=0.5, far_bkg=20.0)
 
 
 class Counter(torch.nn.Module):
@@ -213,13 +218,22 @@ def _stage2(seed):
                                                          [0.5])
 
 
+def _stage3(seed):
+    cfg = stage3.Stage3Config(**TINY_STAGE3)
+    scene, human, opt = stage3.init_state(cfg, seed=seed, device="cpu")
+    return ({"scene": scene, "human": human}, opt,
+            stage3.make_train_step(cfg, scene, human, opt))
+
+
 BATCHES = {
     "stage1": lambda: to_device(synthetic.scene_ray_batch(32, time=0.7),
                                 "cpu"),
     "stage2": lambda: to_device(synthetic.human_batch(1, 8, time=0.7,
                                                       grid_size=8), "cpu"),
+    "stage3": lambda: to_device(synthetic.composed_batch(1, 8, time=0.7,
+                                                         grid_size=8), "cpu"),
 }
-BUILD = {"stage1": _stage1, "stage2": _stage2}
+BUILD = {"stage1": _stage1, "stage2": _stage2, "stage3": _stage3}
 
 
 def _assert_same_state(a, b):
@@ -238,13 +252,14 @@ def _assert_same_state(a, b):
 
 
 @pytest.mark.parametrize("stage,cut,total", [("stage1", 2, 4),
-                                              ("stage2", 1, 3)])
+                                              ("stage2", 1, 3),
+                                              ("stage3", 1, 2)])
 def test_resume_is_bit_exact(tmp_path, stage, cut, total):
     """`total` straight steps == `cut` steps, checkpoint, restore into
     models built from another seed, the rest: parameters, Adam state
     (moments and per-parameter step counts), opt.updates and the loop
-    generator, bit for bit (stage 2 takes fewer steps: on the CPU each
-    takes seconds, Adam over the weight-volume decoder's weights)."""
+    generator, bit for bit (stages 2 and 3 take fewer steps: on the CPU
+    each takes seconds, Adam over the weight-volume decoder's weights)."""
     batch = BATCHES[stage]()
     straight = str(tmp_path / "straight")
     models, opt, step = BUILD[stage](0)
@@ -272,6 +287,38 @@ def test_resume_is_bit_exact(tmp_path, stage, cut, total):
         step_fn=step, models=models, optimizer=opt, logdir=cut_dir,
         checkpoint_every=0, generator=gen, prefetch=0)
     _assert_same_state(ck.pack_train_state(models, opt, total, gen), want)
+    assert ck.state_diff(ck.pack_train_state(models, opt, total, gen),
+                         want) == []
+
+
+def test_state_diff_names_the_tensors_that_differ():
+    """state_diff walks two train states and lists [(path, largest |a -
+    b|)] of every tensor that differs bit for bit, in traversal order;
+    other structure, dtype, shape or Python values, and a NaN against a
+    number, report inf; equal states (NaN-free) give []."""
+    model = Counter()
+    opt = torch.optim.Adam(model.parameters(), lr=0.1)
+    a = ck.pack_train_state({"m": model}, opt, 3,
+                            torch.Generator().manual_seed(1))
+    assert ck.state_diff(a, ck.pack_train_state(
+        {"m": model}, opt, 3, torch.Generator().manual_seed(1))) == []
+    other = Counter()
+    with torch.no_grad():
+        other.o += 0.25
+    b = ck.pack_train_state({"m": other}, opt, 3,
+                            torch.Generator().manual_seed(1))
+    assert ck.state_diff(a, b) == [("/models/m/o", 0.25)]
+    b["step"] = 4
+    b["generator"] = torch.Generator().manual_seed(2).get_state()
+    diffs = dict(ck.state_diff(a, b))
+    assert diffs["/models/m/o"] == 0.25 and diffs["/step"] == float("inf")
+    assert list(diffs)[0] == "/models/m/o" and "/generator" in diffs
+    nan = {"x": torch.tensor([1.0, float("nan")]), "l": [torch.zeros(2)]}
+    assert ck.state_diff(nan, {"x": torch.tensor([1.0, 2.0]),
+                               "l": [torch.zeros(2)]}) == [("/x", float("inf"))]
+    assert ck.state_diff({"l": [torch.zeros(2)]}, {"l": [torch.zeros(3)]}) \
+        == [("/l/0", float("inf"))]
+    assert ck.state_diff({"a": 1}, {"b": 1}) == [(".", float("inf"))]
 
 
 # ---------------------------------------------------------------------------
