@@ -38,9 +38,10 @@ Phases, each of which fails the run:
             (`ops/lbs.py::bone_weights`, `ops/cuda/mlp.py::fused_trunk`
             with its backward in both precisions, `tools/proto_pairgrid.py`),
             launches counted around each;
-  repro     the same inputs give the same bits (under
-            `train/loop.py::set_reproducible`, set where this script
-            starts): each backward kernel (B3 non-rigid and canonical, B4,
+  repro     the same inputs give the same bits (under the card settings
+            of `utils/card.py::configure`, set where this script starts,
+            as every entry point of the port sets them): each backward
+            kernel (B3 non-rigid and canonical, B4,
             B5 with K = 2 and K = 1, row 7; both precisions) called
             REPRO_CALLS times on the training inputs at k0 = 0 and at the
             inputs' live k0, every output equal to the first call's; the
@@ -162,9 +163,12 @@ Phases, each of which fails the run:
             metrics.jsonl finite (the first resumed one too), B1-B5
             launched per step as in phase train, best.pt and the
             progress eval written, every PSNR/SSIM/LPIPS of the
-            results files finite. Printed: each stage's ms/step with and
-            without prefetch (metrics.jsonl's sec_per_step) beside the
-            data phases' numbers, the prefetched stage-2 step's device
+            results files finite; torch's default library settings
+            (TF32 convolutions, cuDNN free to choose) are put back before
+            each command, and `utils/card.py::settings()` after it must
+            equal what `configure()` returns: the CLI sets them itself.
+            Printed: each stage's ms/step with and without prefetch
+            (metrics.jsonl's sec_per_step) beside the data phases' numbers, the prefetched stage-2 step's device
             idle share, ms per 512 x 512 eval frame (human, composed);
   ddp       data parallelism (`parallel/`, `entry.dryrun_multidevice`
             size "cell"): DDP_RANKS processes on the one card over gloo
@@ -198,7 +202,10 @@ Phases, each of which fails the run:
             CLI, RUNBOOK_STEPS steps per stage at the production sizes on
             that capture), every metric of its PARITY_RUN.md finite;
             grad_parity (sorted vs dense stage-3 gradients on the card)
-            at PARITY_PATCHES, within its TOL and finite; the 8-patch
+            at PARITY_PATCHES, within its TOL and finite, then at 8
+            patches twice more as fresh `python -m` processes (the tool's
+            own card settings, no setup of this script), the worst value
+            of all three equal bit for bit; the 8-patch
             stage-3 step under the four remat splits (time_step's ms/step,
             memcheck's peak device memory, the losses finite);
             profile_step's components at 2 patches and one profiled step
@@ -2932,6 +2939,17 @@ def finite_results(path: str, what: str):
     return res
 
 
+def torch_defaults(torch) -> None:
+    """torch's own library defaults (TF32 convolutions, cuDNN free to pick
+    non-deterministic algorithms): phase cli puts them back before each
+    command, so that the CLI is checked under the settings it sets itself
+    and not under this script's."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def cli_phase(torch, kind, root, fed, extra_args=(), yaml_extra=""):
     """The port's CLI in-process (`cli.run.main`) on the data phase's
     capture (<root>/cap, 16 frames of 512 x 512, Average/Paeth PNGs) at
@@ -2940,14 +2958,18 @@ def cli_phase(torch, kind, root, fed, extra_args=(), yaml_extra=""):
     what the files do not set. Scene: train (val once), resume with
     prefetch 0, eval; human: train (a progress eval once, steps profiled),
     resume with prefetch 0, eval; hosnerf: train from the two stages'
-    last.pt, resume with prefetch 0, eval. `fed`: the data phases'
+    last.pt, resume with prefetch 0, eval; torch's defaults put back
+    before each command (`torch_defaults`), the card settings read after
+    it held to `configure()`'s. `fed`: the data phases'
     {stage: (ms/step with the items, without)}. A CPU rehearsal adds
     `extra_args` to every command (--device cpu, --ginb size bindings)
     and `yaml_extra` to the two yaml files (smaller sizes)."""
     import math
 
     from hosnerf_tpu_torch.cli import run as cli
+    from hosnerf_tpu_torch.utils import card
     t_phase = time.time()
+    expected = card.configure()
     logbase = os.path.join(root, "logs")
     gin = os.path.join(REPO, "configs", "Backpack.gin")
     default_yaml = os.path.join(REPO, "configs", "default.yaml")
@@ -2976,9 +2998,14 @@ def cli_phase(torch, kind, root, fed, extra_args=(), yaml_extra=""):
         hooks.overrides = {"log_every": CLI_LOG_EVERY, **(overrides or {})}
         for w in wrappers.values():
             w.launches = 0
+        torch_defaults(torch)
         t0 = time.time()
         cli.main(args[stage] + list(extra) + list(extra_args))
         torch.cuda.synchronize()
+        got = card.settings()
+        check(got == expected, f"cli {stage} {' '.join(extra)}: the card "
+              f"settings after the command {got}, configure() gives "
+              f"{expected}")
         return time.time() - t0, {k: w.launches for k, w in
                                   wrappers.items()}
 
@@ -3095,6 +3122,9 @@ def cli_phase(torch, kind, root, fed, extra_args=(), yaml_extra=""):
                           f"{sum(v) / len(v):.2f} ms"
                           for (h, w), v in frames.items()
                           if (h, w) != (DATA_RES, DATA_RES)), flush=True)
+    print(f"phase cli: the card settings after each of the 9 commands "
+          f"(torch's defaults put back before each) equal configure()'s: "
+          f"{json.dumps(expected, sort_keys=True)}", flush=True)
     print("phase cli: restored train states equal the saved ones bit for "
           f"bit ({len(hooks.restored)} resumes: models, Adam exp_avg/"
           "exp_avg_sq/step, opt.updates, generator); B1-B5 launched in "
@@ -3214,6 +3244,7 @@ def xla_chunk_check(torch, device, G=32):
 # no video encoder: no freeview frames, 4 tpose views)
 PROBE_STEPS = 1000
 PARITY_PATCHES = (2, 8)
+PARITY_FRESH = 2     # fresh-process runs at PARITY_PATCHES[-1]
 # grad_parity's two passes each run row 1 and B4 once: the sorted path, and
 # the dense path's quad core in its default 'sig' order
 PARITY_INVERSE = {"inverse_core_pg_s": 2, "inverse_core_bwd": 2,
@@ -3295,6 +3326,28 @@ def runbook_subphase(torch, root):
           f"{vals}")
 
 
+def fresh_grad_parity(n_patches: int) -> tuple:
+    """(worst rel max-diff, its parameter) of `python -m
+    hosnerf_tpu_torch.tools.grad_parity --n_patches n` run as a fresh
+    process: the tool sets the card's settings itself (this script's
+    CUBLAS_WORKSPACE_CONFIG is not passed on)."""
+    env = {k: v for k, v in os.environ.items()
+           if k != "CUBLAS_WORKSPACE_CONFIG"}
+    res = subprocess.run(
+        [sys.executable, "-m", "hosnerf_tpu_torch.tools.grad_parity",
+         "--n_patches", str(n_patches)], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=600)
+    check(res.returncode == 0, f"grad_parity --n_patches {n_patches} as a "
+          f"fresh process exited {res.returncode}: {res.stdout[-2000:]}"
+          f"{res.stderr[-2000:]}")
+    line = [ln for ln in res.stdout.splitlines()
+            if ln.startswith("worst rel diff exact:")]
+    check(len(line) == 1, f"grad_parity: no exact worst value in "
+          f"{res.stdout[-2000:]}")
+    value, name = line[0].split(":", 1)[1].split()
+    return float(value), name
+
+
 def tools_phase(torch, device, kind):
     """Phase tools (module docstring): the port's chip tools through their
     entry points, each sub-phase's wall time printed."""
@@ -3321,6 +3374,7 @@ def tools_phase(torch, device, kind):
         done("parity runbook", t0)
 
     wrappers = launch_counts()
+    worst = {}
     for n in PARITY_PATCHES:
         t0 = time.time()
         for w in wrappers.values():
@@ -3333,9 +3387,21 @@ def tools_phase(torch, device, kind):
               f"problems {bad}; inverse-LBS launches {inv}", flush=True)
         check(not bad and bool(rels) and rels[0][0] <= grad_parity.TOL,
               f"grad_parity at {n} patches: {bad or rels[:1]}")
+        worst[n] = rels[0]
         check(inv == PARITY_INVERSE, f"grad_parity at {n} patches: "
               f"inverse-LBS launches {inv}, expected {PARITY_INVERSE}")
         done(f"grad_parity {n}", t0)
+
+    t0 = time.time()
+    n = PARITY_PATCHES[-1]
+    fresh = [fresh_grad_parity(n) for _ in range(PARITY_FRESH)]
+    print(f"phase tools: grad_parity at {n} patches, worst rel max-diff in "
+          f"this process {worst[n][0]!r} ({worst[n][1]}); as fresh "
+          "processes " + ", ".join(f"{v!r} ({p})" for v, p in fresh),
+          flush=True)
+    check(all(f == worst[n] for f in fresh), f"grad_parity at {n} patches: "
+          f"fresh processes {fresh} against this process's {worst[n]}")
+    done(f"grad_parity {n} fresh processes", t0)
 
     for split in common.SPLITS:
         t0 = time.time()
@@ -3694,10 +3760,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
-    from hosnerf_tpu_torch.train import loop
-    loop.set_reproducible()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from hosnerf_tpu_torch.utils import card
+    card.configure()
     return run(torch, np)
 
 

@@ -28,6 +28,11 @@ shard_batch`) before `data/batches.py::to_device`; the render and eval
 callables render each chunk split over the ranks (`shard_eval_fn`), as
 the JAX CLI shards over its data mesh. Rank 0 writes the logs,
 checkpoints, results and images.
+
+Every rank sets the card's library settings first (`utils/card.py::
+configure`: TF32 off, cuDNN deterministic, a fixed cuBLAS workspace);
+rank 0 prints them on one `[card] settings` line, and the scene stage
+writes them beside its config.gin as card_settings.json.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import numpy as np
 import torch
 
 from hosnerf_tpu_torch.parallel import distributed, mesh
+from hosnerf_tpu_torch.utils import card
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -164,6 +170,8 @@ def run_scene(args) -> None:
     if distributed.is_primary():
         with open(os.path.join(logdir, "config.gin"), "w") as f:
             f.write(ginlite.dumps(gin))
+        with open(os.path.join(logdir, "card_settings.json"), "w") as f:
+            json.dump(card.settings(), f, indent=1, sort_keys=True)
 
     datadir = run_cfg.get("datadir", ".")
     scene = scene_loader.load_nerf_360_v2(
@@ -487,10 +495,10 @@ def run_hosnerf(args) -> None:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     np.random.seed(args.seed)
-    from hosnerf_tpu_torch.train import loop
-    loop.set_reproducible()
+    settings = card.configure()
     distributed.initialize(device=args.device)   # no-op for one process
     try:
+        _report(f"[card] settings {json.dumps(settings, sort_keys=True)}")
         if args.stage == "scene":
             run_scene(args)
         elif args.stage == "human":

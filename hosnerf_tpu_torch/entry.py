@@ -37,6 +37,8 @@ from typing import Dict, List, Optional
 
 import torch
 
+from hosnerf_tpu_torch.utils import card
+
 TOL_LOSS = 2e-6      # relative to max(1, |loss|)
 TOL_GRAD = {"cpu": 1e-5, "cuda": 1e-4}   # rel L2 per parameter
 # sharded vs one-process render chunk, (max, mean) abs error over the
@@ -291,10 +293,7 @@ def _worker(spec_path: str) -> int:
     os.environ["LOCAL_RANK"] = str(spec.get("local_rank", rank))
     if spec.get("threads"):
         torch.set_num_threads(int(spec["threads"]))
-    # f32 products and convolutions in f32 on the card (no TF32), as
-    # chip_smoke.py runs them
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    card.configure()
     device = distributed.initialize(spec["init"], world, rank,
                                     backend=spec.get("backend"),
                                     device=spec.get("device"))
@@ -379,6 +378,7 @@ def main(argv=None) -> int:
     p.add_argument("--backend", default=None)
     p.add_argument("--n", type=int, default=2)
     args = p.parse_args(argv)
+    card.configure()
     if args.worker:
         return _worker(args.worker)
     fn, ex = entry(args.device)

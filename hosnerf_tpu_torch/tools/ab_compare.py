@@ -21,13 +21,16 @@ on the card shows. Lines are tagged `[A1]`, `[B1]`, `[B2]`, `[A2]`.
            warn_only=True): the ops that warn (no deterministic form), and
            the atomic-backed ops the profiler names.
 
-A checkout whose package has `train/loop.py::set_reproducible` runs under
-it (the change); one without runs as it stands (the parent). Card only.
+Each checkout runs under its own card settings: `utils/card.py::configure`
+where its package has one, else (older checkouts) `train/loop.py::
+set_reproducible` where it has that, with TF32 off for f32 products and
+convolutions as chip_smoke.py then set it. Card only.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import os
 import subprocess
 import sys
@@ -48,16 +51,30 @@ ATOMIC_OPS = ("index_put", "index_add", "scatter", "put_", "grid_sampler",
               "interp", "repeat_interleave", "masked_scatter", "conv")
 
 
+def configure_checkout(torch) -> None:
+    """The card settings of the checkout whose package this process
+    imports: its `utils.card.configure()`, or, in a checkout from before
+    that module, its `train.loop.set_reproducible()` where it has one and
+    TF32 off for f32 products and convolutions (what chip_smoke.py set
+    there), so that older trees stay comparable."""
+    try:
+        card = importlib.import_module("hosnerf_tpu_torch.utils.card")
+    except ModuleNotFoundError:
+        loop = importlib.import_module("hosnerf_tpu_torch.train.loop")
+        if hasattr(loop, "set_reproducible"):
+            loop.set_reproducible()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return
+    card.configure()
+
+
 def _setup(root: str):
     sys.path.insert(0, os.path.abspath(root))
     import torch
+    configure_checkout(torch)
     import chip_smoke as cs
     from hosnerf_tpu_torch.ops.cuda import _build
-    from hosnerf_tpu_torch.train import loop
-    if hasattr(loop, "set_reproducible"):
-        loop.set_reproducible()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     _build.build_all()
     return torch, cs
 
@@ -196,8 +213,10 @@ def main(argv=None) -> int:
     ap.add_argument("--worker", nargs=3, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        worker(*args.worker)
+        worker(*args.worker)   # under the settings of the worker's checkout
         return 0
+    from hosnerf_tpu_torch.utils import card
+    card.configure()
     import torch
     if not torch.cuda.is_available():
         print("ab_compare: no CUDA device", file=sys.stderr)

@@ -28,6 +28,7 @@ import torch
 
 from hosnerf_tpu_torch.models.layers import resolve_device
 from hosnerf_tpu_torch.tools import common
+from hosnerf_tpu_torch.utils import card
 from hosnerf_tpu_torch.utils.benchtools import timeit_chain
 
 ITERS, WARMUP = 10, 2
@@ -97,6 +98,7 @@ def main(argv=None) -> int:
                     help="test-only: tiny widths and batches")
     common.add_device_args(ap)
     args = ap.parse_args(argv)
+    card.configure()
     unknown = set(args.stages) - set(STAGES)
     if unknown:
         ap.error(f"unknown stages {sorted(unknown)} (of 1 2 3)")

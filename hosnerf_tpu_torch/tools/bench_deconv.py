@@ -28,6 +28,7 @@ import torch
 from hosnerf_tpu_torch.models.layers import resolve_device
 from hosnerf_tpu_torch.tools import common
 from hosnerf_tpu_torch.tools import ref_flops
+from hosnerf_tpu_torch.utils import card
 
 ITERS, WARMUP = 20, 3
 IMPLS = ("phase", "conv")
@@ -66,6 +67,7 @@ def main(argv=None) -> int:
                     help="test-only: a smaller volume (no rate printed)")
     common.add_device_args(ap)
     args = ap.parse_args(argv)
+    card.configure()
     device = resolve_device(args.device)
     print(f"device: {common.device_record(device)}", flush=True)
     flops = 3.0 * ref_flops.vol_decoder()

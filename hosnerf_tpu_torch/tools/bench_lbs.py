@@ -28,6 +28,7 @@ import torch
 
 from hosnerf_tpu_torch.models.layers import resolve_device
 from hosnerf_tpu_torch.tools import common
+from hosnerf_tpu_torch.utils import card
 
 N = 262_144
 B, G = 26, 32
@@ -94,6 +95,7 @@ def main(argv=None) -> int:
     ap.add_argument("--warmup", type=int, default=WARMUP)
     common.add_device_args(ap)
     args = ap.parse_args(argv)
+    card.configure()
     device = resolve_device(args.device)
     print(f"device: {common.device_record(device)}", flush=True)
     print(f"n_samples={args.n}", flush=True)

@@ -34,6 +34,7 @@ from hosnerf_tpu_torch.models.layers import resolve_device
 from hosnerf_tpu_torch.ops.cuda import lbs as clbs
 from hosnerf_tpu_torch.tools import common
 from hosnerf_tpu_torch.tools import pair_count as pc
+from hosnerf_tpu_torch.utils import card
 
 G = 32
 ITERS, WARMUP = 10, 2
@@ -92,6 +93,7 @@ def main(argv=None) -> int:
     ap.add_argument("--warmup", type=int, default=WARMUP)
     common.add_device_args(ap)
     args = ap.parse_args(argv)
+    card.configure()
     device = resolve_device(args.device)
     print(f"device: {common.device_record(device)}", flush=True)
     rays, n, dens, rows = bench(device, args.n_patches, args.patch_size,

@@ -26,6 +26,7 @@ import subprocess
 import torch
 
 from hosnerf_tpu_torch.ops.cuda import lbs as clbs
+from hosnerf_tpu_torch.utils import card
 
 # name: (rows, bones B, transform sets K, where the samples lie, k0[, G =
 # 32]): "mixed": in, partly off and off the grid; "hot": every sample in
@@ -108,10 +109,10 @@ def main(argv=None) -> int:
     ap.add_argument("--cases", nargs="*", default=sorted(TAP_CASES))
     ap.add_argument("--precisions", nargs="*", default=["bf16", "highest"])
     args = ap.parse_args(argv)
+    card.configure()
     if not torch.cuda.is_available():
         print("blend_bwd_f64: needs a CUDA device")
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     for prec in args.precisions:
         for case in args.cases:

@@ -15,6 +15,7 @@ from typing import Callable, Dict
 
 import torch
 
+from hosnerf_tpu_torch.utils import card
 from hosnerf_tpu_torch.utils.benchtools import timeit_chain
 
 # the stage-3 tools' test-only widths (`--small`): the JAX package's
@@ -48,13 +49,14 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def device_record(device: torch.device) -> Dict[str, str]:
+def device_record(device: torch.device) -> Dict[str, object]:
     """What ran a measurement: the card's name and its nvidia-smi line
-    (name, power limit), or the CPU."""
+    (name, power limit), or the CPU; and the library settings it ran
+    under (`utils/card.py::settings`)."""
     if device.type == "cuda":
         return {"kind": torch.cuda.get_device_name(device),
-                "nvidia_smi": card_line()}
-    return {"kind": "cpu"}
+                "nvidia_smi": card_line(), "settings": card.settings()}
+    return {"kind": "cpu", "settings": card.settings()}
 
 
 def chain_ms(fn: Callable[[int], object], iters: int, warmup: int) -> float:

@@ -43,6 +43,7 @@ import torch
 
 from hosnerf_tpu_torch.models.layers import resolve_device
 from hosnerf_tpu_torch.tools import common
+from hosnerf_tpu_torch.utils import card
 
 LOG_EVERY = 50
 # the windows [lo, hi) of steps compared with the JAX curves, and the band:
@@ -257,6 +258,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     common.add_device_args(ap)
     args = ap.parse_args(argv)
+    card.configure()
     device = resolve_device(args.device)
     record = common.device_record(device)
     stages = STAGES if args.stage == "both" else (args.stage,)

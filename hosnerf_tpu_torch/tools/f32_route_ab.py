@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from hosnerf_tpu_torch.ops.cuda import _build
+from hosnerf_tpu_torch.utils import card
 
 ROUTES = ("bf16x3", "3xTF32")
 M, N, K = 64, 128, 64
@@ -57,9 +58,9 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=4000)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    card.configure()
     if not torch.cuda.is_available():
         raise SystemExit("f32_route_ab: needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(args.seed)
     a64 = rng.normal(0, 1, (M, K))
@@ -90,10 +91,9 @@ def main(argv=None) -> int:
               f"f32 {cublas / scale:.3e}); {ctas} CTAs x {args.reps} reps "
               f"{ms:.4f} ms, {rate:.1f} TFLOP/s of f32-grade products, "
               f"{rate * 1e12 / PEAK:.3f} of {PEAK / 1e12:.1f}", flush=True)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-    print(card)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip())
     return 0
 
 

@@ -32,6 +32,7 @@ import torch
 
 from hosnerf_tpu_torch.models.layers import resolve_device
 from hosnerf_tpu_torch.tools import common
+from hosnerf_tpu_torch.utils import card
 
 EPS = 1e-5
 TILES = (64, 128, 256)
@@ -87,6 +88,7 @@ def main(argv=None) -> int:
                     help="test-only: tiny widths (tools/common.py::SMALL)")
     common.add_device_args(ap)
     args = ap.parse_args(argv)
+    card.configure()
     device = resolve_device(args.device)
     print(f"device: {common.device_record(device)}", flush=True)
     for k, v in study(args.n_patches, device, args.patch_size,

@@ -14,7 +14,8 @@ attribute stands in for the JAX package's HOSNERF_SPARSE.
         [--device cpu]
 
 Prints the five worst relative max-differences (max |sorted - dense|
-over max |dense|, per parameter) and any non-finite sorted gradient;
+over max |dense|, per parameter), the worst one's float repr on a line of
+its own (`worst rel diff exact:`), and any non-finite sorted gradient;
 exits 1 where one passes TOL or is not finite. On `composed_batch(n, 32, grid_size=32)`
 with `Stage3Config(n_patches=n, compute_dtype="bf16")`, iter 100, state
 0, the jitter from one CPU generator seeded 7.
@@ -30,6 +31,7 @@ import torch
 
 from hosnerf_tpu_torch.models.layers import resolve_device
 from hosnerf_tpu_torch.tools import common
+from hosnerf_tpu_torch.utils import card
 
 TOL = 5e-3   # bf16 trunks on both sides; the JAX tool's bound
 ITER = 100.0
@@ -101,12 +103,16 @@ def main(argv=None) -> int:
                     help="test-only: tiny widths (tools/common.py::SMALL)")
     common.add_device_args(ap)
     args = ap.parse_args(argv)
+    card.configure()
     device = resolve_device(args.device)
     rels, bad = run(args.n_patches, device, args.patch_size, args.small)
     for line in bad:
         print(line, flush=True)
     print(f"n_patches={args.n_patches} worst rel diff: {top(rels)} (tol "
           f"{TOL}) on {common.device_record(device)['kind']}", flush=True)
+    if rels:
+        print(f"worst rel diff exact: {rels[0][0]!r} {rels[0][1]}",
+              flush=True)
     print("GRAD PARITY:", "FAIL" if bad else "PASS", flush=True)
     return 1 if bad else 0
 

@@ -29,6 +29,7 @@ import torch
 
 from hosnerf_tpu_torch.models.layers import resolve_device
 from hosnerf_tpu_torch.tools import common
+from hosnerf_tpu_torch.utils import card
 
 GIB = 1024 ** 3
 
@@ -52,6 +53,7 @@ def main(argv=None) -> int:
                     help="scene_remat:human_remat (none|heavy|all)")
     common.add_device_args(ap)
     args = ap.parse_args(argv)
+    card.configure()
     device = resolve_device(args.device)
     common.require_card(device, "memcheck_8patch (max_memory_allocated)")
     print(f"device: {common.device_record(device)}", flush=True)

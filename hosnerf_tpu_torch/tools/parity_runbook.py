@@ -151,6 +151,7 @@ def stage_ckpt(logbase, prefix, scene):
 
 
 def main(argv=None):
+    from hosnerf_tpu_torch.utils import card
     ap = argparse.ArgumentParser()
     ap.add_argument("--datadir", required=True,
                     help="capture root in the reference layout")
@@ -171,6 +172,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="the command line's --device (default the card)")
     args = ap.parse_args(argv)
+    card.configure()
 
     logbase = os.path.abspath(args.logbase)
     datadir = os.path.abspath(args.datadir)

@@ -23,6 +23,7 @@ from hosnerf_tpu_torch.models.layers import resolve_device
 from hosnerf_tpu_torch.ops.cuda import lbs as clbs
 from hosnerf_tpu_torch.tools import common
 from hosnerf_tpu_torch.tools import pair_count as pc
+from hosnerf_tpu_torch.utils import card
 
 G = 32
 WINDOWS = (8, 16, 24)
@@ -71,6 +72,7 @@ def main(argv=None) -> int:
     ap.add_argument("--patch_size", type=int, default=32)
     common.add_device_args(ap)
     args = ap.parse_args(argv)
+    card.configure()
     device = resolve_device(args.device)
     print(f"device: {common.device_record(device)}", flush=True)
     for name, res in study(args.n_patches, device, args.patch_size).items():

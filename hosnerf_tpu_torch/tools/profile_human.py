@@ -29,6 +29,7 @@ import torch
 
 from hosnerf_tpu_torch.models.layers import resolve_device
 from hosnerf_tpu_torch.tools import common
+from hosnerf_tpu_torch.utils import card
 
 S = 128
 B = 26
@@ -136,6 +137,7 @@ def main(argv=None) -> int:
                     help="test-only: G = 8, MLPs 32 wide")
     common.add_device_args(ap)
     args = ap.parse_args(argv)
+    card.configure()
     device = resolve_device(args.device)
     n = args.n_patches * args.patch_size ** 2 * S
     sizes = (dict(G=8, width=32, nr_width=32) if args.small else {})

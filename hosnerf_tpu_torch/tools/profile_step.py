@@ -33,6 +33,7 @@ import torch
 from hosnerf_tpu_torch.models.layers import resolve_device
 from hosnerf_tpu_torch.tools import common
 from hosnerf_tpu_torch.tools.time_step import time_split
+from hosnerf_tpu_torch.utils import card
 
 ITERS, WARMUP, K = 10, 2, 10
 ITER = 100.0
@@ -123,6 +124,7 @@ def main(argv=None) -> int:
                     help="test-only: tiny widths (tools/common.py::SMALL)")
     common.add_device_args(ap)
     args = ap.parse_args(argv)
+    card.configure()
     device = resolve_device(args.device)
     remat = args.remat or ("heavy" if args.n_patches >= 8 else "none")
     cfg = common.stage3_config(args.n_patches, args.patch_size, args.small,

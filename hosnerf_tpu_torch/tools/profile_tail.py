@@ -23,6 +23,7 @@ import torch
 
 from hosnerf_tpu_torch.models.layers import resolve_device
 from hosnerf_tpu_torch.tools import common
+from hosnerf_tpu_torch.utils import card
 
 ITERS, WARMUP = 10, 2
 ITER = 100.0
@@ -65,6 +66,7 @@ def main(argv=None) -> int:
                     help="test-only: tiny widths (tools/common.py::SMALL)")
     common.add_device_args(ap)
     args = ap.parse_args(argv)
+    card.configure()
     device = resolve_device(args.device)
     remat = args.remat or ("heavy" if args.n_patches >= 8 else "none")
     cfg = common.stage3_config(args.n_patches, args.patch_size, args.small,

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from hosnerf_tpu_torch.ops.cuda import _build
+from hosnerf_tpu_torch.utils import card
 
 T = 128          # tile rows
 G = 32
@@ -135,7 +136,9 @@ def reference(pts, vol, n_pairs: int):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
-    dev = torch.device(ap.parse_args().device)
+    opts = ap.parse_args()
+    card.configure()
+    dev = torch.device(opts.device)
     pts, vol, ptile_p, pbone_p = case()
     args = [torch.from_numpy(a).to(dev) for a in (ptile_p, pbone_p, pts,
                                                   vol)]

@@ -107,9 +107,11 @@ def step_flops() -> Tuple[float, float]:
 def main(argv=None) -> int:
     from hosnerf_tpu_torch.models.layers import resolve_device
     from hosnerf_tpu_torch.tools import common
+    from hosnerf_tpu_torch.utils import card
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     common.add_device_args(ap)
     args = ap.parse_args(argv)
+    card.configure()
     print(f"device: {common.device_record(resolve_device(args.device))}",
           flush=True)
     fwd, total = step_flops()

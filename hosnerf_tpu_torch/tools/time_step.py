@@ -24,6 +24,7 @@ import torch
 
 from hosnerf_tpu_torch.models.layers import resolve_device
 from hosnerf_tpu_torch.tools import common
+from hosnerf_tpu_torch.utils import card
 
 ITERS, WARMUP = 10, 2
 
@@ -60,6 +61,7 @@ def main(argv=None) -> int:
                     help="test-only: tiny widths (tools/common.py::SMALL)")
     common.add_device_args(ap)
     args = ap.parse_args(argv)
+    card.configure()
     device = resolve_device(args.device)
     print(f"device: {common.device_record(device)}", flush=True)
     ok = True

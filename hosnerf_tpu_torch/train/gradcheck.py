@@ -47,6 +47,7 @@ from hosnerf_tpu_torch.models import lpips
 from hosnerf_tpu_torch.models.layers import resolve_device
 from hosnerf_tpu_torch.models.state import state_index
 from hosnerf_tpu_torch.train import stage2, stage3
+from hosnerf_tpu_torch.utils import card
 
 ITER = 60_000      # the non-rigid condition and the full hann band are on
 
@@ -191,6 +192,7 @@ def main() -> None:
                       help="the composed stage-3 step (scene + human field, "
                       "sorted path)")
     args = ap.parse_args()
+    card.configure()
     report(compare_step_grads(args.device, args.n_patches, args.patch_size,
                               dense=args.dense, stage3_step=args.stage3))
 

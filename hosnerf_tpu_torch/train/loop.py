@@ -45,19 +45,6 @@ from hosnerf_tpu_torch.utils.tb_writer import TBWriter
 PROGRESS_STEPS = (100, 300, 1000, 2500)
 
 
-def set_reproducible() -> None:
-    """The library settings under which the same state, batch and
-    generator give the same bits on one card: cuDNN takes deterministic
-    algorithms and no benchmark search, cuBLAS a fixed workspace
-    (CUBLAS_WORKSPACE_CONFIG, read when its handle is made: call this
-    before the first product on the card). The port's own kernels sum in
-    fixed orders already. Called where a run starts (cli/run.py,
-    chip_smoke.py), not at import."""
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-
-
 class MetricLogger:
     """JSONL + stdout + TensorBoard metric logging with
     step-time/rays-per-sec counters, every `log_every` steps."""

@@ -19,6 +19,7 @@ from hosnerf_tpu_torch.models.human import HumanObjectField
 from hosnerf_tpu_torch.ops.cuda import lbs as clbs
 from hosnerf_tpu_torch.ops.cuda import mlp as cmlp
 from hosnerf_tpu_torch.tools import blend_bwd_f64
+from hosnerf_tpu_torch.utils import card
 
 # shared with tests/test_torch_kernels.py (which holds the plain versions
 # against JAX); this file imports no JAX so it runs where JAX is absent
@@ -84,8 +85,7 @@ pytestmark = pytest.mark.cuda
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    card.configure()
     return torch.device("cuda")
 
 
@@ -415,8 +415,9 @@ INVERSE_ENTRIES = ("inverse_core", "inverse_core_pg", "inverse_core_pgw",
 @pytest.mark.parametrize("prec", ["bf16", "highest"])
 def test_inverse_entries_match_plain(lbs_inputs, prec):
     """The four inverse cores on the unsorted points (rows as given,
-    Morton, signature + Morton, signature order), each one B1 launch
-    through its own count: bit-identical to each other (one per-sample
+    Morton, signature + Morton, signature order; row 9 is
+    `inverse_core_pg`'s Morton route, its default 'sig' route being row
+    1's), each one B1 launch through its own count: bit-identical to each other (one per-sample
     computation) and within 1e-6 of the scale of the plain version (B1's
     tolerance), on NaN-poisoned outputs; the backward (B4) to 1e-4 of
     each gradient's scale (sums over samples in another order)."""
@@ -432,7 +433,8 @@ def test_inverse_entries_match_plain(lbs_inputs, prec):
         _poison(64 << 20, pts.device)
         n0 = entry.launches
         args = [t.clone().requires_grad_() for t in (pts, rg, tg, vol_qz)]
-        got = entry(*args, prec)
+        kw = {"pg_sort": "morton"} if name == "inverse_core_pg" else {}
+        got = entry(*args, prec, **kw)
         torch.cuda.synchronize()
         assert entry.launches == n0 + 1, name
         first = got.detach() if first is None else first
@@ -827,12 +829,12 @@ def test_backward_kernels_repeat_bit_for_bit(lbs_inputs, kernel, k0, prec):
 def test_stage3_step_on_the_card_repeats_bit_for_bit(dev):
     """Two steps of the stage-3 trainer (the small width of the test
     below, bf16 trunks, LPIPS on its random backbone) from one state and
-    generator, run twice under `loop.set_reproducible`: every parameter
+    generator, run twice under `card.configure()`: every parameter
     and Adam moment equal bit for bit."""
     from hosnerf_tpu_torch.models import lpips
     from hosnerf_tpu_torch.train import checkpoints as ck
-    from hosnerf_tpu_torch.train import loop, stage3
-    loop.set_reproducible()
+    from hosnerf_tpu_torch.train import stage3
+    card.configure()
     cfg = stage3.Stage3Config(
         n_patches=1, patch_size=16, n_samples=32, cnl_mlp_width=32,
         nr_mlp_width=32, num_prop_samples=16, num_nerf_samples=8,
@@ -853,6 +855,37 @@ def test_stage3_step_on_the_card_repeats_bit_for_bit(dev):
         states.append(ck.pack_train_state({"scene": scene, "human": human},
                                           opt, 2, gen))
     assert ck.state_diff(*states) == []
+
+
+def test_lpips_on_the_card_matches_the_cpu_under_configure(dev, capsys):
+    """After `card.configure()` LPIPS (its random VGG16 backbone from seed
+    0) of a fixed pair of 64 x 64 images on the card lies within 1e-5
+    relative of the same LPIPS on the CPU: its f32 convolutions run in
+    f32. The measurement then turns cuDNN's TF32 on for one more call, to
+    print what a CLI run took before every entry point called
+    configure(), and puts the setting back."""
+    from hosnerf_tpu_torch.models import lpips
+    rng = np.random.default_rng(11)
+    x, y = (rng.uniform(-1.0, 1.0, (1, 64, 64, 3)).astype(np.float32)
+            for _ in range(2))
+    cpu = lpips.LPIPS(device="cpu")
+    gpu = lpips.LPIPS(device=dev)
+    with torch.no_grad():
+        ref = float(cpu(torch.from_numpy(x), torch.from_numpy(y))[0])
+        xd, yd = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        card.configure()
+        got = float(gpu(xd, yd)[0])
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32 = float(gpu(xd, yd)[0])
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+    with capsys.disabled():
+        print(f"\nLPIPS on the CPU {ref!r}; card under configure() {got!r} "
+              f"(rel {abs(got - ref) / abs(ref):.3e}); card with TF32 "
+              f"convolutions {tf32!r} (rel {abs(tf32 - ref) / abs(ref):.3e})")
+    assert card.settings()["cudnn_allow_tf32"] is False
+    assert abs(got - ref) <= 1e-5 * abs(ref)
 
 
 def test_stage3_step_on_the_card_matches_cpu_plain_path(dev):
