@@ -45,7 +45,7 @@ Phases, each of which fails the run:
             B5 with K = 2 and K = 1, row 7; both precisions) called
             REPRO_CALLS times on the training inputs at k0 = 0 and at the
             inputs' live k0, every output equal to the first call's; the
-            stage-2 step (sorted and dense), bench.py's stage-3 cell and
+            stage-2 step (sorted and dense), bench.py's stage-3 config and
             the stage-1 step, REPRO_STEPS steps each through
             `train/loop.py::run_training` from one state and loop
             generator, run twice, every parameter, Adam moment and step
@@ -94,8 +94,10 @@ Phases, each of which fails the run:
             init_state + make_train_step, the scene's proposal sampler and
             8 x 1024 NeRF MLP beside the human field on its sorted kernel
             path, LPIPS with the random backbone) at bench.py's production
-            cell, Stage3Config(n_patches=2, compute_dtype="bf16"), on
-            composed_batch(2, 32) at iter 60,000: one warm-up step, then
+            config, Stage3Config(n_patches=2, compute_dtype="bf16"), on
+            composed_batch(2, 32) at iter 60,000, one jitter seed (not
+            bench.py's cell, which has no LPIPS term, runs at iteration
+            100 + i and draws per step: phase bench): one warm-up step, then
             STAGE3_STEPS timed steps with the kernels' launches counted
             around them (B1-B5 as in the stage-2 step), the loss finite and
             falling, the peak device memory (reset before the warm-up), and
@@ -207,9 +209,9 @@ Phases, each of which fails the run:
             that capture), every metric of its PARITY_RUN.md finite;
             grad_parity (sorted vs dense stage-3 gradients on the card)
             at PARITY_PATCHES, within its TOL and finite, then at 8
-            patches twice more as fresh `python -m` processes (the tool's
-            own card settings, no setup of this script), the worst value
-            of all three equal bit for bit; the 8-patch
+            patches PARITY_FRESH more times as fresh `python -m` processes
+            (the tool's own card settings, no setup of this script), the
+            worst values equal bit for bit; the 8-patch
             stage-3 step under the four remat splits (time_step's ms/step,
             memcheck's peak device memory, the losses finite);
             profile_step's components at 2 patches and one profiled step
@@ -227,7 +229,17 @@ Phases, each of which fails the run:
             the pair densities of bench_lbs_pg, pg_density_study and
             pg_window_study at 2 patches on the card against the same
             counts on the CPU; bench_all's three stages (one JSON line
-            each).
+            each);
+  bench     the port's bench script, `python -m hosnerf_tpu_torch.bench`
+            (the JAX repo's bench.py: its stage-3 cell without LPIPS, 3 +
+            20 steps at iteration 100 + i, then its 8-patch point), in a
+            fresh process: exit 0, its last line one JSON object with
+            `value` and `sec_per_step_8patch` finite and positive, the
+            implied rate at most TRIPWIRE x 989 TFLOP/s, 0 < MFU <=
+            TRIPWIRE and the counted FLOP source; each point's kernel
+            launches (the bench's own counts, set to 0 before the point
+            and read after its counted step) held to PER_STEP a step;
+            printed with the phase's wall time.
 
 Stdout ends with the card's name and power limit, one JSON line of kernel
 results and one JSON status line. The render kernels' entries report the
@@ -244,6 +256,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -263,7 +276,7 @@ PER_STEP = {"inverse_core_pg_s": 1, "fused_embed_trunk": 4,
             "shared_blend_fwd": 1, "inverse_core_bwd": 1,
             "fused_embed_trunk_bwd": 4, "shared_blend_bwd": 1}
 DENSE_STEPS = 3
-# the stage-3 step (bench.py's cell) launches the human field's kernels as
+# the stage-3 step (bench.py's config) launches the human field's kernels as
 # the stage-2 step does; its render frames 1 B1 and 2 B2 launches a chunk
 STAGE3_STEPS = 5
 STAGE3_FRAMES = 2
@@ -352,7 +365,7 @@ ITERS = 10                 # timed launches per kernel measurement
 REPRO_CALLS = 5
 REPRO_STEPS, REPRO_CUT = 4, 2
 # its configurations: the stage-2 step (sorted, and dense with sparse=False),
-# bench.py's stage-3 cell, stage 1 at the CLI's default widths with two
+# bench.py's stage-3 config, stage 1 at the CLI's default widths with two
 # states on REPRO_RAYS rays; grad_parity's (a CPU rehearsal makes them small)
 REPRO_HUMAN = dict(compute_dtype="bf16")
 REPRO_STAGE3 = dict(n_patches=2, compute_dtype="bf16")
@@ -367,21 +380,16 @@ EXTRA_KEYS = ("step_grad_ms", "step_random_grad_ms", "step_rows",
               "device_ms", "image_ms", "k0_zero_ms", "live_pairs", "k0",
               "fill_ms")
 
-# H100 SXM peaks (NVIDIA data sheet), for the bounds: HBM bytes/s, dense
-# bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
-HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
-# f32-grade products on the tensor cores, the f32 trunks' bound: six bf16
-# products per f32 product (bf16x3; three TF32 ones at 495 TFLOP/s give the
-# same); their share of the FMA bound (F32_FLOPS) is printed beside it
-F32_TC_FLOPS = BF16_FLOPS / 6
-# f32 operations each kernel does, counted from its arithmetic: per live
-# (sample, bone) pair for the inverse LBS (affine 18, taps 24, xy weights
-# 4, z column 16, blend 8; the backward adds the derivative taps, dvol
-# products and the affine's adjoint), per (computed sample, bone) for the
-# forward LBS (z columns 16, weight 4, blend 2 x 12K; the backward adds
-# dw 2 x 12K, dvol/U 32, dfz 6).
-OPS_B1_PAIR, OPS_B4_PAIR = 75, 250
-OPS_B5F_BONE, OPS_B5B_BONE = 68, 166
+# H100 SXM peaks (NVIDIA data sheet), for the bounds: HBM bytes/s, f32
+# FLOP/s outside the tensor cores; the dense bf16 tensor-core rate is
+# hosnerf_tpu_torch/bench.py's BF16_PEAK_TFLOPS, and f32-grade products on
+# the tensor cores (the f32 trunks' bound) take six bf16 products per f32
+# product (bf16x3; three TF32 ones at 495 TFLOP/s give the same), their
+# share of the FMA bound (F32_FLOPS) printed beside it. The LBS kernels'
+# f32 operations per live pair (B1, B4) and per (computed sample, bone)
+# (B5) are bench.py's OPS_* too.
+HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+F32_TC_PER_BF16 = 6
 # the all-bone weights (row 7): per sample its taps and xy weights (28);
 # per (sample, bone) z columns 16 and the weight 4; the backward adds per
 # (sample, bone) the gradient rounding 2, dvol/U 32 and dfz 6, and per
@@ -424,16 +432,18 @@ def time_ms(torch, fn, iters: int) -> float:
 def bound(nbytes: float, f32_ops: float = 0.0, bf16_ops: float = 0.0,
           f32_tc_ops: float = 0.0):
     """(least ms the card could take, 'bytes' or 'operations')."""
+    from hosnerf_tpu_torch.bench import BF16_PEAK_TFLOPS
+    bf16_flops = BF16_PEAK_TFLOPS * 1e12
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = (f32_ops / F32_FLOPS + bf16_ops / BF16_FLOPS
-             + f32_tc_ops / F32_TC_FLOPS) * 1e3
+    t_ops = (f32_ops / F32_FLOPS + bf16_ops / bf16_flops
+             + f32_tc_ops * F32_TC_PER_BF16 / bf16_flops) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def trunk_bound(res, io_bytes: float, flops: float, prec: str) -> str:
     """Sets a trunk kernel's bound: its matmul operations on the tensor
-    cores (bf16, or f32-grade at F32_TC_FLOPS) against its bytes; for f32
-    also the FMA bound (F32_FLOPS) as `fma_bound_ms`. Returns the line
+    cores (bf16, or f32-grade at 1 / F32_TC_PER_BF16 of that rate) against
+    its bytes; for f32 also the FMA bound (F32_FLOPS) as `fma_bound_ms`. Returns the line
     fragment with the rate and the shares (after `res["ms"]` is set)."""
     ops = "bf16_ops" if prec == "bf16" else "f32_tc_ops"
     res["bound_ms"], res["bound_by"] = bound(io_bytes, **{ops: flops})
@@ -649,6 +659,7 @@ def check_inverse_fwd(torch, pts_s, rg, tg, vol_qz, dom, results, key,
     entry by CUDA events, its kernels by the profiler; the bf16 line also
     times the library route (held to the f32 plain version within the
     render tolerances first)."""
+    from hosnerf_tpu_torch import bench
     from hosnerf_tpu_torch.ops.cuda import lbs as clbs
     n, dev = pts_s.shape[0], pts_s.device
     G = vol_qz.shape[-1]
@@ -690,7 +701,7 @@ def check_inverse_fwd(torch, pts_s, rg, tg, vol_qz, dom, results, key,
             pts_s, rg, tg, vol_qz, prec), max(1, iters // 5))
         vol_b = vol_qz.numel() * (2 if prec == "bf16" else 4)
         bms, by = bound(nbytes(pts_s[first:], rg, tg, ref) + vol_b,
-                        f32_ops=OPS_B1_PAIR * pairs)
+                        f32_ops=bench.OPS_B1_PAIR * pairs)
         res = dict(err=err, rel=err / scale, ms=ms, k0_zero_ms=ms0,
                    device_ms=parts["fwd"], image_ms=parts["image"],
                    plain_ms=plain_ms, bound_ms=bms, bound_by=by,
@@ -897,6 +908,7 @@ def check_inverse_bwd(torch, model, ti, results, iters):
     INV_TILE exactly 0, every output within TOL_BWD of the plain version
     on the rows from there on. Timed as B1, with the library route's
     autograd backward."""
+    from hosnerf_tpu_torch import bench
     from hosnerf_tpu_torch.ops.cuda import lbs as clbs
     pts_s, rg, tg, vol_qz = ti["pts_s"], ti["rg"], ti["tg"], ti["vol_qz"]
     dom = ti["dom"]
@@ -945,7 +957,7 @@ def check_inverse_bwd(torch, model, ti, results, iters):
                                     k0=k0_t)
         vol_b = vol_qz.numel() * (2 if prec == "bf16" else 4)
         bms, by = bound(nbytes(pts_s[first:], rg, tg, gacc[first:], *got)
-                        + vol_b, f32_ops=OPS_B4_PAIR * pairs)
+                        + vol_b, f32_ops=bench.OPS_B4_PAIR * pairs)
         kernel_ms = parts["bwd"] + parts["max"] + parts["memset"]
         res = dict(err=err, rel=rel, ms=ms, k0_zero_ms=ms0,
                    device_ms=kernel_ms, image_ms=parts["image"],
@@ -985,6 +997,7 @@ def check_blend(torch, ti, results, iters):
     batch's live k0 (512-row blocks) and the all-dead clamp: forward rows
     below the clamped k0 * 512 left unwritten (NaN), backward dpts rows
     there exactly 0."""
+    from hosnerf_tpu_torch import bench
     from hosnerf_tpu_torch.ops.cuda import lbs as clbs
     pts_g, vol_all, rmat = ti["pts_g"], ti["vol_all"], ti["rmat"]
     dev = pts_g.device
@@ -1044,9 +1057,9 @@ def check_blend(torch, ti, results, iters):
                         pts_g, vol_all, rmat, k0, gout, prec), 1)
                     vol_b = vol_all.numel() * (2 if prec == "bf16" else 4)
                     bf = bound(nbytes(pts_g, rmat, got) + vol_b,
-                               f32_ops=OPS_B5F_BONE * B * n)
+                               f32_ops=bench.OPS_B5F_BONE * B * n)
                     bb = bound(nbytes(pts_g, rmat, gout, *got_b) + vol_b,
-                               f32_ops=OPS_B5B_BONE * B * n)
+                               f32_ops=bench.OPS_B5B_BONE * B * n)
                     line += (f" fwd plain_ms={pf:.4f} bwd plain_ms={pb:.4f} "
                              f"fwd bound_ms={bf[0]:.5f} ({bf[1]}) bwd "
                              f"bound_ms={bb[0]:.5f} ({bb[1]})")
@@ -1313,6 +1326,7 @@ def check_inverse_cores(torch, model, ti, results, iters):
     tolerances of the plain backward; outputs NaN-poisoned. Each core is
     timed whole (sort, B1, unsort) and its kernels alone on its order
     (k0 = 0, as the dense path runs them), beside the library route."""
+    from hosnerf_tpu_torch import bench
     from hosnerf_tpu_torch.ops.cuda import lbs as clbs
     rg, tg, vol_qz = ti["rg"], ti["tg"], ti["vol_qz"]
     pts = ti["si"]["pts_flat"].float().contiguous()
@@ -1374,9 +1388,9 @@ def check_inverse_cores(torch, model, ti, results, iters):
             ms_entry = time_ms(torch, lambda: entry(pts, rg, tg, vol_qz,
                                                     prec, **kw), iters)
             bf = bound(nbytes(x, rg, tg, got) + vol_b,
-                       f32_ops=OPS_B1_PAIR * pairs)
+                       f32_ops=bench.OPS_B1_PAIR * pairs)
             bb = bound(nbytes(x, rg, tg, g, *dgot) + vol_b,
-                       f32_ops=OPS_B4_PAIR * pairs)
+                       f32_ops=bench.OPS_B4_PAIR * pairs)
             print(f"kernel {name} {prec}: rows={n_pad} live_pairs={pairs} "
                   f"fwd max_abs_err={err:.3e} (over scale "
                   f"{err / scale:.3e}) bwd max_abs_err={err_b:.3e} (over "
@@ -2075,7 +2089,8 @@ def scene_alone_ms(torch, cfg, scene, batch, reps=3):
 
 
 def stage3_phase(torch, device, kind, lp, cfg=None, steps=STAGE3_STEPS):
-    """bench.py's stage-3 cell (`cfg` unless given) through init_state +
+    """bench.py's stage-3 config (`cfg` unless given; with LPIPS, at
+    TRAIN_ITER and one jitter seed, unlike bench.py) through init_state +
     make_train_step on one fixed composed batch: warm-up, `steps` timed
     steps with every kernel's launches counted and held to PER_STEP, the
     loss checked, peak device memory, the scene's share. Returns (cfg,
@@ -3752,6 +3767,59 @@ def bench_tools_phase(torch, device, kind):
     print(f"phase bench tools: {time.time() - t_phase:.1f} s", flush=True)
 
 
+# phase bench: the bench script's time limit (s)
+BENCH_TIMEOUT = 600
+
+
+def bench_phase(kind):
+    """Phase bench (module docstring): `python -m hosnerf_tpu_torch.bench`
+    as a fresh process (its own card settings), its last line checked."""
+    from hosnerf_tpu_torch import bench
+    t0 = time.time()
+    env = {k: v for k, v in os.environ.items()
+           if k != "CUBLAS_WORKSPACE_CONFIG"}
+    res = subprocess.run([sys.executable, "-m", "hosnerf_tpu_torch.bench"],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=BENCH_TIMEOUT)
+    wall = time.time() - t0
+    check(res.returncode == 0, f"bench exited {res.returncode}: "
+          f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    for key in ("value", "sec_per_step_8patch"):
+        v = out.get(key)
+        check(isinstance(v, (int, float)) and math.isfinite(v) and v > 0,
+              f"bench: {key} = {v!r}")
+    peak = bench.TRIPWIRE * bench.BF16_PEAK_TFLOPS
+    check(out["implied_tflops"] <= peak, f"bench: implied "
+          f"{out['implied_tflops']} TFLOP/s above {peak}")
+    check(0 < out["mfu_vs_bf16_peak"] <= bench.TRIPWIRE,
+          f"bench: mfu_vs_bf16_peak {out['mfu_vs_bf16_peak']}")
+    check(out["flops_source"] == bench.COUNTED, f"bench: flops_source "
+          f"{out['flops_source']!r}, not the counted one")
+    print(f"phase bench: {json.dumps(out)}", flush=True)
+    points = {}
+    for ln in res.stderr.splitlines():
+        m = re.match(r"bench: (\d+)-patch point: (\d+) steps, launches "
+                     r"(\{.*\})$", ln)
+        if m:
+            points[int(m[1])] = (int(m[2]), json.loads(m[3]))
+    check(sorted(points) == [2, 8], f"bench: launch lines for "
+          f"{sorted(points)} patches, not 2 and 8")
+    wanted = set(launch_counts()) - {"proto_pairgrid"}
+    for n_patches, (steps, launches) in points.items():
+        check(wanted <= set(launches), f"bench: {n_patches}-patch point "
+              f"reports no count for {sorted(wanted - set(launches))}")
+        for k, n in launches.items():
+            per = PER_STEP.get(k, 0)
+            check(n == per * steps, f"bench: {n_patches}-patch point: {k} "
+                  f"launched {n} times in {steps} steps (expected {per} "
+                  "per step)")
+    for ln in res.stderr.splitlines():
+        if ln.startswith("bench: ") and "losses" not in ln:
+            print(f"phase {ln}", flush=True)
+    print(f"phase bench: {wall:.1f} s wall on {kind}", flush=True)
+
+
 def kernel_name(mangled: str) -> str:
     """A kernel's innermost name and integer template arguments from its
     mangled name (enough to tell the trunk kernels apart)."""
@@ -3948,7 +4016,7 @@ def run(torch, np) -> int:
         PER_PALLAS_DENSE_STEP, "dense pallas_dense")
     torch.cuda.empty_cache()
 
-    # ---- stage 3: the composed step (bench.py's cell) and render ----
+    # ---- stage 3: the composed step (bench.py's config) and render ----
     cfg3, scene3, human3, s3_ms, one_step = stage3_phase(torch, device,
                                                          kind, lp)
     profile_groups(torch, "one stage-3 step", one_step, s3_ms)
@@ -3991,6 +4059,8 @@ def run(torch, np) -> int:
     tools_phase(torch, device, kind)
     torch.cuda.empty_cache()
     bench_tools_phase(torch, device, kind)
+    torch.cuda.empty_cache()
+    bench_phase(kind)
 
     def entry(name, source, replaces, n, parts):
         lib = [results[p].get("library_ms") for p in parts]

@@ -103,6 +103,9 @@ def _call(entry, monkeypatch, tmp_path):
             monkeypatch.setattr(sys, "argv", [name, "--device", "cpu"])
             return mod.main()
         return mod.main(TOOL_ARGS[name])
+    if entry == "bench":
+        from hosnerf_tpu_torch import bench
+        return bench.main(["--device", "cpu"])
     if entry == "cli.run":
         from hosnerf_tpu_torch.cli import run
         return run.main(["--stage", "human", "--device", "cpu",
@@ -132,8 +135,8 @@ def _call(entry, monkeypatch, tmp_path):
 
 
 ENTRIES = ([f"tools.{n}" for n in sorted(TOOL_ARGS)]
-           + ["cli.run", "entry.main", "entry._worker", "train.gradcheck",
-              "chip_smoke"])
+           + ["bench", "cli.run", "entry.main", "entry._worker",
+              "train.gradcheck", "chip_smoke"])
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
