@@ -1940,22 +1940,11 @@ def profile(torch, what: str, fn, ref_ms: float):
 # ---------------------------------------------------------------------------
 
 def launch_counts():
-    """{name: wrapper} of every kernel wrapper; each counts its launches."""
-    from hosnerf_tpu_torch.ops.cuda import lbs as clbs
-    from hosnerf_tpu_torch.ops.cuda import mlp as cmlp
+    """{name: wrapper} of every kernel wrapper (`utils/spans.py`'s list and
+    the pair-grid prototype); each counts its launches."""
     from hosnerf_tpu_torch.tools import proto_pairgrid as pp
-    return {"inverse_core_pg_s": clbs.inverse_core_pg_s,
-            "fused_embed_trunk": cmlp.fused_embed_trunk,
-            "shared_blend_fwd": clbs.shared_blend_fwd,
-            "inverse_core_bwd": clbs.inverse_core_bwd,
-            "fused_embed_trunk_bwd": cmlp.fused_embed_trunk_bwd,
-            "shared_blend_bwd": clbs.shared_blend_bwd,
-            **{name: getattr(clbs, name) for name in INVERSE_CORES},
-            "shared_core_fwd": clbs.shared_core_fwd,
-            "shared_core_bwd": clbs.shared_core_bwd,
-            "fused_trunk": cmlp.fused_trunk,
-            "fused_trunk_bwd": cmlp.fused_trunk_bwd,
-            "proto_pairgrid": pp.run}
+    from hosnerf_tpu_torch.utils import spans
+    return {**spans.kernel_wrappers(), "proto_pairgrid": pp.run}
 
 
 def train_phase(torch, device, kind, lp, cfg=None, steps=TRAIN_STEPS,

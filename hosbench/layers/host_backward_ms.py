@@ -1,0 +1,12 @@
+"""host_backward_ms: the host's wall time of the `backward` span
+(autograd's backward, and the gradients' reduction under data
+parallelism), ms a step."""
+
+from hosbench import span_readers
+
+LAYER = "host: the step's Python and dispatch (utils/spans.py)"
+MOVES = "train_rays_per_s"
+
+
+def read(ctx):
+    return span_readers.host_ms(ctx, "backward")

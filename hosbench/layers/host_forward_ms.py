@@ -1,0 +1,10 @@
+"""host_forward_ms: the host's wall time of the `forward` span, ms a step."""
+
+from hosbench import span_readers
+
+LAYER = "host: the step's Python and dispatch (utils/spans.py)"
+MOVES = "train_rays_per_s"
+
+
+def read(ctx):
+    return span_readers.host_ms(ctx, "forward")

@@ -1,0 +1,11 @@
+"""host_step_ms.scene: `host_step_ms` in a stage-1 scene cell, where it
+moves scene_rays_per_s."""
+
+from hosbench import span_readers
+
+LAYER = "host: the step's Python and dispatch (utils/spans.py)"
+MOVES = "scene_rays_per_s"
+
+
+def read(ctx):
+    return span_readers.host_ms(ctx, "step")

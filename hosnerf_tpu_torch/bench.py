@@ -70,6 +70,7 @@ from hosnerf_tpu_torch.models.layers import resolve_device
 from hosnerf_tpu_torch.tools import common
 from hosnerf_tpu_torch.utils import card
 from hosnerf_tpu_torch.utils.benchtools import timeit_chain
+from hosnerf_tpu_torch.utils.spans import kernel_wrappers
 
 # --- baseline derivation, carried verbatim from bench.py (two anchors).
 # Anchor A: the reference's full stage-3 step measured on one CPU core at
@@ -233,16 +234,6 @@ def point_config(n_patches: int, small: bool = False):
         return common.stage3_config(n_patches, small=small)
     return common.split_config(n_patches, ("none", "none"),
                                8 if small else 32, small)
-
-
-def kernel_wrappers() -> Dict[str, Callable]:
-    """{name: wrapper} of the hand-written kernels' wrappers
-    (`ops/cuda/`); each adds one to its `.launches` where it launches its
-    kernel (the plain versions on CPU tensors count nothing)."""
-    from hosnerf_tpu_torch.ops.cuda import lbs, mlp
-    return {name: f for mod in (lbs, mlp) for name, f in vars(mod).items()
-            if callable(f) and hasattr(f, "launches")
-            and not name.startswith("_")}
 
 
 def zero_launches() -> Dict[str, Callable]:

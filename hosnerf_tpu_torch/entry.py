@@ -224,11 +224,9 @@ def _cell(rank: int, world: int, device, spec: Dict) -> Dict:
 
     from hosnerf_tpu_torch.data import batches, synthetic
     from hosnerf_tpu_torch.models import lpips
-    from hosnerf_tpu_torch.ops.cuda import lbs as clbs
-    from hosnerf_tpu_torch.ops.cuda import mlp as cmlp
     from hosnerf_tpu_torch.parallel import mesh
     from hosnerf_tpu_torch.train import stage3
-    from hosnerf_tpu_torch.utils import benchtools
+    from hosnerf_tpu_torch.utils import benchtools, spans
 
     cfg = dataclasses.replace(
         stage3.Stage3Config(n_patches=2, compute_dtype="bf16"),
@@ -248,12 +246,7 @@ def _cell(rank: int, world: int, device, spec: Dict) -> Dict:
         mesh.shard_batch(hb, rank, world, keys=mesh.RAY_KEYS), device)
     gens = [(local, TRAIN_ITER, torch.Generator().manual_seed(11 + i))
             for i in range(4)]
-    wrappers = {"inverse_core_pg_s": clbs.inverse_core_pg_s,
-                "fused_embed_trunk": cmlp.fused_embed_trunk,
-                "shared_blend_fwd": clbs.shared_blend_fwd,
-                "inverse_core_bwd": clbs.inverse_core_bwd,
-                "fused_embed_trunk_bwd": cmlp.fused_embed_trunk_bwd,
-                "shared_blend_bwd": clbs.shared_blend_bwd}
+    wrappers = spans.kernel_wrappers()
     step(*gens[0])                                 # the warm-up step
     if device.type == "cuda":
         torch.cuda.synchronize(device)

@@ -44,6 +44,7 @@ from hosnerf_tpu_torch.ops import lbs as lbs_ops
 from hosnerf_tpu_torch.ops.cuda import lbs as cuda_lbs
 from hosnerf_tpu_torch.ops.cuda import mlp as cuda_mlp
 from hosnerf_tpu_torch.parallel import mesh
+from hosnerf_tpu_torch.utils import spans
 
 
 class HumanObjectField(nn.Module):
@@ -243,36 +244,43 @@ class HumanObjectField(nn.Module):
         """Every sample through every stage. Returns (raw [R, S, 4],
         fg_mask [N, 1], training-branch outputs)."""
         pts_flat, cond, alpha = si["pts_flat"], si["cond"], si["alpha"]
-        x_skel, fg_mask = lbs_ops.inverse_warp(
-            pts_flat, si["m_sR"], si["m_T"], si["vol"],
-            batch["cnl_bbox_min_xyz"], batch["cnl_bbox_scale_xyz"],
-            impl=self.lbs_impl, pg_impl=self.pg_impl, pg_sort=self.pg_sort)
-        if not self.ignore_non_rigid_motions:
-            cnl_pts = self._nr_apply(
-                self.non_rigid_mlp, x_skel,
-                cond.expand(x_skel.shape[0], cond.shape[-1]), alpha)
-        else:
-            cnl_pts = x_skel
-        raw = self._canonical_raw(cnl_pts, embed).reshape(R, S, 4)
+        with spans.span("human.inverse_lbs"):
+            x_skel, fg_mask = lbs_ops.inverse_warp(
+                pts_flat, si["m_sR"], si["m_T"], si["vol"],
+                batch["cnl_bbox_min_xyz"], batch["cnl_bbox_scale_xyz"],
+                impl=self.lbs_impl, pg_impl=self.pg_impl,
+                pg_sort=self.pg_sort)
+        with spans.span("human.trunks"):
+            if not self.ignore_non_rigid_motions:
+                cnl_pts = self._nr_apply(
+                    self.non_rigid_mlp, x_skel,
+                    cond.expand(x_skel.shape[0], cond.shape[-1]), alpha)
+            else:
+                cnl_pts = x_skel
+            raw = self._canonical_raw(cnl_pts, embed).reshape(R, S, 4)
         outputs: Dict[str, torch.Tensor] = {}
         if is_train:
             # the cycle and flow branches sample the weight volume once at
             # the canonical points and blend both transform sets; one
             # 2N-sample forward non-rigid pass over both deform streams
-            p_sR_fwd, p_T_fwd, cond_prev = self._prev_transforms(batch,
-                                                                 iter_val)
-            deform_both, _ = lbs_ops.forward_warp_multi(
-                cnl_pts, torch.stack([si["m_sR_fwd"], p_sR_fwd]),
-                torch.stack([si["m_T_fwd"], p_T_fwd]), si["vol"],
-                batch["cnl_bbox_min_xyz"], batch["cnl_bbox_scale_xyz"],
-                impl=self.lbs_impl)
+            with spans.span("human.pose"):
+                p_sR_fwd, p_T_fwd, cond_prev = self._prev_transforms(
+                    batch, iter_val)
+            with spans.span("human.forward_lbs"):
+                deform_both, _ = lbs_ops.forward_warp_multi(
+                    cnl_pts, torch.stack([si["m_sR_fwd"], p_sR_fwd]),
+                    torch.stack([si["m_T_fwd"], p_T_fwd]), si["vol"],
+                    batch["cnl_bbox_min_xyz"], batch["cnl_bbox_scale_xyz"],
+                    impl=self.lbs_impl)
             n = cnl_pts.shape[0]
             deform_both = deform_both.reshape(2 * n, 3)
             if not self.ignore_non_rigid_motions:
                 cond_both = torch.cat([cond.expand(n, cond.shape[-1]),
                                        cond_prev.expand(n, cond.shape[-1])])
-                deform_both = self._nr_apply(self.non_rigid_forward_mlp,
-                                             deform_both, cond_both, alpha)
+                with spans.span("human.trunks"):
+                    deform_both = self._nr_apply(self.non_rigid_forward_mlp,
+                                                 deform_both, cond_both,
+                                                 alpha)
             outputs = {
                 "observe_pts": pts_flat,
                 "cnl_pts": cnl_pts,
@@ -295,50 +303,59 @@ class HumanObjectField(nn.Module):
         G = self.mweight_volume_size
         pts_flat, cond, alpha = si["pts_flat"], si["cond"], si["alpha"]
         bmin, bscale = batch["cnl_bbox_min_xyz"], batch["cnl_bbox_scale_xyz"]
-        s_, o_, rg, tg, vol_qz = cuda_lbs.grid_tables(
-            si["m_sR"], si["m_T"], si["vol"], bmin, bscale)
-        dom = cuda_lbs.bp_prepare(pts_flat, rg, tg, G, B)
-        pts_s = dom.sort_rows(pts_flat.float())
-        n_pad = pts_s.shape[0]
-        k0 = dom.k0_for(cuda_mlp.MLP_TILE)  # == cuda_lbs.INV_TILE
-        acc_s = cuda_lbs.inverse_core_pg_s(pts_s, rg, tg, vol_qz,
-                                           precision="bf16", k0_blocks=k0)
-        x_skel_s, wsum_s = cuda_lbs.world_from_grid(acc_s, s_, o_)
-        live = dom.live_row_mask()
+        with spans.span("human.sort"):
+            s_, o_, rg, tg, vol_qz = cuda_lbs.grid_tables(
+                si["m_sR"], si["m_T"], si["vol"], bmin, bscale)
+            dom = cuda_lbs.bp_prepare(pts_flat, rg, tg, G, B)
+            pts_s = dom.sort_rows(pts_flat.float())
+            n_pad = pts_s.shape[0]
+            k0 = dom.k0_for(cuda_mlp.MLP_TILE)  # == cuda_lbs.INV_TILE
+            spans.count_rows(dom, cuda_mlp.MLP_TILE)
+        with spans.span("human.inverse_lbs"):
+            acc_s = cuda_lbs.inverse_core_pg_s(pts_s, rg, tg, vol_qz,
+                                               precision="bf16",
+                                               k0_blocks=k0)
+            x_skel_s, wsum_s = cuda_lbs.world_from_grid(acc_s, s_, o_)
+            live = dom.live_row_mask()
 
         def grad_gate(x):
             """Identity on values; dead rows pass no cotangent (the
             kernels leave skipped rows' input gradients unwritten)."""
             return torch.where(live, x, x.detach())
 
-        if not self.ignore_non_rigid_motions:
-            cnl_pts_s = self._nr_apply(
-                self.non_rigid_mlp, grad_gate(x_skel_s).contiguous(),
-                cond.expand(n_pad, cond.shape[-1]), alpha, k0=k0)
-        else:
-            cnl_pts_s = x_skel_s
-        cnl_pts_s = grad_gate(cnl_pts_s).contiguous()
-        raw_s = self._canonical_raw(cnl_pts_s, embed, k0=k0)
+        with spans.span("human.trunks"):
+            if not self.ignore_non_rigid_motions:
+                cnl_pts_s = self._nr_apply(
+                    self.non_rigid_mlp, grad_gate(x_skel_s).contiguous(),
+                    cond.expand(n_pad, cond.shape[-1]), alpha, k0=k0)
+            else:
+                cnl_pts_s = x_skel_s
+            cnl_pts_s = grad_gate(cnl_pts_s).contiguous()
+            raw_s = self._canonical_raw(cnl_pts_s, embed, k0=k0)
         raw_s = torch.where(live, raw_s, 0.0)
         raw = dom.unsort(raw_s).reshape(R, S, 4)
         fg_mask = dom.unsort(wsum_s)
         outputs: Dict[str, torch.Tensor] = {}
         if is_train:
-            p_sR_fwd, p_T_fwd, cond_prev = self._prev_transforms(batch,
-                                                                 iter_val)
-            deform_s, _ = cuda_lbs.forward_lbs_multi(
-                cnl_pts_s, torch.stack([si["m_sR_fwd"], p_sR_fwd]),
-                torch.stack([si["m_T_fwd"], p_T_fwd]), si["vol"], bmin,
-                bscale, k0_blocks=k0 * (cuda_mlp.MLP_TILE
-                                        // cuda_lbs.TILE_SH))
+            with spans.span("human.pose"):
+                p_sR_fwd, p_T_fwd, cond_prev = self._prev_transforms(
+                    batch, iter_val)
+            with spans.span("human.forward_lbs"):
+                deform_s, _ = cuda_lbs.forward_lbs_multi(
+                    cnl_pts_s, torch.stack([si["m_sR_fwd"], p_sR_fwd]),
+                    torch.stack([si["m_T_fwd"], p_T_fwd]), si["vol"], bmin,
+                    bscale, k0_blocks=k0 * (cuda_mlp.MLP_TILE
+                                            // cuda_lbs.TILE_SH))
             d0, d1 = grad_gate(deform_s[0]), grad_gate(deform_s[1])
             if not self.ignore_non_rigid_motions:
-                d0 = self._nr_apply(
-                    self.non_rigid_forward_mlp, d0.contiguous(),
-                    cond.expand(n_pad, cond.shape[-1]), alpha, k0=k0)
-                d1 = self._nr_apply(
-                    self.non_rigid_forward_mlp, d1.contiguous(),
-                    cond_prev.expand(n_pad, cond.shape[-1]), alpha, k0=k0)
+                with spans.span("human.trunks"):
+                    d0 = self._nr_apply(
+                        self.non_rigid_forward_mlp, d0.contiguous(),
+                        cond.expand(n_pad, cond.shape[-1]), alpha, k0=k0)
+                    d1 = self._nr_apply(
+                        self.non_rigid_forward_mlp, d1.contiguous(),
+                        cond_prev.expand(n_pad, cond.shape[-1]), alpha,
+                        k0=k0)
             outputs = {
                 "observe_pts": pts_flat,
                 "cnl_pts": dom.unsort(torch.where(live, cnl_pts_s, 0.0)),
@@ -367,7 +384,8 @@ class HumanObjectField(nn.Module):
         in torch.no_grad()."""
         R = batch["rays_o"].shape[0]
         S = self.n_samples
-        si = self.sample_inputs(batch, iter_val)
+        with spans.span("human.pose"):
+            si = self.sample_inputs(batch, iter_val)
         if is_train and perturb > 0.0 and generator is not None:
             z = si["z_vals"]
             mids = 0.5 * (z[..., 1:] + z[..., :-1])
@@ -388,8 +406,10 @@ class HumanObjectField(nn.Module):
                                         is_train, R, S)
         pts_mask = fg_mask.reshape(R, S, 1)
 
-        rgb_map, acc_map, weights, depth_map = render.raw2outputs(
-            raw, pts_mask, si["z_vals"], batch["rays_d"], batch["bgcolor"])
+        with spans.span("human.render"):
+            rgb_map, acc_map, weights, depth_map = render.raw2outputs(
+                raw, pts_mask, si["z_vals"], batch["rays_d"],
+                batch["bgcolor"])
         outputs.update({
             "rgb": rgb_map,
             "alpha": acc_map,

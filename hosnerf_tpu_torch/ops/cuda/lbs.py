@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from hosnerf_tpu_torch.ops.cuda import _build
+from hosnerf_tpu_torch.utils import spans
 
 PG_EPS = 1e-5      # support widening, as the JAX package's PG_EPS
 SORT_GROUP = 8     # consecutive samples sharing one sort key
@@ -123,6 +124,15 @@ class BPDomain:
         """First live block at a consumer's tile size (floor), as a
         device tensor (no host sync)."""
         return ((self.n_dead_groups * SORT_GROUP) // tile).to(torch.int32)
+
+    def row_counts(self, tile: int):
+        """(live rows, computed rows) as 0-d device tensors: the rows at or
+        after the exact dead/live boundary, and the rows from the clamped
+        first live block of `tile` rows on, where a tile-granular kernel
+        starts computing."""
+        boundary = self.n_dead_groups * SORT_GROUP
+        k0 = torch.clamp(boundary // tile, max=-(-self.n_pad // tile) - 1)
+        return self.n_pad - boundary, self.n_pad - k0 * tile
 
     def live_row_mask(self) -> torch.Tensor:
         """[n_pad, 1] bool: rows at or after the dead/live boundary."""
@@ -540,6 +550,7 @@ inverse_core_bwd.launches = 0
 class _InverseCore(torch.autograd.Function):
 
     @staticmethod
+    @spans.spanned("B1")
     def forward(ctx, pts_s, rg, tg, vol_qz, precision, entry, k0):
         ctx.precision = precision
         if pts_s.device.type == "cpu":
@@ -554,6 +565,7 @@ class _InverseCore(torch.autograd.Function):
         return out
 
     @staticmethod
+    @spans.spanned("B4.bwd")
     def backward(ctx, gacc):
         pts_s, rg, tg, vol_qz, img, k0 = ctx.saved_tensors
         if img is None:
@@ -1173,6 +1185,7 @@ shared_blend_bwd.launches = 0
 class _SharedBlend(torch.autograd.Function):
 
     @staticmethod
+    @spans.spanned("B5")
     def forward(ctx, pts_g, vol_all, rmat, k0, precision):
         ctx.precision = precision
         if pts_g.device.type == "cpu":
@@ -1184,6 +1197,7 @@ class _SharedBlend(torch.autograd.Function):
         return _blend_fwd(pts_g, img, rmat, k0, B, G, K, precision)
 
     @staticmethod
+    @spans.spanned("B5.bwd")
     def backward(ctx, gout):
         pts_g, vol_all, rmat, k0, img = ctx.saved_tensors
         if img is None:

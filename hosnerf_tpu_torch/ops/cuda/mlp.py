@@ -32,6 +32,7 @@ from hosnerf_tpu_torch.models.embedders import (fourier_embed,
 from hosnerf_tpu_torch.ops.cuda import _build
 from hosnerf_tpu_torch.ops.cuda.lbs import (first_live_row, live_rows_mask,
                                             _k0_tensor)
+from hosnerf_tpu_torch.utils import spans
 
 MLP_TILE = 1024      # k0 counts blocks of this many rows, as on the TPU
 MAX_LAYERS = 12      # csrc/trunk_common.cuh kMaxLayers
@@ -624,6 +625,7 @@ class _TrunkCfg:
 class _EmbedTrunk(torch.autograd.Function):
 
     @staticmethod
+    @spans.spanned("B2")
     def forward(ctx, x, aux, k0, cfg, *params):
         ctx.cfg = cfg
         ctx.save_for_backward(x, aux, k0, *params)
@@ -633,6 +635,7 @@ class _EmbedTrunk(torch.autograd.Function):
                                k0_blocks=k0, **cfg.kw)
 
     @staticmethod
+    @spans.spanned("B3.bwd")
     def backward(ctx, gout):
         cfg = ctx.cfg
         x, aux, k0, *params = ctx.saved_tensors

@@ -28,6 +28,7 @@ from hosnerf_tpu_torch.models import scene
 from hosnerf_tpu_torch.models.state import state_index
 from hosnerf_tpu_torch.parallel import mesh
 from hosnerf_tpu_torch.train.schedules import warmup_log_lerp
+from hosnerf_tpu_torch.utils import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,12 +163,13 @@ def make_loss_fn(cfg: Stage1Config, model: scene.SceneField,
                 generator: Optional[torch.Generator] = None):
         shard = mesh.shard_of(batch)
         s_idx = state_index(batch["times"], trans)
-        with shard.draws():
+        with shard.draws(), spans.span("scene"):
             renderings, ray_history = model(
                 batch, train_fraction(cfg, step), True, s_idx, cfg.near,
                 cfg.far, generator=generator)
-        return compute_losses(cfg, renderings, ray_history, batch["target"],
-                              shard)
+        with spans.span("loss.image"):
+            return compute_losses(cfg, renderings, ray_history,
+                                  batch["target"], shard)
 
     return loss_fn
 
@@ -184,9 +186,11 @@ def make_grad_fn(cfg: Stage1Config, model: scene.SceneField,
                 generator: Optional[torch.Generator] = None):
         shard = mesh.shard_of(batch)
         model.zero_grad(set_to_none=True)
-        loss, aux = loss_fn(batch, step, generator)
-        loss.backward()
-        shard.reduce_grads(model.parameters())
+        with spans.span("forward", step):
+            loss, aux = loss_fn(batch, step, generator)
+        with spans.span("backward", step):
+            loss.backward()
+            shard.reduce_grads(model.parameters())
         aux = {k: v.detach() for k, v in aux.items()}
         aux["loss"] = shard.sum(loss.detach())
         return aux
@@ -204,8 +208,10 @@ def make_train_step(cfg: Stage1Config, model: scene.SceneField,
 
     def train_step(batch: Dict[str, torch.Tensor], step: int,
                    generator: Optional[torch.Generator] = None):
-        aux = grad_fn(batch, step, generator)
-        apply_updates(cfg, model, opt)
+        with spans.span("step", step):
+            aux = grad_fn(batch, step, generator)
+            with spans.span("optimizer"):
+                apply_updates(cfg, model, opt)
         return aux
 
     return train_step

@@ -35,6 +35,7 @@ from hosnerf_tpu_torch.models.human import HumanObjectField
 from hosnerf_tpu_torch.models.state import state_index
 from hosnerf_tpu_torch.parallel import mesh
 from hosnerf_tpu_torch.train.schedules import exp_decay
+from hosnerf_tpu_torch.utils import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -255,9 +256,11 @@ def make_grad_fn(loss_fn: Callable, models, transitions=None):
         s_idx = state_index(batch["time"], trans)
         for m in models:
             m.zero_grad(set_to_none=True)
-        loss, losses = loss_fn(batch, iter_val, s_idx, generator)
-        loss.backward()
-        shard.reduce_grads(p for m in models for p in m.parameters())
+        with spans.span("forward", iter_val):
+            loss, losses = loss_fn(batch, iter_val, s_idx, generator)
+        with spans.span("backward", iter_val):
+            loss.backward()
+            shard.reduce_grads(p for m in models for p in m.parameters())
         losses = {k: v.detach() for k, v in losses.items()}
         losses["loss"] = shard.sum(loss.detach())
         return losses
@@ -277,8 +280,10 @@ def make_train_step(cfg: Stage2Config, model: HumanObjectField,
 
     def train_step(batch: Dict[str, torch.Tensor], iter_val,
                    generator: Optional[torch.Generator] = None):
-        losses = grad_fn(batch, iter_val, generator)
-        apply_updates(cfg, opt)
+        with spans.span("step", iter_val):
+            losses = grad_fn(batch, iter_val, generator)
+            with spans.span("optimizer"):
+                apply_updates(cfg, opt)
         return losses
 
     return train_step

@@ -37,6 +37,7 @@ from hosnerf_tpu_torch.models import scene as scene_mod
 from hosnerf_tpu_torch.models.human import HumanObjectField
 from hosnerf_tpu_torch.parallel import mesh
 from hosnerf_tpu_torch.train import stage2 as s2
+from hosnerf_tpu_torch.utils import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,12 +157,14 @@ def composed_forward(cfg: Stage3Config, scene: scene_mod.SceneField,
                  "viewdirs": batch["viewdirs_bkg"], "radii": batch["radii"]}
     scene_gen, human_gen = split_generator(generator,
                                            batch["rays_o"].device)
-    _, ray_history = scene(batch_bkg, 1.0, is_train, state_idx, cfg.near_bkg,
-                           cfg.far_bkg, generator=scene_gen)
+    with spans.span("scene"):
+        _, ray_history = scene(batch_bkg, 1.0, is_train, state_idx,
+                               cfg.near_bkg, cfg.far_bkg, generator=scene_gen)
     human_out = human(batch, iter_val, state_idx, is_train=is_train,
                       perturb=cfg.perturb if is_train else 0.0,
                       generator=human_gen)
-    return composed.compose(ray_history[-1], human_out, batch), human_out
+    with spans.span("compose"):
+        return composed.compose(ray_history[-1], human_out, batch), human_out
 
 
 def composed_patches(cfg: Stage3Config, comp, batch,
@@ -176,10 +179,12 @@ def image_losses(pred: torch.Tensor, target: torch.Tensor,
                  lpips_apply: Optional[Callable] = None
                  ) -> Dict[str, torch.Tensor]:
     """{'mse', 'lpips'} of the composed patches (0 without lpips_apply)."""
-    return {"mse": torch.mean((pred - target) ** 2),
-            "lpips": (torch.mean(lpips_apply(pred * 2.0 - 1.0,
-                                             target * 2.0 - 1.0))
-                      if lpips_apply is not None else pred.new_zeros(()))}
+    mse = torch.mean((pred - target) ** 2)
+    if lpips_apply is None:
+        return {"mse": mse, "lpips": pred.new_zeros(())}
+    with spans.span("loss.lpips"):
+        lpips = torch.mean(lpips_apply(pred * 2.0 - 1.0, target * 2.0 - 1.0))
+    return {"mse": mse, "lpips": lpips}
 
 
 def human_losses(comp, human_out, batch, shard: mesh.RayShard = mesh.ONE
@@ -218,9 +223,11 @@ def make_loss_fn(cfg: Stage3Config, scene: scene_mod.SceneField,
             comp, human_out = composed_forward(cfg, scene, human, batch,
                                                iter_val, state_idx,
                                                generator, is_train=True)
-        losses = {**image_losses(composed_patches(cfg, comp, batch, shard),
-                                 batch["target_patches"], lpips_apply),
-                  **human_losses(comp, human_out, batch, shard)}
+        with spans.span("loss.image"):
+            losses = image_losses(composed_patches(cfg, comp, batch, shard),
+                                  batch["target_patches"], lpips_apply)
+        with spans.span("loss.human"):
+            losses.update(human_losses(comp, human_out, batch, shard))
         return s2.shard_objective(cfg, losses, shard,
                                   weighted_total(cfg, losses))
 
@@ -248,8 +255,10 @@ def make_train_step(cfg: Stage3Config, scene: scene_mod.SceneField,
 
     def train_step(batch: Dict[str, torch.Tensor], iter_val,
                    generator: Optional[torch.Generator] = None):
-        losses = grad_fn(batch, iter_val, generator)
-        s2.apply_updates(cfg, opt)
+        with spans.span("step", iter_val):
+            losses = grad_fn(batch, iter_val, generator)
+            with spans.span("optimizer"):
+                s2.apply_updates(cfg, opt)
         return losses
 
     return train_step

@@ -1001,3 +1001,41 @@ def test_data_fed_stage2_step_on_the_card(capture):
     assert [w.launches - b for w, b in zip(wrappers, before)] == [
         1, 1, 1, 1, 4, 4]
     assert all(bool(torch.isfinite(v)) for v in losses.values()), losses
+
+
+def test_spans_count_the_card_waits(dev):
+    """Under a CUDA-only profiler the spans count a synchronising call
+    (with its line), a cudaMalloc and a cudaFree, map the top-level span's
+    end onto the host clock behind a busy card, launch deltas reach the
+    kernel entry's span, and the sync debug mode is restored after."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hosnerf_tpu_torch.utils import spans
+    x = torch.randn(1000, device=dev)
+    G, B = 8, 5
+    pts = torch.rand(2048, 3, device=dev) * (G - 1)
+    rg = torch.eye(3, device=dev).reshape(1, 9).repeat(B, 1)
+    vol = torch.rand(B, G * G, G, device=dev)
+    mode = torch.cuda.get_sync_debug_mode()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        with spans.span("step", 3):
+            with spans.span("forward"):
+                float(x.sum())
+                clbs.inverse_core_pg_s(pts, rg, torch.zeros(B, 3, device=dev),
+                                       vol)
+            with spans.span("backward"):
+                y = torch.empty(2 ** 30, device=dev)     # a new segment
+                del y
+                torch.cuda.empty_cache()
+            torch.cuda._sleep(10 ** 8)
+    assert torch.cuda.get_sync_debug_mode() == mode
+    step, fwd, b1, bwd = spans.records()
+    assert [r["name"] for r in (fwd, b1, bwd)] == ["forward", "B1",
+                                                   "backward"]
+    assert b1["parent"] == 1 and bwd["parent"] == 0
+    assert fwd["syncs"] == 1 and len(fwd["sync_sites"]) == 1
+    assert b1["launches"] == {"inverse_core_pg_s": 1}
+    assert step["syncs"] == 1 and step["step"] == fwd["step"] == 3
+    assert step["device_allocs"] >= 1 and step["device_frees"] >= 1
+    assert step["device_ns"] - step["t1"] > 1e6      # the card ran behind
+    assert "device_ns" not in fwd and "device_allocs" not in fwd
