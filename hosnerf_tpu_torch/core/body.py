@@ -7,6 +7,8 @@ are jax-free numpy copies used to build synthetic batches.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -77,10 +79,16 @@ def rodrigues(rvec: torch.Tensor) -> torch.Tensor:
     return torch.stack(rows, dim=-1).reshape(rvec.shape[:-1] + (3, 3))
 
 
+@functools.lru_cache(maxsize=None)
+def _unit_row(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """[0, 0, 0, 1], made on `device` once per (device, dtype) by device
+    ops: a row built from a host list is a blocking copy to the card."""
+    return (torch.arange(4, device=device) == 3).to(dtype)
+
+
 def _bottom_row(like: torch.Tensor) -> torch.Tensor:
-    row = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=like.dtype,
-                       device=like.device)
-    return row.expand(like.shape[:-2] + (1, 4))
+    return _unit_row(like.device, like.dtype).expand(like.shape[:-2]
+                                                     + (1, 4))
 
 
 def rigid_inverse(G: torch.Tensor) -> torch.Tensor:

@@ -34,6 +34,32 @@ def volumetric_rendering(rgbs, weights, bg_rgbs):
     return {"rgb": rgb, "acc": acc}
 
 
+class _Cumprod(torch.autograd.Function):
+    """torch.cumprod along the last axis, differentiated by torch's own
+    formula for an input without zeros, (reversed cumsum of output x
+    gradient) / input, taken without torch's test for zeros: that test
+    reads its answer back to the host, which then waits for the card to
+    run everything queued before it."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return (out * grad).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
+def _transmittance(alpha):
+    """The exclusive product of (1 - alpha + 1e-10) along the samples; no
+    factor is zero (alpha <= 1), as `_Cumprod` needs."""
+    return _Cumprod.apply(torch.cat([torch.ones_like(alpha[..., :1]),
+                                     1.0 - alpha + 1e-10], dim=-1))[..., :-1]
+
+
 def raw2outputs(raw, raw_mask, z_vals, rays_d, bgcolor,
                 rgb_activation=torch.sigmoid, density_activation=torch.relu):
     """HumanNeRF-style compositing of raw (rgb, sigma) masked by the
@@ -48,10 +74,7 @@ def raw2outputs(raw, raw_mask, z_vals, rays_d, bgcolor,
     alpha = 1.0 - torch.exp(-density_activation(raw[..., 3]) * dists)
     alpha = alpha * raw_mask[..., 0]
 
-    trans = torch.cumprod(
-        torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10],
-                  dim=-1), dim=-1)[..., :-1]
-    weights = alpha * trans
+    weights = alpha * _transmittance(alpha)
     rgb_map = torch.sum(weights[..., None] * rgb, dim=-2)
     depth_map = torch.sum(weights * z_vals, dim=-1)
     acc_map = torch.sum(weights, dim=-1)
@@ -72,10 +95,7 @@ def raw2outputs_joint(raw, z_vals, rays_d, pts_mask=None, bgcolor=None):
     if pts_mask is not None:
         alpha = alpha * pts_mask[..., 0]
 
-    trans = torch.cumprod(
-        torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10],
-                  dim=-1), dim=-1)[..., :-1]
-    weights = alpha * trans
+    weights = alpha * _transmittance(alpha)
     rgb_map = torch.sum(weights[..., None] * rgb, dim=-2)
     depth_map = torch.sum(weights * z_vals, dim=-1)
     acc_map = torch.sum(weights, dim=-1)

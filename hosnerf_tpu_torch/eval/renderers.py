@@ -27,7 +27,7 @@ from hosnerf_tpu_torch.data import rays as ray_gen
 from hosnerf_tpu_torch.eval import io as eio
 from hosnerf_tpu_torch.eval import metrics as M
 from hosnerf_tpu_torch.models.layers import resolve_device
-from hosnerf_tpu_torch.models.state import state_index
+from hosnerf_tpu_torch.models.state import state_indexer
 from hosnerf_tpu_torch.parallel import distributed
 
 HUMAN_SHARED_KEYS = (
@@ -44,12 +44,14 @@ def make_render_fn(model, transitions: Optional[torch.Tensor] = None
     """render_fn(chunk_batch) -> rgb [chunk, 3]: the model at
     iter_val = 10**7 with the state of the batch's time (state 0 without
     a time), is_train=False, without autograd."""
+    state_of = state_indexer(transitions)
 
     def render_fn(b: Dict[str, torch.Tensor]) -> torch.Tensor:
         if "time" in b:
-            s_idx = state_index(b["time"], transitions)
+            s_idx = state_of(b["time"])
         else:
-            s_idx = torch.zeros((), dtype=torch.int32)
+            s_idx = torch.zeros((), dtype=torch.int32,
+                                device=b["rays_o"].device)
         with torch.no_grad():
             return model(b, RENDER_ITER, s_idx, is_train=False)["rgb"]
 
@@ -67,11 +69,14 @@ def make_composed_render_fn(cfg, scene, human,
     ("newsmpl_to_scale_world",))`)."""
     from hosnerf_tpu_torch.train import stage3
 
+    state_of = state_indexer(transitions)
+
     def render_fn(b: Dict[str, torch.Tensor]) -> torch.Tensor:
         if "time" in b:
-            s_idx = state_index(b["time"], transitions)
+            s_idx = state_of(b["time"])
         else:
-            s_idx = torch.zeros((), dtype=torch.int32)
+            s_idx = torch.zeros((), dtype=torch.int32,
+                                device=b["rays_o"].device)
         with torch.no_grad():
             comp, _ = stage3.composed_forward(cfg, scene, human, b,
                                               RENDER_ITER, s_idx)

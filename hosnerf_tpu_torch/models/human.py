@@ -40,6 +40,7 @@ from hosnerf_tpu_torch.models.human_components import (
     BodyPoseRefiner, CanonicalMLP, MotionWeightVolumeDecoder, NonRigidMLP)
 from hosnerf_tpu_torch.models.layers import (normal_, resolve_compute_dtype,
                                              resolve_device, resolve_remat)
+from hosnerf_tpu_torch.models.state import state_rows
 from hosnerf_tpu_torch.ops import lbs as lbs_ops
 from hosnerf_tpu_torch.ops.cuda import lbs as cuda_lbs
 from hosnerf_tpu_torch.ops.cuda import mlp as cuda_mlp
@@ -396,8 +397,7 @@ class HumanObjectField(nn.Module):
             si["pts"] = (batch["rays_o"][:, None, :]
                          + batch["rays_d"][:, None, :] * z[..., None])
             si["pts_flat"] = si["pts"].reshape(-1, 3)
-        embed = torch.stack(list(self.human_stateembeds))[
-            torch.as_tensor(state_idx, device=si["vol"].device).long()]
+        embed = state_rows(self.human_stateembeds, state_idx)
 
         samples = (self._samples_sorted
                    if self._sparse_ok(si["pts_flat"], si["vol"], embed)

@@ -33,6 +33,7 @@ from hosnerf_tpu_torch.models.human_components import linear_cdt
 from hosnerf_tpu_torch.models.layers import (normal_, resolve_compute_dtype,
                                              resolve_device, resolve_remat,
                                              uniform_)
+from hosnerf_tpu_torch.models.state import state_rows
 from hosnerf_tpu_torch.parallel import mesh
 
 # MipMLP's fixed architecture (the JAX module's defaults; no config sets
@@ -125,8 +126,7 @@ class MipMLP(nn.Module):
         density_noise / bottleneck_noise; None adds none."""
         x = ray_math.integrated_pos_enc(lifted_means, lifted_vars, MIN_DEG,
                                         MAX_DEG)
-        embed = torch.stack(list(self.bkgd_stateembeds))[
-            torch.as_tensor(state_idx, device=x.device).long()]
+        embed = state_rows(self.bkgd_stateembeds, state_idx)
         while embed.ndim < x.ndim:
             embed = embed[..., None, :]
         embed = embed.expand(x.shape[:-1] + embed.shape[-1:])

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from hosnerf_tpu_torch.models import scene
-from hosnerf_tpu_torch.models.state import state_index
+from hosnerf_tpu_torch.models.state import state_indexer
 from hosnerf_tpu_torch.parallel import mesh
 from hosnerf_tpu_torch.train.schedules import warmup_log_lerp
 from hosnerf_tpu_torch.utils import spans
@@ -139,11 +139,6 @@ def compute_losses(cfg: Stage1Config, renderings, ray_history, target,
     return loss, {"mse": mse, "psnr": psnr}
 
 
-def _transitions(transitions) -> Optional[torch.Tensor]:
-    return (torch.as_tensor(np.asarray(transitions), dtype=torch.float32)
-            if transitions is not None and len(transitions) else None)
-
-
 def train_fraction(cfg: Stage1Config, step: int) -> float:
     """clip(step / max_steps, 0, 1) in float32, the proposal annealing's
     progress."""
@@ -157,12 +152,12 @@ def make_loss_fn(cfg: Stage1Config, model: scene.SceneField,
     train_fraction(step), randomized with the generator's jitter when one
     is given (on a rank's share of a batch: the whole batch's draws, this
     rank's rows), each ray's state from its `times`."""
-    trans = _transitions(transitions)
+    state_of = state_indexer(transitions)
 
     def loss_fn(batch: Dict[str, torch.Tensor], step: int,
                 generator: Optional[torch.Generator] = None):
         shard = mesh.shard_of(batch)
-        s_idx = state_index(batch["times"], trans)
+        s_idx = state_of(batch["times"])
         with shard.draws(), spans.span("scene"):
             renderings, ray_history = model(
                 batch, train_fraction(cfg, step), True, s_idx, cfg.near,
@@ -222,11 +217,11 @@ def make_eval_step(cfg: Stage1Config, model: scene.SceneField,
     """eval_step(batch, train_frac=1.0) -> the last level's rgb [R, 3],
     deterministic, without autograd, at the state of the batch's first
     ray."""
-    trans = _transitions(transitions)
+    state_of = state_indexer(transitions)
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor], train_frac: float = 1.0):
-        s_idx = state_index(batch["times"][0], trans)
+        s_idx = state_of(batch["times"][0])
         renderings, _ = model(batch, train_frac, False, s_idx, cfg.near,
                               cfg.far)
         return renderings[-1]["rgb"]

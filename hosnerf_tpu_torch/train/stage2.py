@@ -32,7 +32,7 @@ from typing import Callable, Dict, Optional, Union
 import torch
 
 from hosnerf_tpu_torch.models.human import HumanObjectField
-from hosnerf_tpu_torch.models.state import state_index
+from hosnerf_tpu_torch.models.state import state_indexer
 from hosnerf_tpu_torch.parallel import mesh
 from hosnerf_tpu_torch.train.schedules import exp_decay
 from hosnerf_tpu_torch.utils import spans
@@ -247,13 +247,12 @@ def make_grad_fn(loss_fn: Callable, models, transitions=None):
     `loss_fn` with the batch's state, backward, and the gradients of
     `models`' parameters summed over the ranks of a split batch, left in
     .grad."""
-    trans = (torch.as_tensor(transitions, dtype=torch.float32)
-             if transitions is not None and len(transitions) else None)
+    state_of = state_indexer(transitions)
 
     def grad_fn(batch: Dict[str, torch.Tensor], iter_val,
                 generator: Optional[torch.Generator] = None):
         shard = mesh.shard_of(batch)
-        s_idx = state_index(batch["time"], trans)
+        s_idx = state_of(batch["time"])
         for m in models:
             m.zero_grad(set_to_none=True)
         with spans.span("forward", iter_val):

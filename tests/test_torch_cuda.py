@@ -1039,3 +1039,69 @@ def test_spans_count_the_card_waits(dev):
     assert step["device_allocs"] >= 1 and step["device_frees"] >= 1
     assert step["device_ns"] - step["t1"] > 1e6      # the card ran behind
     assert "device_ns" not in fwd and "device_allocs" not in fwd
+
+
+def _no_card_waits(step):
+    """Run `step()` once with every synchronising CUDA call an error, then
+    once under a CUDA-only profiler; returns the `step` span's record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hosnerf_tpu_torch.utils import spans
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        step()
+    return [r for r in spans.records() if r["name"] == "step"][0]
+
+
+def test_training_steps_never_wait_on_the_card(dev, capture):
+    """After two warm-up steps, a stage-3 step at the 8-patch shapes (8
+    patches of 32 x 32 rays, the full widths, bf16 trunks, LPIPS, two
+    states) and a stage-1 step (4,096 rays over two states, the full
+    widths) make no synchronising CUDA call: none raises under the sync
+    debug mode 'error', and the `step` span counts no sync."""
+    from hosnerf_tpu_torch.data import batches, scene_pipeline
+    from hosnerf_tpu_torch.models import lpips
+    from hosnerf_tpu_torch.train import stage1, stage3
+    cfg = stage3.Stage3Config(n_patches=8, patch_size=32, num_states=2,
+                              compute_dtype="bf16")
+    scene, human, opt = stage3.init_state(cfg)
+    lp = lpips.load_weights(lpips.LPIPS(device=dev), quiet=True
+                            ).requires_grad_(False)
+    step3 = stage3.make_train_step(cfg, scene, human, opt, [0.25],
+                                   lpips_apply=lp)
+    frames = [{k: torch.as_tensor(v, device=dev) for k, v in
+               synthetic.composed_batch(8, 32, seed=i, time=t,
+                                        grid_size=32).items()}
+              for i, t in enumerate((0.5, 0.1, 0.7))]
+    it = iter(range(100))
+
+    def run3():
+        i = next(it)
+        step3(frames[i % 3], 60_000 + i,
+              torch.Generator().manual_seed(i))
+
+    _, scene1 = capture
+    cfg1 = stage1.Stage1Config(num_states=2, compute_dtype="bf16")
+    model, opt1 = stage1.init_state(cfg1)
+    pipe = scene_pipeline.ScenePipeline(scene1, 4096, seed=0,
+                                        batch_sampler="all_images")
+    feed = [batches.to_device(pipe.sample_train_batch()) for _ in range(3)]
+    step1 = stage1.make_train_step(cfg1, model, opt1, [0.5])
+
+    def run1():
+        i = next(it)
+        step1(feed[i % 3], 250_000 + i,
+              torch.Generator(dev).manual_seed(i))
+
+    for run in (run3, run1):
+        run()
+        run()
+        torch.cuda.synchronize()
+        rec = _no_card_waits(run)
+        assert rec["syncs"] == 0, rec.get("sync_sites")

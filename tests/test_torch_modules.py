@@ -101,6 +101,103 @@ def test_state_index_matches_jax():
     assert int(tstate.state_index(torch.tensor(0.7), None)) == 0
 
 
+LADDER = np.array([0.2, 0.5, 0.8], np.float32)
+# every rung of the epsilon ladder: below, at and above each transition
+RUNGS = np.array([0.0, 0.2 - 2e-5, 0.2 - 1e-5, 0.2, 0.2 + 1e-5, 0.2 + 2e-5,
+                  0.35, 0.5 - 2e-5, 0.5, 0.5 + 1e-5, 0.5 + 2e-5, 0.8,
+                  0.8 + 1e-5, 0.8 + 2e-5, 0.9, 1.0], np.float32)
+
+
+@pytest.mark.parametrize("trans", [LADDER, LADDER[:1], [], None],
+                         ids=["three", "one", "empty", "none"])
+@pytest.mark.parametrize("per_ray", [False, True])
+def test_state_indexer_equals_state_index(trans, per_ray):
+    """The indexer (transitions placed once, at its first call) gives what
+    state_index gives with the transitions passed at every call, for each
+    scalar time and for all times at once, on every rung; its second and
+    later calls as its first."""
+    index = tstate.state_indexer(trans)
+    parent = (_t(trans) if trans is not None and len(trans) else None)
+    times = [_t(RUNGS)] if per_ray else [_t(x) for x in RUNGS]
+    for _ in range(2):
+        for time in times:
+            got = index(time)
+            want = tstate.state_index(time, parent)
+            assert got.dtype == want.dtype == torch.int32
+            assert got.shape == time.shape
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+    if parent is not None and len(trans) == 3:
+        np.testing.assert_array_equal(
+            index(_t(RUNGS)).numpy(),
+            np.asarray(jstate.state_index(RUNGS, LADDER)))
+
+
+def _state_embeds(field: str):
+    """The state embeddings of a narrow three-state model: the scene MLP's
+    or the human field's."""
+    from hosnerf_tpu_torch.models import human as thuman
+    from hosnerf_tpu_torch.models import scene as tscene
+    if field == "scene":
+        return tscene.MipMLP(3, 2, 16, disable_rgb=True,
+                             generator=torch.Generator().manual_seed(0),
+                             device="cpu").bkgd_stateembeds
+    return thuman.HumanObjectField(
+        num_states=3, cnl_mlp_width=16, nr_mlp_width=16, pose_mlp_width=16,
+        mweight_volume_size=8, device="cpu").human_stateembeds
+
+
+@pytest.mark.parametrize("idx", [torch.tensor(2, dtype=torch.int32),
+                                 torch.tensor(0),
+                                 torch.tensor([2, 0, 1, 1, 2, 0, 2],
+                                              dtype=torch.int32)],
+                         ids=["0d-int32", "0d-int64", "per-ray"])
+@pytest.mark.parametrize("field", ["scene", "human"])
+def test_state_rows_equal_advanced_indexing(field, idx):
+    """state_rows gives the rows, and the embeddings' gradients, of the
+    former gather (the stacked table indexed by the index itself, which
+    for a 0-d index reads it back to the host), bit for bit."""
+    embeds = _state_embeds(field)
+    g = torch.randn(idx.shape + embeds[0].shape,
+                    generator=torch.Generator().manual_seed(1))
+    outs = []
+    for gather in (tstate.state_rows,
+                   lambda e, i: torch.stack(list(e))[
+                       torch.as_tensor(i).long()]):
+        rows = gather(embeds, idx)
+        grads = torch.autograd.grad(rows, list(embeds), g)
+        outs.append([rows.detach()] + list(grads))
+    for a, b in zip(*outs):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("fn", ["rigid_inverse", "affine_inverse",
+                                "construct_G"])
+def test_bottom_row_unchanged_bit_for_bit(pose, fn, dtype):
+    """The 4x4 assemblers give the values, bit for bit, of the former bottom
+    row (a [0, 0, 0, 1] tensor built from a host list at each call)."""
+    _, tpose, angles = pose
+    Rs, Ts = jbody.body_pose_to_body_RTs(angles, tpose)
+    G = torch.as_tensor(np.array(jbody.construct_G(Rs, Ts)), dtype=dtype)
+    R, T = (torch.as_tensor(a, dtype=dtype) for a in (Rs, Ts))
+
+    def old_row(like):
+        return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=like.dtype
+                            ).expand(like.shape[:-2] + (1, 4))
+
+    args = (R, T) if fn == "construct_G" else (G,)
+    got = getattr(tbody, fn)(*args)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tbody, "_bottom_row", old_row)
+        want = getattr(tbody, fn)(*args)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    torch.testing.assert_close(got[..., 3, :], torch.tensor(
+        [0.0, 0.0, 0.0, 1.0], dtype=dtype).expand_as(got[..., 3, :]),
+        rtol=0, atol=0)
+
+
 def test_raw2outputs_matches_jax():
     rng = np.random.default_rng(2)
     raw = rng.normal(size=(8, 16, 4)).astype(np.float32)
@@ -112,6 +209,47 @@ def test_raw2outputs_matches_jax():
                                         _t(bg)),
                     jrender.raw2outputs(raw, mask, z, d, bg)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **F32)
+
+
+@pytest.mark.parametrize("joint", [False, True], ids=["human", "joint"])
+def test_compositing_grads_equal_torch_cumprod(joint):
+    """The compositing functions' values and input gradients, bit for bit,
+    against the former transmittance (torch.cumprod and its own backward),
+    with opaque samples (a factor of 1e-10) among them."""
+    rng = np.random.default_rng(3)
+    raw = rng.normal(size=(8, 16, 4)).astype(np.float32)
+    raw[:, 5, 3] = 1e12            # alpha 1: the factor 1 - alpha + 1e-10
+    mask = rng.uniform(size=(8, 16, 1)).astype(np.float32)
+    mask[:, 5] = 1.0
+    z = np.sort(rng.uniform(2, 4, (8, 16)), -1).astype(np.float32)
+    d = rng.normal(size=(8, 3)).astype(np.float32)
+    bg = torch.tensor([255.0, 128.0, 0.0])
+    cots = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            for s in ((8, 3), (8,), (8, 16), (8,))]
+
+    def former(alpha):
+        return torch.cumprod(torch.cat([torch.ones_like(alpha[..., :1]),
+                                        1.0 - alpha + 1e-10], dim=-1),
+                             dim=-1)[..., :-1]
+
+    outs = []
+    for patch in (False, True):
+        x = _t(raw).requires_grad_()
+        with pytest.MonkeyPatch.context() as mp:
+            if patch:
+                mp.setattr(trender, "_transmittance", former)
+            if joint:
+                res = trender.raw2outputs_joint(
+                    torch.cat([torch.sigmoid(x[..., :3]),
+                               torch.relu(x[..., 3:])], -1),
+                    _t(z), _t(d), _t(mask), bg)
+            else:
+                res = trender.raw2outputs(x, _t(mask), _t(z), _t(d), bg)
+        grad, = torch.autograd.grad(res, x, cots)
+        outs.append([r.detach() for r in res] + [grad])
+    for a, b in zip(*outs):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def test_trilinear_and_gather_lbs_match_jax(pose):
